@@ -1,0 +1,826 @@
+"""EC file pipeline: .dat -> .ec00-.ec13 (+ .ecx sorted index), and rebuild.
+
+Byte-identical to the reference pipeline (ref: weed/storage/erasure_coding/
+ec_encoder.go):
+
+- encode streams the .dat through the two-level block layout — shard i's
+  bytes for a row starting at P come from dat[P + i*block : P + (i+1)*block],
+  zero-filled past EOF (ec_encoder.go:162-192) — and appends one block per
+  shard per row, so every shard file is large_rows*1GB + small_rows*1MB;
+- rebuild reconstructs the missing shard files from >=10 survivors.
+
+The codec is pluggable (the CUDA kernel or numpy on the host). The device
+codec takes the streamed route (_encode_streamed): chunked reads of the .dat
+overlap a pool of workers that each stage, upload, launch and download one
+chunk, and a writer thread that appends the shards in order.
+"""
+
+from __future__ import annotations
+
+import os
+import threading
+import time
+from typing import Optional
+
+import numpy as np
+
+from . import (
+    DATA_SHARDS_COUNT,
+    EC_LARGE_BLOCK_SIZE,
+    EC_SMALL_BLOCK_SIZE,
+    PARITY_SHARDS_COUNT,
+    to_ext,
+)
+
+DEFAULT_CHUNK = 4 * 1024 * 1024  # per-shard streaming chunk
+
+# set by write_ec_files after each run: {"route": ..., "input": ...,
+# "kernel": ...} — benchmark/diagnostic introspection, not part of the
+# encode contract
+LAST_ROUTE: dict = {}
+
+# per-stage wall seconds of the last write_ec_files run. The synchronous
+# route fills read_s / kernel_s / shard_write_s. The STREAMED pipeline
+# route fills read_s / stage_s / kernel_s / write_s / sync_s plus
+# pipeline_depth and coverage_of_wall: read/stage/sync are main-thread
+# walls that PARTITION the run (their sum over total_s is the disclosed
+# coverage), while kernel_s (pool) and write_s (writer thread) are
+# overlapped walls whose ratio to total_s discloses overlap efficiency.
+LAST_STAGES: dict = {}
+_STAGE_LOCK = threading.Lock()
+
+# per-stage wall seconds of the last rebuild_ec_files run (read_s /
+# decode_s / write_s / total_s) — the repair-plane mirror of LAST_STAGES.
+# On the pipelined route the stages OVERLAP (decode_s is worker wall while
+# the main thread reads/writes), so their sum can exceed total_s.
+LAST_REBUILD_STAGES: dict = {}
+_REBUILD_STAGE_LOCK = threading.Lock()
+
+# which structure the last rebuild_ec_files run took ("pread", pipelined
+# or not) — the repair mirror of LAST_ROUTE
+LAST_REBUILD_ROUTE: dict = {}
+
+
+def _stage_add(key: str, dt: float) -> None:
+    LAST_STAGES[key] = LAST_STAGES.get(key, 0.0) + dt
+
+
+def _stage_add_locked(key: str, dt: float) -> None:
+    # the streamed pipeline adds kernel_s/write_s from pool and writer
+    # threads concurrently with the main thread's read_s/stage_s: lock
+    with _STAGE_LOCK:
+        LAST_STAGES[key] = LAST_STAGES.get(key, 0.0) + dt
+
+
+def _rebuild_stage_add(key: str, dt: float) -> None:
+    # decode runs on pool workers concurrently with the reader: lock
+    with _REBUILD_STAGE_LOCK:
+        LAST_REBUILD_STAGES[key] = LAST_REBUILD_STAGES.get(key, 0.0) + dt
+
+
+def _sweep_stale_tmp(base_file_name: str, total_shards: int) -> None:
+    """Remove .ecNN.tmp leftovers a crashed encode/rebuild left behind —
+    a torn .tmp must never be mistaken for (or block) a fresh output."""
+    for i in range(total_shards):
+        tmp = base_file_name + to_ext(i) + ".tmp"
+        if os.path.exists(tmp):
+            os.remove(tmp)
+
+
+def _get_codec(codec):
+    """No codec given: the card's (raises when CUDA is absent)."""
+    if codec is None:
+        from ...gpu.coder import get_codec
+
+        codec = get_codec("cuda", DATA_SHARDS_COUNT, PARITY_SHARDS_COUNT)
+    return codec
+
+
+def _read_into(f, out: np.ndarray, offset: int) -> None:
+    """Read len(out) bytes at offset directly into `out` (preadv writes
+    straight into the numpy buffer), zero-filling past EOF."""
+    fd = f.fileno()
+    n = 0
+    want = len(out)
+    while n < want:
+        got = os.preadv(fd, [memoryview(out)[n:]], offset + n)
+        if got <= 0:
+            break
+        n += got
+    if n < want:
+        out[n:] = 0
+
+
+def _read_exact(f, out: np.ndarray, offset: int) -> None:
+    """_read_into that treats a short read as the IO error it is — the
+    rebuild path must NOT zero-fill a truncated survivor into the decode
+    (that would silently corrupt every rebuilt shard)."""
+    fd = f.fileno()
+    n = 0
+    want = len(out)
+    while n < want:
+        got = os.preadv(fd, [memoryview(out)[n:]], offset + n)
+        if got <= 0:
+            raise IOError(f"ec shard short read: {n} != {want}")
+        n += got
+
+
+def _encode_rows(
+    dat_f,
+    outputs,
+    codec,
+    start_offset: int,
+    block_size: int,
+    rows: int,
+    chunk: int,
+) -> None:
+    """The synchronous route: read one chunk of every data shard, encode,
+    append — the reference's loop structure, for host codecs."""
+    k = codec.data_shards
+    data = np.empty((k, chunk), dtype=np.uint8)
+    for row in range(rows):
+        row_start = start_offset + row * block_size * k
+        done = 0
+        while done < block_size:
+            this = min(chunk, block_size - done)
+            buf = data[:, :this] if this != chunk else data
+            t0 = time.perf_counter()
+            for i in range(k):
+                _read_into(dat_f, buf[i], row_start + i * block_size + done)
+            t1 = time.perf_counter()
+            parity = codec.encode(buf)
+            t2 = time.perf_counter()
+            # contiguous-row memoryviews: BufferedWriter copies synchronously,
+            # so reusing `data` next iteration is safe
+            for i in range(k):
+                outputs[i].write(buf[i].data)
+            for p in range(codec.parity_shards):
+                outputs[k + p].write(np.ascontiguousarray(parity[p]).data)
+            t3 = time.perf_counter()
+            _stage_add("read_s", t1 - t0)
+            _stage_add("kernel_s", t2 - t1)
+            _stage_add("shard_write_s", t3 - t2)
+            done += this
+
+
+def _stream_items(
+    n_large: int, large_block: int, n_small: int, small_block: int,
+    chunk: int, k: int, group: bool = True,
+) -> list:
+    """The streamed pipeline's work list, in shard stream order:
+    (start, block, done, width, g) where `start` is the .dat offset of the
+    first covered row, `g` rows are grouped into one dispatch (small blocks
+    only — GF columns are independent, so G concatenated blocks per shard
+    encode identically to G per-row encodes, amortizing per-dispatch
+    latency), and `done`/`width` chunk the inside of one large block.
+
+    group=False emits one item per small-block row instead: the zero-copy
+    mmap route dispatches strided (k, width) VIEWS of the source mapping,
+    and a grouped item's per-shard bytes are not expressible as one such
+    view (its g segments per shard are discontiguous)."""
+    items = []
+    offset = 0
+    for rows, block in ((n_large, large_block), (n_small, small_block)):
+        if block >= chunk or not group:
+            for row in range(rows):
+                row_start = offset + row * block * k
+                done = 0
+                while done < block:
+                    width = min(chunk, block - done)
+                    items.append((row_start, block, done, width, 1))
+                    done += width
+        else:
+            g_max = max(1, chunk // block)
+            row = 0
+            while row < rows:
+                g = min(g_max, rows - row)
+                items.append((offset + row * block * k, block, 0, block, g))
+                row += g
+        offset += rows * block * k
+    return items
+
+
+def _encode_streamed(
+    base_file_name: str,
+    dat_f,
+    codec,
+    n_large: int,
+    large_block: int,
+    n_small: int,
+    small_block: int,
+    chunk: int,
+    depth: int,
+    use_mmap: bool,
+) -> str:
+    """The streamed, depth-N encode pipeline (the route the device codec
+    prefers; any codec runs it with pipeline=True).
+
+    Chunked reads of the .dat feed a bounded ring of depth+2 REUSED host
+    staging slots. Two input routes feed the ring:
+
+    - mmap (default): each chunk is a zero-copy strided (k, width) VIEW of
+      the mapping — per-shard rows are contiguous segments `block` apart —
+      prefetched with madvise(WILLNEED) one item ahead so page population
+      overlaps compute; the ring slot is then only a backpressure token.
+      Only an item whose source region crosses EOF stages through a copy
+      (it needs the zero tail materialized).
+    - preadv: every chunk is copied into a staging slot.
+
+    Each chunk's kernel dispatch (the device codec's stage + upload +
+    kernel + download) runs on a pool of `depth` workers so it overlaps
+    the NEXT chunk's disk read (main thread) and the PREVIOUS chunk's
+    shard writes (dedicated writer thread). Output is in-order into
+    .ecNN.tmp files renamed into place only when the whole stream succeeds
+    — a mid-stream crash leaves only .tmp files for the next run's sweep,
+    never a torn shard masquerading as complete.
+
+    Per-stage walls land in LAST_STAGES (see its comment). Returns the
+    route that fed the ring ("mmap" or "pread")."""
+    import concurrent.futures as cf
+    import mmap as mmap_mod
+    import queue as queue_mod
+
+    k = codec.data_shards
+    m = codec.parity_shards
+    total = codec.total_shards
+
+    _sweep_stale_tmp(base_file_name, total)
+
+    t_setup = time.perf_counter()
+    dat_size = os.fstat(dat_f.fileno()).st_size
+    mm = None
+    mm_arr = None
+    if use_mmap and dat_size > 0:
+        mm = mmap_mod.mmap(dat_f.fileno(), 0, access=mmap_mod.ACCESS_READ)
+        mm_arr = np.frombuffer(mm, dtype=np.uint8)
+
+    items = _stream_items(
+        n_large, large_block, n_small, small_block, chunk, k,
+        group=mm_arr is None,
+    )
+    full_width = max((w * g for _s, _b, _d, w, g in items), default=0)
+    dispatch = getattr(codec, "pipeline_encode", None) or codec.encode
+    # the device dispatch keeps one launch width (zero-padded tail, parity
+    # sliced on write: zero columns encode to zero parity); host kernels
+    # take the narrow tail directly
+    pad_tail = getattr(codec, "pipeline_dispatch_kind", "host") == "device"
+
+    def prefetch(index: int) -> None:
+        """Async readahead for item `index`'s source range: on disk-backed
+        files WILLNEED starts the IO while earlier chunks compute/write."""
+        if mm is None or index >= len(items) or not hasattr(mm, "madvise"):
+            return
+        start, block, done, width, g = items[index]
+        first = start + done
+        span = (k - 1) * block + width * g
+        first_pg = first - (first % mmap_mod.PAGESIZE)
+        try:
+            mm.madvise(
+                mmap_mod.MADV_WILLNEED, first_pg,
+                min(first + span, dat_size) - first_pg,
+            )
+        except (OSError, ValueError):
+            pass
+
+    outputs = [
+        open(base_file_name + to_ext(i) + ".tmp", "wb") for i in range(total)
+    ]
+    n_slots = depth + 2
+    freeq: queue_mod.Queue = queue_mod.Queue()
+    for _ in range(n_slots):
+        # slots materialize on first staging use: on the mmap route most
+        # items are views and the token is pure backpressure
+        freeq.put(None)
+    outq: queue_mod.Queue = queue_mod.Queue()
+    err: list = [None]
+
+    def run_kernel(view: np.ndarray) -> np.ndarray:
+        t0 = time.perf_counter()
+        out = np.asarray(dispatch(view))
+        _stage_add_locked("kernel_s", time.perf_counter() - t0)
+        return out
+
+    def writer() -> None:
+        while True:
+            entry = outq.get()
+            if entry is None:
+                return
+            buf, used, fut, slot = entry
+            try:
+                parity = fut.result()
+                t0 = time.perf_counter()
+                for i in range(k):
+                    outputs[i].write(buf[i, :used].data)
+                for p in range(m):
+                    outputs[k + p].write(parity[p, :used].data)
+                _stage_add_locked("write_s", time.perf_counter() - t0)
+            except BaseException as e:  # keep consuming: the main thread
+                # must never deadlock on a dead writer's unreturned slots
+                if err[0] is None:
+                    err[0] = e
+            finally:
+                freeq.put(slot)
+
+    writer_t = threading.Thread(
+        target=writer, name="ec-stream-writer", daemon=True
+    )
+    ok = False
+    view = buf = kview = None
+    try:
+        with cf.ThreadPoolExecutor(depth) as pool:
+            writer_t.start()
+            # pool/writer/ring setup charges to stage_s: the coverage
+            # partition must account for every main-thread second
+            _stage_add_locked("stage_s", time.perf_counter() - t_setup)
+            prefetch(0)
+            for idx, (start, block, done, width, g) in enumerate(items):
+                if err[0] is not None:
+                    break
+                t0 = time.perf_counter()
+                slot = freeq.get()
+                t1 = time.perf_counter()
+                _stage_add_locked("stage_s", t1 - t0)
+                used = width * g
+                first = start + done
+                view = None
+                if (
+                    mm_arr is not None
+                    and g == 1
+                    and first + (k - 1) * block + width <= dat_size
+                ):
+                    view = np.lib.stride_tricks.as_strided(
+                        mm_arr[first:], shape=(k, width),
+                        strides=(block, 1), writeable=False,
+                    )
+                    buf = view
+                else:
+                    if slot is None:
+                        slot = np.empty(
+                            (k, max(full_width, 1)), dtype=np.uint8
+                        )
+                    for gi in range(g):
+                        row_start = start + gi * block * k
+                        sl = slice(gi * width, gi * width + width)
+                        for i in range(k):
+                            _read_into(
+                                dat_f, slot[i, sl],
+                                row_start + i * block + done,
+                            )
+                    buf = slot
+                prefetch(idx + 1)
+                t2 = time.perf_counter()
+                _stage_add_locked("read_s", t2 - t1)
+                if view is None:
+                    if used < full_width and pad_tail:
+                        slot[:, used:] = 0
+                        kview = slot
+                    else:
+                        kview = slot if used == full_width else slot[:, :used]
+                else:
+                    kview = view
+                outq.put((buf, used, pool.submit(run_kernel, kview), slot))
+                _stage_add_locked("stage_s", time.perf_counter() - t2)
+            t0 = time.perf_counter()
+            outq.put(None)
+            writer_t.join()
+        if err[0] is not None:
+            raise err[0]
+        for f in outputs:
+            f.flush()
+            f.close()
+        for i in range(total):
+            os.replace(
+                base_file_name + to_ext(i) + ".tmp", base_file_name + to_ext(i)
+            )
+        ok = True
+        _stage_add_locked("sync_s", time.perf_counter() - t0)
+    finally:
+        if not ok:
+            if writer_t.is_alive():
+                outq.put(None)
+                writer_t.join()
+            for f in outputs:
+                try:
+                    f.close()
+                except OSError:
+                    pass
+            _sweep_stale_tmp(base_file_name, total)
+        if mm is not None:
+            mm_arr = view = buf = kview = None  # drop buffer exports
+            try:
+                mm.close()
+            except (BufferError, OSError):
+                pass  # a straggling view still exports the buffer: the
+                # mapping closes when it is collected
+    return "mmap" if mm is not None else "pread"
+
+
+def write_ec_files(
+    base_file_name: str,
+    codec=None,
+    large_block_size: int = EC_LARGE_BLOCK_SIZE,
+    small_block_size: int = EC_SMALL_BLOCK_SIZE,
+    chunk: int = DEFAULT_CHUNK,
+    pipeline: Optional[bool] = None,
+    mmap_input: bool = True,
+) -> None:
+    """Generate .ec00-.ec13 from .dat (ref WriteEcFiles, ec_encoder.go:57).
+
+    codec=None takes the card's codec (raises when CUDA is absent).
+    pipeline=None follows the codec's preference: the device codec takes
+    the streamed route (_encode_streamed) with the codec's preferred_chunk
+    (when `chunk` is left at its default) and pipeline_workers as depth;
+    the host codec keeps the reference's synchronous structure
+    (_encode_rows).
+    mmap_input=False makes the streamed route copy every chunk with preadv
+    instead of handing the codec views of the mapped .dat.
+    """
+    global LAST_ROUTE
+    LAST_STAGES.clear()
+    t_enter = time.perf_counter()
+    codec = _get_codec(codec)
+    if pipeline is None:
+        pipeline = getattr(codec, "prefers_pipeline", False)
+    if pipeline and chunk == DEFAULT_CHUNK:
+        chunk = getattr(codec, "preferred_chunk", chunk)
+    k = codec.data_shards
+    dat_path = base_file_name + ".dat"
+    dat_size = os.path.getsize(dat_path)
+    n_large, n_small = _row_counts(
+        dat_size, k, large_block_size, small_block_size
+    )
+
+    if pipeline:
+        depth = max(1, getattr(codec, "pipeline_workers", 2))
+        try:
+            with open(dat_path, "rb") as dat_f:
+                input_kind = _encode_streamed(
+                    base_file_name, dat_f, codec,
+                    n_large, large_block_size, n_small, small_block_size,
+                    chunk, depth, mmap_input,
+                )
+            LAST_ROUTE = {
+                "route": "pipeline",
+                "input": input_kind,
+                "kernel": getattr(codec, "pipeline_dispatch_kind", "host"),
+                "pipeline_depth": depth,
+            }
+        finally:
+            total = time.perf_counter() - t_enter
+            LAST_STAGES["total_s"] = total
+            LAST_STAGES["pipeline_depth"] = depth
+            # coverage = the main-thread (blocking) stages over the wall:
+            # kernel_s/write_s are overlapped walls, deliberately NOT summed
+            blocking = sum(
+                LAST_STAGES.get(s, 0.0) for s in ("read_s", "stage_s", "sync_s")
+            )
+            LAST_STAGES["coverage_of_wall"] = round(
+                blocking / max(total, 1e-9), 3
+            )
+        return
+
+    LAST_ROUTE = {"route": "pread", "kernel": "host"}
+    large_row = large_block_size * k
+    outputs = [
+        open(base_file_name + to_ext(i), "wb") for i in range(codec.total_shards)
+    ]
+    try:
+        with open(dat_path, "rb") as dat_f:
+            _encode_rows(
+                dat_f, outputs, codec, 0, large_block_size, n_large, chunk
+            )
+            _encode_rows(
+                dat_f, outputs, codec, n_large * large_row,
+                small_block_size, n_small, min(chunk, small_block_size),
+            )
+    finally:
+        for f in outputs:
+            f.close()
+        LAST_STAGES["total_s"] = time.perf_counter() - t_enter
+
+
+def _row_counts(
+    dat_size: int, k: int, large_block: int, small_block: int
+) -> tuple[int, int]:
+    """(n_large, n_small) rows for a .dat (ref ec_encoder.go:214-228)."""
+    remaining = dat_size
+    large_row = large_block * k
+    n_large = 0
+    while remaining - n_large * large_row > large_row:
+        n_large += 1
+    remaining -= n_large * large_row
+    small_row = small_block * k
+    n_small = 0
+    while remaining > 0:
+        n_small += 1
+        remaining -= small_row
+    return n_large, n_small
+
+
+def write_sorted_file_from_idx(base_file_name: str, ext: str = ".ecx") -> None:
+    """.idx log -> sorted index file (ref WriteSortedFileFromIdx,
+    ec_encoder.go:27-54). Vectorized: one sequential read, one numpy
+    newest-wins fold (idx.fold_live_columns), one serialized write."""
+    from ..idx import (
+        NEEDLE_MAP_ENTRY_SIZE,
+        entries_to_bytes,
+        fold_live_columns,
+        parse_index_bytes,
+    )
+
+    with open(base_file_name + ".idx", "rb") as f:
+        data = f.read()
+    usable = len(data) - (len(data) % NEEDLE_MAP_ENTRY_SIZE)
+    keys, offs, sizes = parse_index_bytes(data[:usable])
+    lk, lo, ls = fold_live_columns(keys, offs, sizes)
+    with open(base_file_name + ext, "wb") as f:
+        f.write(entries_to_bytes(lk, lo, ls))
+
+
+# one rebuild per volume base at a time (process-wide): a retry racing a
+# still-running rebuild of the same volume must wait, re-survey, and find
+# nothing missing — never interleave writes into the same .ecNN.tmp files
+_BASE_REBUILD_LOCKS: dict = {}
+_BASE_REBUILD_LOCKS_GUARD = threading.Lock()
+
+
+def _base_rebuild_lock(base_file_name: str) -> threading.Lock:
+    with _BASE_REBUILD_LOCKS_GUARD:
+        lock = _BASE_REBUILD_LOCKS.get(base_file_name)
+        if lock is None:
+            lock = _BASE_REBUILD_LOCKS[base_file_name] = threading.Lock()
+        return lock
+
+
+def _rebuild_survey(base_file_name: str, codec) -> tuple[list[int], list[int]]:
+    """(missing, present) shard ids for a rebuild, after sweeping any stale
+    .ecNN.tmp torn outputs a crashed rebuild left behind. Raises when fewer
+    than k survivors remain or survivors disagree on size (a truncated
+    survivor would otherwise zero-fill into every rebuilt shard)."""
+    k = codec.data_shards
+    _sweep_stale_tmp(base_file_name, codec.total_shards)
+    have = [
+        os.path.exists(base_file_name + to_ext(i))
+        for i in range(codec.total_shards)
+    ]
+    missing = [i for i, h in enumerate(have) if not h]
+    present = [i for i, h in enumerate(have) if h]
+    if missing and len(present) < k:
+        raise ValueError(
+            f"need at least {k} shards, only {len(present)} present"
+        )
+    sizes = {os.path.getsize(base_file_name + to_ext(i)) for i in present[:k]}
+    if len(sizes) > 1:
+        raise IOError(
+            f"survivor shards disagree on size ({sorted(sizes)}): "
+            "refusing to rebuild from a truncated survivor"
+        )
+    return missing, present
+
+
+def rebuild_ec_files(
+    base_file_name: str,
+    codec=None,
+    chunk: int = DEFAULT_CHUNK,
+    pipeline: Optional[bool] = None,
+) -> list[int]:
+    """Reconstruct missing .ecNN files from survivors; returns the generated
+    shard ids (ref RebuildEcFiles, ec_encoder.go:61,233-287).
+
+    - **missing-rows-only decode** — reconstruct_rows slices the decode
+      matrix to the missing ids (4 output rows instead of 14 on a 4-loss
+      rebuild; 1 on the common single-loss), with the composed matrix
+      cached in galois.DECODE_ROWS_CACHE across chunks AND rebuilds;
+    - **only k survivors read**;
+    - **pipelined** (pipeline=None -> on with >1 CPU or a device codec):
+      reader / decode pool / in-order writer (_rebuild_ring), with preadv
+      into reused buffers;
+    - **atomic outputs** — rebuilt shards stream to .ecNN.tmp and are
+      renamed into place only after the whole rebuild succeeds.
+
+    Per-stage walls land in LAST_REBUILD_STAGES, the structure in
+    LAST_REBUILD_ROUTE. Serialized per volume base (process-wide): a
+    concurrent second rebuild of the same volume waits, re-surveys, and
+    returns [].
+    """
+    with _base_rebuild_lock(base_file_name):
+        return _rebuild_ec_files_unlocked(base_file_name, codec, chunk, pipeline)
+
+
+def _rebuild_ec_files_unlocked(
+    base_file_name: str,
+    codec,
+    chunk: int,
+    pipeline: Optional[bool],
+) -> list[int]:
+    codec = _get_codec(codec)
+    LAST_REBUILD_STAGES.clear()
+    t_enter = time.perf_counter()
+    missing, present = _rebuild_survey(base_file_name, codec)
+    if not missing:
+        return []
+    k = codec.data_shards
+    total = codec.total_shards
+    survivors = present[:k]
+    shard_size = os.path.getsize(base_file_name + to_ext(survivors[0]))
+    if pipeline is None:
+        from ...util import available_cpus
+
+        pipeline = available_cpus() > 1 or getattr(codec, "is_device", False)
+
+    def decode_chunk(
+        buf: np.ndarray, width: int, out: Optional[np.ndarray] = None
+    ) -> list[np.ndarray]:
+        t0 = time.perf_counter()
+        slots: list[Optional[np.ndarray]] = [None] * total
+        for j, i in enumerate(survivors):
+            slots[i] = buf[j, :width]
+        outs = [
+            np.ascontiguousarray(o)
+            for o in codec.reconstruct_rows(
+                slots, missing,
+                out=out[:, :width] if out is not None else None,
+            )
+        ]
+        _rebuild_stage_add("decode_s", time.perf_counter() - t0)
+        return outs
+
+    inputs = {i: open(base_file_name + to_ext(i), "rb") for i in survivors}
+    outputs = {
+        i: open(base_file_name + to_ext(i) + ".tmp", "wb") for i in missing
+    }
+    LAST_REBUILD_ROUTE.clear()
+    LAST_REBUILD_ROUTE.update({"route": "pread", "pipeline": bool(pipeline)})
+    ok = False
+    try:
+        if pipeline and shard_size > chunk:
+            _rebuild_pipelined(
+                inputs, outputs, survivors, missing, shard_size, chunk,
+                decode_chunk, codec,
+            )
+        else:
+            buf_w = min(chunk, max(shard_size, 1))
+            buf = np.empty((k, buf_w), dtype=np.uint8)
+            out_buf = np.empty((len(missing), buf_w), dtype=np.uint8)
+            offset = 0
+            while offset < shard_size:
+                width = min(chunk, shard_size - offset)
+                t0 = time.perf_counter()
+                for j, i in enumerate(survivors):
+                    _read_exact(inputs[i], buf[j, :width], offset)
+                _rebuild_stage_add("read_s", time.perf_counter() - t0)
+                outs = decode_chunk(buf, width, out_buf)
+                t0 = time.perf_counter()
+                for r, i in enumerate(missing):
+                    outputs[i].write(outs[r].data)
+                _rebuild_stage_add("write_s", time.perf_counter() - t0)
+                offset += width
+        ok = True
+    finally:
+        for f in inputs.values():
+            f.close()
+        for f in outputs.values():
+            f.close()
+        if ok:
+            for i in missing:
+                os.replace(
+                    base_file_name + to_ext(i) + ".tmp",
+                    base_file_name + to_ext(i),
+                )
+        else:
+            for i in missing:
+                try:
+                    os.remove(base_file_name + to_ext(i) + ".tmp")
+                except OSError:
+                    pass
+        LAST_REBUILD_STAGES["total_s"] = time.perf_counter() - t_enter
+        if "sync_s" in LAST_REBUILD_STAGES:
+            # streamed ring ran: the blocking (main-thread) stages
+            # partition the wall — decode_s/write_s are overlapped walls
+            blocking = ("read_s", "stage_s", "sync_s")
+            LAST_REBUILD_ROUTE["pipeline_depth"] = LAST_REBUILD_STAGES.get(
+                "pipeline_depth"
+            )
+        else:
+            blocking = ("read_s", "decode_s", "write_s")
+        LAST_REBUILD_STAGES["coverage_of_wall"] = round(
+            sum(LAST_REBUILD_STAGES.get(s, 0.0) for s in blocking)
+            / max(LAST_REBUILD_STAGES["total_s"], 1e-9),
+            3,
+        )
+    return missing
+
+
+def _rebuild_ring(
+    shard_size: int, chunk: int, workers: int, allocate, stage, decode,
+    write_outs,
+) -> None:
+    """The streamed rebuild ring (the rebuild mirror of _encode_streamed):
+    `allocate()` builds one slot's buffers, `stage(offset, width, bufs)`
+    runs in the MAIN thread (survivor reads), `decode(offset, width, bufs)`
+    runs on the pool, and a dedicated writer thread calls
+    `write_outs(outs)` in stream order — so chunk i+1's survivor read
+    overlaps chunk i's decode AND chunk i-1's shard writes. A slot
+    recycles only after its decode result is written, bounding memory at
+    (workers+2) slots with zero steady-state allocation. stage_s
+    (free-slot waits + handoff) and sync_s (final drain) land in
+    LAST_REBUILD_STAGES next to the read_s/decode_s/write_s the callbacks
+    record; pipeline_depth too."""
+    import concurrent.futures as cf
+    import queue as queue_mod
+
+    depth = max(1, workers)
+    freeq: queue_mod.Queue = queue_mod.Queue()
+    for _ in range(depth + 2):
+        freeq.put(allocate())
+    outq: queue_mod.Queue = queue_mod.Queue()
+    err: list = [None]
+
+    def writer() -> None:
+        while True:
+            entry = outq.get()
+            if entry is None:
+                return
+            bufs, fut = entry
+            try:
+                write_outs(fut.result())
+            except BaseException as e:  # keep consuming: the main thread
+                # must never deadlock on a dead writer's unreturned slots
+                if err[0] is None:
+                    err[0] = e
+            finally:
+                freeq.put(bufs)
+
+    writer_t = threading.Thread(
+        target=writer, name="ec-rebuild-writer", daemon=True
+    )
+    writer_t.start()
+    with _REBUILD_STAGE_LOCK:
+        LAST_REBUILD_STAGES["pipeline_depth"] = depth
+    try:
+        with cf.ThreadPoolExecutor(depth) as pool:
+            offset = 0
+            while offset < shard_size and err[0] is None:
+                width = min(chunk, shard_size - offset)
+                t0 = time.perf_counter()
+                bufs = freeq.get()
+                _rebuild_stage_add("stage_s", time.perf_counter() - t0)
+                stage(offset, width, bufs)
+                t0 = time.perf_counter()
+                outq.put((bufs, pool.submit(decode, offset, width, bufs)))
+                _rebuild_stage_add("stage_s", time.perf_counter() - t0)
+                offset += width
+            t0 = time.perf_counter()
+            outq.put(None)
+            writer_t.join()
+        _rebuild_stage_add("sync_s", time.perf_counter() - t0)
+    finally:
+        if writer_t.is_alive():
+            outq.put(None)
+            writer_t.join()
+    if err[0] is not None:
+        raise err[0]
+
+
+def _rebuild_pipelined(
+    inputs: dict,
+    outputs: dict,
+    survivors: list[int],
+    missing: list[int],
+    shard_size: int,
+    chunk: int,
+    decode_chunk,
+    codec,
+) -> None:
+    """Double-buffered rebuild loop: the main thread streams survivor reads
+    (preadv into a recycled buffer ring) while a small pool runs the decode
+    matmul and the writer appends the rebuilt shards in order."""
+    k = len(survivors)
+
+    def allocate():
+        return (
+            np.empty((k, chunk), dtype=np.uint8),
+            np.empty((len(missing), chunk), dtype=np.uint8),
+        )
+
+    def stage(offset: int, width: int, bufs) -> None:
+        buf, _out = bufs
+        t0 = time.perf_counter()
+        for j, i in enumerate(survivors):
+            _read_exact(inputs[i], buf[j, :width], offset)
+        _rebuild_stage_add("read_s", time.perf_counter() - t0)
+
+    def decode(offset: int, width: int, bufs):
+        buf, out = bufs
+        return decode_chunk(buf, width, out)
+
+    def write_outs(outs) -> None:
+        t0 = time.perf_counter()
+        for r, i in enumerate(missing):
+            outputs[i].write(outs[r].data)
+        _rebuild_stage_add("write_s", time.perf_counter() - t0)
+
+    _rebuild_ring(
+        shard_size, chunk, max(2, getattr(codec, "pipeline_workers", 2)),
+        allocate, stage, decode, write_outs,
+    )
