@@ -1,14 +1,16 @@
 #!/usr/bin/env python3
 """Chip smoke test of the PyTorch/CUDA port (seaweedfs_tpu_torch) on one GPU.
 
-Drives the port's warm-storage erasure-coding path through the entry points
-a volume server calls, at full width, and holds its CUDA kernel against the
-plain PyTorch version:
+Drives the port's two paths through the entry points a volume server
+calls, at full width, and holds each CUDA kernel against its plain PyTorch
+version: warm-storage erasure coding (gf_matmul) and the needle-index
+lookup (index_search, ragged_lookup):
 
   0  identity: nvidia-smi name and power limit, torch and CUDA versions
-  1  build the GF(2^8) kernel from the checkout's sources (nvcc, sm_90a)
-  2  kernel against plain on the card, at the main path's shapes, and its
-     median time beside the plain version's and the card's bound
+  1  build the three kernels from the checkout's sources (one nvcc each,
+     all at once; sm_90a)
+  2  gf_matmul against plain on the card, at the main path's shapes, and
+     its median time beside the plain version's and the card's bound
   3  encode: write an 11 GiB version-3 volume (superblock, needles, .idx),
      then write_ec_files on the card, write_sorted_file_from_idx and .vif
   4  rebuild: delete shards 0, 7, 10, 13 and rebuild them on the card;
@@ -17,13 +19,33 @@ plain PyTorch version:
      ragged last small row, recomputed by the plain version on the card
   6  degraded read: delete shards 1, 5, 11, 12 and read >= 1000 seeded
      needles plus every needle straddling a block boundary through
-     EcVolume.read_needle; payloads and checksums must be the written ones
+     EcVolume.read_needle; payloads and checksums must be the written ones;
+     then EcVolume.bulk_locate of every needle plus 10 % absent ids, equal
+     to find_needle_from_ecx entry by entry
+  7  volume_lookup (`weed benchmark` scale): 1,048,576 needles of 1 KiB
+     through Volume, 1 % deleted and 1 % overwritten, reloaded; bulk_lookup
+     of every key plus 10 % absent in batches of 64 .. all, equal to the
+     host map; 1,000 located needles read back
+  8  index_kernel (one full volume's index, 29,565,112 entries): 10,000,000
+     probes through index_search against its plain version and
+     torch.searchsorted, with times and the bound; edge-case tables too
+  9  arena_gate: 4 LSM maps of 1,048,576 entries (5 runs + a memtable tail
+     each) resident in the arena; >= 200,000 probes through
+     BatchLookupGate at concurrency 256 with the identity check; then
+     ragged_lookup against its plain version at the gate's batch and at
+     65,536 probes
 
 Each phase prints one JSON line; any mismatch or exception exits non-zero
 without the final line. The line before last but one is the kernels
 summary, then the nvidia-smi identity line, and the last line is
 {"ok": true, "device": {...}}. Without CUDA (or without the package beside
 this script) it exits non-zero and prints no result.
+
+The kernels line gives each kernel's launches on the main path (counts
+set to 0 just before a path runs and read just after; comparison launches
+are not counted), its largest difference from the plain version, its
+median time, the plain version's, the card's bound and what bounds it, and
+the time of a PyTorch call computing the same function where one exists.
 
     python3 chip_smoke.py [--volume-gib 11] [--seed 0] [--workdir DIR]
 """
@@ -39,6 +61,7 @@ import struct
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -46,6 +69,7 @@ GIB = 1 << 30
 MIB = 1 << 20
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 INT32_LANES_PER_SM = 64  # INT32 lanes per SM per clock (Hopper)
+KERNELS = ("gf256", "index_search", "ragged_lookup")  # csrc/<name>.cu
 REBUILD_LOST = (0, 7, 10, 13)
 DEGRADED_LOST = (1, 5, 11, 12)
 SAMPLED_READS = 1000  # seeded needles read with DEGRADED_LOST gone
@@ -231,6 +255,636 @@ def write_volume(base: str, target_bytes: int, seed: int, needle_mod, idx_mod, s
     return pool, needles, offset
 
 
+# --- shared --------------------------------------------------------------------
+def cuda_median_ms(torch, fn, reps: int, warm: int = 3) -> float:
+    """Median CUDA-event time of fn() on the current stream."""
+    for _ in range(warm):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        fn()
+        e.record()
+        e.synchronize()
+        times.append(s.elapsed_time(e))
+    times.sort()
+    return times[len(times) // 2]
+
+
+def profile_device(torch, fn) -> dict:
+    """Run fn() under torch.profiler (device activity only) and read the
+    device's busy time: the sum of the self device times of every kernel
+    and copy, and per kernel name its launches and mean device ms. Keys
+    are None when the profiler records no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    busy_us = 0.0
+    kernels = {}
+    for ev in prof.key_averages():
+        self_us = getattr(ev, "self_device_time_total", None)
+        if self_us is None:
+            self_us = getattr(ev, "self_cuda_time_total", 0.0)
+        busy_us += self_us
+        for name in ("index_search_kernel", "ragged_lookup_kernel", "gf_matmul_kernel"):
+            if name in ev.key and ev.count:
+                k = kernels.setdefault(name, [0, 0.0])
+                k[0] += ev.count
+                k[1] += self_us / 1e3
+    if busy_us <= 0:
+        return {"wall_s": wall, "device_busy_s": None, "busy_share": None, "kernels": None}
+    return {
+        "wall_s": wall,
+        "device_busy_s": busy_us / 1e6,
+        "busy_share": busy_us / 1e6 / wall,
+        "kernels": {k: {"launches": c, "mean_ms": ms / c} for k, (c, ms) in kernels.items()},
+    }
+
+
+def kernel_device_ms(torch, fn, name: str, reps: int):
+    """Mean device time of one launch of kernel `name` over `reps` calls
+    of fn(), from the profiler; None when it records no device time. For
+    kernels shorter than their host-side launch, where CUDA events around
+    one call measure the launch instead."""
+    try:
+        prof = profile_device(torch, lambda: [fn() for _ in range(reps)])
+    except Exception as e:  # the profiler is optional here, never the result
+        print(f"chip_smoke: profiler unavailable: {e}", file=sys.stderr)
+        return None
+    k = (prof["kernels"] or {}).get(name)
+    return k["mean_ms"] if k else None
+
+
+def unique_sector_bytes(torch, rows, row_bytes: int) -> int:
+    """Bytes of the distinct 32-byte sectors that rows of a column of
+    `row_bytes`-wide entries fall in (each read once)."""
+    if rows.numel() == 0:
+        return 0
+    return int(torch.unique(rows // (32 // row_bytes)).numel()) * 32
+
+
+def max_abs_diff(torch, pairs) -> int:
+    """Largest |a - b| over (kernel, plain) output pairs, compared as the
+    unsigned values they hold."""
+    worst = 0
+    for a, b in pairs:
+        a = a.to(torch.int64) & 0xFFFFFFFF
+        b = b.to(torch.int64) & 0xFFFFFFFF
+        if a.numel():
+            worst = max(worst, int((a - b).abs().max()))
+    return worst
+
+
+# --- phase 7 -----------------------------------------------------------------
+VOLUME_NEEDLES = 1 << 20  # weed benchmark -n 1048576 -size 1024
+NEEDLE_BYTES = 1024
+LOOKUP_BATCHES = (64, 512, 4096, 65536)
+READ_BACK = 1000
+
+
+def phase_volume_lookup(torch, work: str, seed: int, needle_mod, crc_mod) -> dict:
+    """weed benchmark's volume through the port's Volume (memory map) and
+    bulk_lookup on the card, every answer held to the host map."""
+    import numpy as np
+
+    from seaweedfs_tpu_torch.ops import index_kernel as K
+    from seaweedfs_tpu_torch.storage.volume import Volume
+
+    rng = np.random.default_rng(seed + 7)
+    # payloads from a seeded pool whose CRCs are computed once: the card's
+    # machine has no google_crc32c, and its numpy CRC32C would spend
+    # minutes on a million fresh 1 KiB CRCs that check nothing new
+    pool = [rng.integers(0, 256, NEEDLE_BYTES, dtype=np.uint8).tobytes()
+            for _ in range(64)]
+    pool_crc = {d: crc_mod.masked_crc(d) for d in pool}
+    real_crc = needle_mod.masked_crc
+
+    def masked_crc(data):
+        got = pool_crc.get(bytes(data))
+        return real_crc(data) if got is None else got
+
+    ids = np.unique(rng.integers(1, 1 << 48, size=VOLUME_NEEDLES + 4096, dtype=np.uint64))
+    ids = rng.permutation(ids)[:VOLUME_NEEDLES]
+    cookies = rng.integers(1, 1 << 32, size=VOLUME_NEEDLES, dtype=np.uint64)
+    blob_of = rng.integers(0, len(pool), size=VOLUME_NEEDLES)
+    vid = 7
+    needle_mod.masked_crc = masked_crc
+    try:
+        t0 = time.perf_counter()
+        v = Volume(work, "", vid)
+        for c0 in range(0, VOLUME_NEEDLES, 4096):
+            batch = [
+                needle_mod.Needle(cookie=int(c), id=int(k), data=pool[int(b)])
+                for k, c, b in zip(ids[c0:c0 + 4096].tolist(),
+                                   cookies[c0:c0 + 4096].tolist(),
+                                   blob_of[c0:c0 + 4096].tolist())
+            ]
+            for r in v.write_needle_batch(batch):
+                if isinstance(r, Exception):
+                    fail(f"volume write failed: {r!r}")
+        write_s = time.perf_counter() - t0
+        pick = rng.permutation(VOLUME_NEEDLES)[: VOLUME_NEEDLES // 50]
+        deleted = pick[: len(pick) // 2]
+        rewritten = pick[len(pick) // 2:]
+        for i in deleted.tolist():
+            v.delete_needle(needle_mod.Needle(cookie=int(cookies[i]), id=int(ids[i])))
+        blob_of[rewritten] = (blob_of[rewritten] + 1) % len(pool)
+        for r in v.write_needle_batch([
+            needle_mod.Needle(cookie=int(cookies[i]), id=int(ids[i]), data=pool[int(blob_of[i])])
+            for i in rewritten.tolist()
+        ]):
+            if isinstance(r, Exception):
+                fail(f"volume overwrite failed: {r!r}")
+        v.close()
+        dat_bytes = os.path.getsize(os.path.join(work, f"{vid}.dat"))
+        t0 = time.perf_counter()
+        v = Volume(work, "", vid)  # replays the .idx
+        reload_s = time.perf_counter() - t0
+        absent = rng.integers(1 << 49, 1 << 50, size=VOLUME_NEEDLES // 10, dtype=np.uint64)
+        probes = rng.permutation(np.concatenate([ids, absent]))
+        t0 = time.perf_counter()
+        want = v.bulk_lookup(probes, use_device=False)  # the host map
+        host_s = time.perf_counter() - t0
+        live = VOLUME_NEEDLES - len(deleted)
+        if int(want[2].sum()) != live:
+            fail(f"host map finds {int(want[2].sum())} live needles, expected {live}")
+        t0 = time.perf_counter()
+        v.bulk_lookup(probes[:64])  # builds and uploads the snapshot
+        snapshot_s = time.perf_counter() - t0
+        walls = {}
+        K.KERNEL_LAUNCHES = 0
+        for batch in LOOKUP_BATCHES + (len(probes),):
+            parts = []
+            t0 = time.perf_counter()
+            for c0 in range(0, len(probes), batch):
+                parts.append(v.bulk_lookup(probes[c0:c0 + batch]))
+            wall = time.perf_counter() - t0
+            for j, name in enumerate(("offset", "size", "found")):
+                got = np.concatenate([p[j] for p in parts])
+                if not np.array_equal(got, want[j]):
+                    bad = int(np.count_nonzero(got != want[j]))
+                    fail(f"bulk_lookup {name} differs from the host map at "
+                         f"{bad} of {len(probes)} probes (batch {batch})")
+            # a tail under 64 keys is served by the host map (the policy)
+            tail = len(probes) % batch
+            walls[str(batch) if batch != len(probes) else "all"] = {
+                "calls": -(-len(probes) // batch),
+                "device_calls": len(probes) // batch + (tail >= 64),
+                "wall_s": wall,
+                "probes_per_s": len(probes) / wall,
+            }
+        launches = K.KERNEL_LAUNCHES
+        expect = sum(w["device_calls"] for w in walls.values())
+        if launches != expect:
+            fail(f"bulk_lookup launched index_search {launches} times, expected {expect}")
+        # the device's busy share while bulk_lookup serves (profiled
+        # again, outside the counted run)
+        busy = {}
+        for batch, calls in ((64, 2000), (65536, None)):
+            sub = probes if calls is None else probes[: batch * calls]
+
+            def serve(sub=sub, batch=batch):
+                for c0 in range(0, len(sub), batch):
+                    v.bulk_lookup(sub[c0:c0 + batch])
+
+            try:
+                busy[str(batch)] = profile_device(torch, serve)
+            except Exception as e:
+                busy[str(batch)] = {"error": str(e)}
+        # read back located needles
+        found_at = np.nonzero(want[2])[0]
+        sample = rng.choice(found_at, READ_BACK, replace=False)
+        pos = {int(k): i for i, k in enumerate(ids.tolist())}
+        t0 = time.perf_counter()
+        for j in sample.tolist():
+            n = v.read_needle_at(int(want[0][j]), int(want[1][j]))
+            i = pos[int(probes[j])]
+            data = pool[int(blob_of[i])]
+            if n.id != int(probes[j]) or n.cookie != int(cookies[i]):
+                fail(f"needle {n.id:x}: id/cookie mismatch")
+            if bytes(n.data) != data or n.checksum != pool_crc[data]:
+                fail(f"needle {n.id:x}: payload or checksum mismatch")
+        read_s = time.perf_counter() - t0
+        v.close()
+    finally:
+        needle_mod.masked_crc = real_crc
+    res = {
+        "phase": "volume_lookup",
+        "needles": VOLUME_NEEDLES,
+        "needle_bytes": NEEDLE_BYTES,
+        "deleted": len(deleted),
+        "overwritten": len(rewritten),
+        "dat_bytes": dat_bytes,
+        "write_s": write_s,
+        "reload_s": reload_s,
+        "probes": len(probes),
+        "absent_probes": len(absent),
+        "host_map_s": host_s,
+        "snapshot_build_s": snapshot_s,
+        "batches": walls,
+        "device_busy": busy,
+        "all_equal_to_host_map": True,
+        "read_back": READ_BACK,
+        "read_back_s": read_s,
+        "payload_pool": "64 seeded 1 KiB blobs, CRCs computed once",
+        "kernel_launches": launches,
+        "route": "device",
+    }
+    emit(res)
+    return res
+
+
+# --- phase 8 -----------------------------------------------------------------
+INDEX_ENTRIES = 29_565_112  # a 30000 MB volume of 1 KiB needles
+INDEX_PROBES = 10_000_000
+
+
+def edge_tables(np):
+    """Tables where a search that stops on lo < hi could part from a
+    fixed-step one: one-row and empty buckets and a bucket of exactly 64
+    rows; keys 0 and with the top bit set; just under the bucketed size; a
+    span too wide to bucket; one row."""
+    spread = np.arange(4096, dtype=np.uint64) * np.uint64(1000) + np.uint64(7)
+    top = (1 << 64) - 1
+    return {
+        "pow2_bucket": np.concatenate([
+            spread, spread[-1] + np.uint64(5000) + np.arange(64, dtype=np.uint64)]),
+        "top_bits": np.asarray([0, 1, (1 << 32) - 1, 1 << 32, (1 << 63) - 1, 1 << 63,
+                                (1 << 63) + 5, top - 1, top], dtype=np.uint64),
+        "under_min_bucketed": np.unique(np.random.default_rng(3).integers(
+            1, 1 << 45, size=4095, dtype=np.uint64)),
+        "wide_span": np.concatenate([np.arange(1, 4097, dtype=np.uint64),
+                                     np.asarray([(1 << 63) + 11], dtype=np.uint64)]),
+        "one_row": np.asarray([12345], dtype=np.uint64),
+    }
+
+
+def phase_index_kernel(torch, seed: int) -> dict:
+    import numpy as np
+
+    from seaweedfs_tpu_torch.ops import index_kernel as K
+
+    # the edge tables first: the kernel against the plain version
+    rng = np.random.default_rng(seed + 8)
+    for name, keys in edge_tables(np).items():
+        offs = rng.integers(1, 1 << 32, size=len(keys), dtype=np.uint64).astype(np.uint32)
+        sizes = rng.integers(1, 1 << 32, size=len(keys), dtype=np.uint64).astype(np.uint32)
+        probes = np.concatenate([keys, keys + np.uint64(1), keys - np.uint64(1),
+                                 np.asarray([0, 1 << 63, (1 << 64) - 1], dtype=np.uint64)])
+        got = K.IndexSnapshot(keys, offs, sizes).lookup(probes)
+        plain = K.IndexSnapshot(keys, offs, sizes, device="cpu").lookup(probes)
+        if not all(np.array_equal(a, b) for a, b in zip(got, plain)):
+            fail(f"index_search != plain on the edge table {name}")
+
+    gaps = rng.integers(1, 20, size=INDEX_ENTRIES, dtype=np.uint64)
+    keys = np.cumsum(gaps).astype(np.uint64)  # sorted, distinct
+    offs = rng.integers(1, 1 << 30, size=INDEX_ENTRIES, dtype=np.uint64).astype(np.uint32)
+    sizes = rng.integers(1, 1 << 20, size=INDEX_ENTRIES, dtype=np.uint64).astype(np.uint32)
+    n_absent = INDEX_PROBES // 10
+    cand = rng.integers(0, int(keys[-1]) + 1000, size=2 * n_absent, dtype=np.uint64)
+    at = np.minimum(np.searchsorted(keys, cand), INDEX_ENTRIES - 1)
+    absent = cand[keys[at] != cand][:n_absent]
+    probes = rng.permutation(np.concatenate([
+        keys[rng.integers(0, INDEX_ENTRIES, size=INDEX_PROBES - n_absent)], absent]))
+    t0 = time.perf_counter()
+    snap = K.IndexSnapshot(keys, offs, sizes)
+    build_s = time.perf_counter() - t0
+    if snap.starts is None:
+        fail("the full-volume snapshot is not bucketed")
+    dev = snap.keys.device
+    pk = torch.from_numpy(probes.view(np.int64)).to(dev)
+    bucket = torch.from_numpy(snap._bucket_of(probes).astype(np.int64)).to(dev)
+    cols = (snap.keys, snap.offsets, snap.sizes)
+
+    def k1_bucketed():
+        return K._index_search_cuda(*cols, snap.starts, snap.kmin, snap.bstep, snap.nb, pk)
+
+    def k1_flat():
+        return K._index_search_cuda(*cols, None, 0, 1, 0, pk)
+
+    def plain_bucketed():
+        return K._bulk_lookup_bucketed_torch(snap.bsteps, *cols, snap.starts, pk, bucket)
+
+    def plain_flat():
+        return K._bulk_lookup_torch(snap.steps, *cols, pk)
+
+    # the one PyTorch call computing the same function: searchsorted over
+    # the sign-biased keys (which sort as the unsigned ones), then gathers
+    biased = snap.keys ^ K._SIGN
+    bp = pk ^ K._SIGN
+    n = INDEX_ENTRIES
+
+    def library():
+        i = torch.searchsorted(biased, bp).clamp_(max=n - 1)
+        f = biased[i] == bp
+        return (torch.where(f, snap.offsets[i], 0), torch.where(f, snap.sizes[i], 0), f)
+
+    worst = 0
+    for kern, plain in ((k1_bucketed, plain_bucketed), (k1_flat, plain_flat),
+                        (k1_bucketed, library)):
+        got, want = kern(), plain()
+        torch.cuda.synchronize()
+        if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+                and torch.equal(got[2].bool(), want[2])):
+            fail(f"index_search != {plain.__name__} on the full-volume index")
+        worst = max(worst, max_abs_diff(torch, zip(got[:2], want[:2])))
+    found = int(got[2].sum())
+    if found != INDEX_PROBES - n_absent:
+        fail(f"found {found} of {INDEX_PROBES - n_absent} present probes")
+    ms = cuda_median_ms(torch, k1_bucketed, 30)
+    flat_ms = cuda_median_ms(torch, k1_flat, 10)
+    plain_ms = cuda_median_ms(torch, plain_bucketed, 5, warm=1)
+    plain_flat_ms = cuda_median_ms(torch, plain_flat, 3, warm=1)
+    library_ms = cuda_median_ms(torch, library, 10)
+    device_ms = kernel_device_ms(torch, k1_bucketed, "index_search_kernel", 20)
+    # bound: bytes every probe must move, each once: its key in, its three
+    # outputs out, and the distinct sectors of its bucket bounds, its final
+    # key row and (found) its offset and size rows
+    _o, _s, f, idx = K._search_range_bounded_torch(
+        snap.bsteps, *cols, pk, snap.starts[bucket], snap.starts[bucket + 1], n,
+        with_index=True)
+    # (unbucketed: the same rows without the bucket bounds)
+    nbytes_flat = (
+        INDEX_PROBES * (8 + 4 + 4 + 1)
+        + unique_sector_bytes(torch, idx, 8)
+        + 2 * unique_sector_bytes(torch, idx[f], 4)
+    )
+    nbytes = nbytes_flat + unique_sector_bytes(torch, torch.cat([bucket, bucket + 1]), 4)
+    del _o, _s, f, idx
+    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    res = {
+        "phase": "index_kernel",
+        "entries": INDEX_ENTRIES,
+        "column_bytes": INDEX_ENTRIES * 16,
+        "starts_bytes": (snap.nb + 1) * 4,
+        "nb": snap.nb,
+        "bsteps": snap.bsteps,
+        "steps_unbucketed": snap.steps,
+        "snapshot_build_s": build_s,
+        "probes": INDEX_PROBES,
+        "absent": n_absent,
+        "edge_tables": list(edge_tables(np)),
+        "equal_to_plain": True,
+        "equal_to_library": True,
+        "max_abs_err": worst,
+        "tolerance": "exact",
+        "ms": ms,
+        "ms_note": "median CUDA-event time of one launch",
+        "device_ms_profiler": device_ms,
+        "ms_unbucketed": flat_ms,
+        "plain_ms": plain_ms,
+        "plain_ms_unbucketed": plain_flat_ms,
+        "library_ms": library_ms,
+        "library_call": "torch.searchsorted on sign-biased int64 keys + 3 gathers",
+        "bound_bytes": nbytes,
+        "bound_ms": bound_ms,
+        "bound_ms_unbucketed": nbytes_flat / HBM_BYTES_PER_S * 1e3,
+        "bound_by": "bytes",
+        "probes_per_s": INDEX_PROBES / (ms * 1e-3),
+    }
+    emit(res)
+    return res
+
+
+# --- phase 9 -----------------------------------------------------------------
+ARENA_VOLUMES = 4
+ARENA_ENTRIES = 1 << 20
+ARENA_MEMTABLE = 200_000  # entries: 5 sealed runs and a 48,576-entry tail
+GATE_PROBES = 200_000
+GATE_CONCURRENCY = 256
+
+
+class _Vol:
+    """The two seams the gate probes: nm (get, arena_view) and the host
+    path of Volume.bulk_lookup."""
+
+    def __init__(self, nm, tombstone):
+        self.nm = nm
+        self.tombstone = tombstone
+
+    def bulk_lookup(self, keys, use_device=None):
+        import numpy as np
+
+        offs = np.zeros(len(keys), dtype=np.uint32)
+        szs = np.zeros(len(keys), dtype=np.uint32)
+        fnd = np.zeros(len(keys), dtype=bool)
+        for i, k in enumerate(keys.tolist()):
+            nv = self.nm.get(k)
+            if nv is not None and nv.offset_units != 0 and nv.size != self.tombstone:
+                offs[i], szs[i], fnd[i] = nv.offset_units, nv.size, True
+        return offs, szs, fnd
+
+
+def _pack(torch, np, rl, gen, members):
+    total = sum(len(k) * len(s) for _g, s, k in members)
+    u32 = np.zeros((4, total), dtype=np.uint32)
+    i32 = np.zeros((5, total), dtype=np.int32)
+    rl.pack_members(gen, members, u32, i32)
+    dev = gen.keys.device
+    return (torch.from_numpy(u32.view(np.int32)).to(dev),
+            torch.from_numpy(i32).to(dev), total)
+
+
+def phase_arena_gate(torch, work: str, seed: int) -> dict:
+    import asyncio
+
+    import numpy as np
+
+    from seaweedfs_tpu_torch.ops import ragged_lookup as rl
+    from seaweedfs_tpu_torch.server.lookup_gate import BatchLookupGate
+    from seaweedfs_tpu_torch.storage.needle_map.lsm_map import LsmNeedleMap
+    from seaweedfs_tpu_torch.types import TOMBSTONE_FILE_SIZE
+
+    rng = np.random.default_rng(seed + 9)
+    vols, keys_of = {}, {}
+    t0 = time.perf_counter()
+    for vid in range(1, ARENA_VOLUMES + 1):
+        nm = LsmNeedleMap(os.path.join(work, f"lsm{vid}.idx"),
+                          memtable_bytes=ARENA_MEMTABLE * 120)
+        keys = rng.choice(np.arange(1, ARENA_ENTRIES * 16, dtype=np.uint64),
+                          size=ARENA_ENTRIES, replace=False)
+        for c0 in range(0, ARENA_ENTRIES, ARENA_MEMTABLE):
+            nm.put_batch((int(k), c0 + j + 1, 100 + (c0 + j) % 900)
+                         for j, k in enumerate(keys[c0:c0 + ARENA_MEMTABLE].tolist()))
+        for k in keys[::200].tolist():
+            nm.delete(int(k), 0)
+        vols[vid] = _Vol(nm, TOMBSTONE_FILE_SIZE)
+        keys_of[vid] = keys
+    build_s = time.perf_counter() - t0
+    runs = {vid: len(v.nm._runs) for vid, v in vols.items()}
+    tails = {vid: len(v.nm._mem) for vid, v in vols.items()}
+
+    class Store:
+        def find_volume(self, vid):
+            return vols.get(vid)
+
+    arena = rl.DeviceColumnArena()
+    try:
+        segs = [s for v in vols.values() for s in v.nm.arena_view([])[1]]
+        arena.ensure(segs)
+        t0 = time.perf_counter()
+        arena.refresh_sync()
+        refresh_s = time.perf_counter() - t0
+        st = arena.stats()
+        if st["resident_segments"] != len(segs) or st["errors"]:
+            fail(f"arena did not take every segment: {st}")
+        plan_vid = rng.integers(1, ARENA_VOLUMES + 1, size=GATE_PROBES)
+        miss = rng.random(GATE_PROBES) < 0.1
+        plan = [
+            (vid, int(rng.integers(1 << 40, 1 << 41)) if m
+             else int(keys_of[vid][rng.integers(0, ARENA_ENTRIES)]))
+            for vid, m in zip(plan_vid.tolist(), miss.tolist())
+        ]
+        def drive(gate, plan):
+            """GATE_CONCURRENCY clients on one loop walk the plan, each
+            awaiting its lookups one at a time -> the answers."""
+            got = [None] * len(plan)
+
+            async def client(i0):
+                for i in range(i0, len(plan), GATE_CONCURRENCY):
+                    got[i] = await gate.lookup(*plan[i])
+
+            async def main():
+                await asyncio.gather(*(client(i) for i in range(GATE_CONCURRENCY)))
+
+            asyncio.run(main())
+            gate.close()
+            return got
+
+        gate = BatchLookupGate(Store(), arena=arena, identity_check=True)
+        rl.KERNEL_LAUNCHES = 0
+        t0 = time.perf_counter()
+        got = drive(gate, plan)
+        drive_s = time.perf_counter() - t0
+        launches = rl.KERNEL_LAUNCHES
+        for (vid, k), r in zip(plan, got):
+            nv = vols[vid].nm.get(k)
+            want = (None if nv is None or nv.offset_units == 0
+                    or nv.size == TOMBSTONE_FILE_SIZE else (nv.offset_units, nv.size))
+            if r != want:
+                fail(f"gate answered {r} for ({vid}, {k}), the host map {want}")
+        stats = dict(gate.stats)
+        if stats["identity_mismatches"] or stats["host_fallbacks"] or arena.counters["errors"]:
+            fail(f"gate {stats}, arena errors {arena.counters['errors']} "
+                 f"({arena.last_error})")
+        if stats["device_probes"] <= 0 or launches <= 0:
+            fail(f"no probe reached the device: {stats}, {launches} launches")
+        hist = {int(b): c for b, c in sorted(gate.batch_hist.items())}
+        # the same traffic as a server runs it, with the identity check off
+        gate_off = BatchLookupGate(Store(), arena=arena)
+        t0 = time.perf_counter()
+        got_off = drive(gate_off, plan)
+        drive_off_s = time.perf_counter() - t0
+        if got_off != got:
+            fail("the gate without the identity check answered otherwise")
+        if gate_off.stats["host_fallbacks"] or arena.counters["errors"]:
+            fail(f"gate without the identity check {gate_off.stats}, arena "
+                 f"errors {arena.counters['errors']} ({arena.last_error})")
+        # the device's busy share under the same traffic (a second,
+        # profiled drive over the first 50,000 probes)
+        try:
+            busy = profile_device(torch, lambda: drive(
+                BatchLookupGate(Store(), arena=arena, identity_check=True), plan[:50_000]))
+        except Exception as e:
+            busy = {"error": str(e)}
+        flushes = sorted(b for b, c in hist.items() for _ in range(c))
+        median_batch = flushes[len(flushes) // 2]
+
+        # ragged_lookup against its plain version, at the gate's median
+        # batch and at 65,536 probes, on packed planes of this generation
+        gen = arena.ensure(segs)
+        timing = {}
+        worst = 0
+        for n_probes in (median_batch, 65_536):
+            idx = rng.integers(0, len(plan), size=n_probes)
+            by_vid = {}
+            for i in idx.tolist():
+                by_vid.setdefault(plan[i][0], []).append(plan[i][1])
+            members = [(vid, vols[vid].nm.arena_view([])[1], np.asarray(ks, dtype=np.uint64))
+                       for vid, ks in sorted(by_vid.items())]
+            u32_d, i32_d, slots = _pack(torch, np, rl, gen, members)
+            cols = (gen.keys, gen.offs, gen.sizes, gen.bloom)
+            kern = lambda: rl._ragged_lookup_cuda(*cols, u32_d, i32_d)  # noqa: E731
+            plain = lambda: rl._ragged_dispatch_torch(gen.steps, *cols, u32_d, i32_d)  # noqa: E731
+            a, b = kern(), plain()
+            torch.cuda.synchronize()
+            if not (torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+                    and torch.equal(a[2].bool(), b[2])):
+                fail(f"ragged_lookup != plain at {n_probes} probes")
+            worst = max(worst, max_abs_diff(torch, zip(a[:2], b[:2])))
+            _o, _s, f, rows, present = rl._ragged_dispatch_torch(
+                gen.steps, *cols, u32_d, i32_d, with_index=True)
+            bw = torch.cat([i32_d[3][u32_d[2] != 0], i32_d[4][u32_d[3] != 0]])
+            nbytes = (slots * (4 * 4 + 5 * 4 + 4 + 4 + 1)
+                      + unique_sector_bytes(torch, bw, 4)
+                      + unique_sector_bytes(torch, rows[present], 8)
+                      + 2 * unique_sector_bytes(torch, rows[f], 4))
+            events_ms = cuda_median_ms(torch, kern, 50)
+            device_ms = kernel_device_ms(torch, kern, "ragged_lookup_kernel", 50)
+            timing[n_probes] = {
+                "slots": slots,
+                "ms": device_ms if device_ms is not None else events_ms,
+                "ms_from": "profiler" if device_ms is not None else "events",
+                "ms_events": events_ms,
+                "plain_ms": cuda_median_ms(torch, plain, 10, warm=1),
+                "bound_bytes": nbytes,
+                "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+            }
+        # and one probe_groups of 65,536 probes through the entry point
+        res65 = arena.probe_groups([(s, k) for _v, s, k in members])
+        for (vid, _s, ks), r in zip(members, res65):
+            mem_hits, _ = vols[vid].nm.arena_view(ks)
+            for j, k in enumerate(ks.tolist()):
+                hit = mem_hits.get(k) or (
+                    (int(r["off"][j]), int(r["size"][j])) if r["found"][j] else None)
+                nv = vols[vid].nm.get(k)
+                if hit != (None if nv is None else (nv.offset_units, nv.size)):
+                    fail(f"probe_groups answer for ({vid}, {k}) differs from the map")
+    finally:
+        arena.close()
+        for v in vols.values():
+            v.nm.close()
+    res = {
+        "phase": "arena_gate",
+        "volumes": ARENA_VOLUMES,
+        "entries_per_volume": ARENA_ENTRIES,
+        "runs": runs,
+        "memtable_tail": tails,
+        "build_s": build_s,
+        "arena": {k: st[k] for k in ("resident_segments", "resident_bytes",
+                                      "resident_rows", "budget_bytes")},
+        "refresh_s": refresh_s,
+        "probes": len(plan),
+        "absent_share": float(miss.mean()),
+        "concurrency": GATE_CONCURRENCY,
+        "drive_s": drive_s,
+        "probes_per_s": len(plan) / drive_s,
+        "identity_check": "on for drive_s and probes_per_s",
+        "drive_identity_off_s": drive_off_s,
+        "probes_per_s_identity_off": len(plan) / drive_off_s,
+        "device_busy": busy,
+        "gate": stats,
+        "batch_hist": hist,
+        "median_batch": median_batch,
+        "arena_errors": arena.counters["errors"],
+        "all_equal_to_host_maps": True,
+        "kernel_launches": launches,
+        "ragged_lookup": {str(k): v for k, v in timing.items()},
+        "equal_to_plain": True,
+        "max_abs_err": worst,
+    }
+    emit(res)
+    return res
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--volume-gib", type=float, default=11.0)
@@ -253,6 +907,8 @@ def main() -> int:
         from seaweedfs_tpu_torch.gpu.coder import get_codec
         from seaweedfs_tpu_torch.ops import _build
         from seaweedfs_tpu_torch.ops import gf256 as G
+        from seaweedfs_tpu_torch.ops import index_kernel as IK
+        from seaweedfs_tpu_torch.ops import ragged_lookup as RL
         from seaweedfs_tpu_torch.storage import idx as idx_mod
         from seaweedfs_tpu_torch.storage import needle as needle_mod
         from seaweedfs_tpu_torch.storage import super_block as sb_mod
@@ -290,15 +946,31 @@ def main() -> int:
 
     # --- phase 1 ---
     t0 = time.perf_counter()
-    lib_path = _build.build("gf256")
+    built, errors = {}, {}
+
+    def build(name):
+        try:
+            built[name] = _build.build(name)
+        except Exception as e:  # reported below, for every kernel
+            errors[name] = str(e)
+
+    threads = [threading.Thread(target=build, args=(k,)) for k in KERNELS]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if errors:
+        fail(f"kernel build failed: {errors}")
     limits = G.kernel_limits()
+    IK._kernel_lib()
+    RL._kernel_lib()
     emit({
         "phase": "build",
-        "library": os.path.relpath(lib_path, HERE),
-        "nvcc_seconds": _build.BUILD_SECONDS["gf256"],
+        "libraries": {k: os.path.relpath(v, HERE) for k, v in built.items()},
+        "nvcc_seconds": dict(_build.BUILD_SECONDS),
         "seconds": time.perf_counter() - t0,
-        "max_rows": limits[0], "max_cols": limits[1],
-        "rows_per_launch": limits[2],
+        "gf256_max_rows": limits[0], "gf256_max_cols": limits[1],
+        "gf256_rows_per_launch": limits[2],
     })
 
     # --- phase 2 ---
@@ -307,6 +979,7 @@ def main() -> int:
     os.makedirs(args.workdir, exist_ok=True)
     work = tempfile.mkdtemp(prefix="chip_smoke-", dir=args.workdir)
     launches = {}
+    ik_launches = {}
     try:
         # --- phase 3 ---
         target = int(args.volume_gib * GIB)
@@ -467,8 +1140,27 @@ def main() -> int:
                 )
             read_s = time.perf_counter() - t0
             launches["degraded_read"] = G.KERNEL_LAUNCHES
+            # bulk_locate of every needle plus 10 % absent ids, on the card
+            absent = rng.integers(1 << 41, 1 << 42, size=len(ids) // 10, dtype=np.uint64)
+            locate_ids = rng.permutation(np.concatenate([ids, absent]))
+            IK.KERNEL_LAUNCHES = 0
+            t0 = time.perf_counter()
+            loc_off, loc_size, loc_found = ev.bulk_locate(locate_ids)
+            locate_s = time.perf_counter() - t0
+            ik_launches["ec_bulk_locate"] = IK.KERNEL_LAUNCHES
+            for j, nid in enumerate(locate_ids.tolist()):
+                try:
+                    want_loc = ev.find_needle_from_ecx(nid)
+                except Exception:
+                    want_loc = None
+                got_loc = ((int(loc_off[j]), int(loc_size[j]))
+                           if loc_found[j] else None)
+                if got_loc != want_loc:
+                    fail(f"bulk_locate({nid:x}) = {got_loc}, ecx says {want_loc}")
         if launches["degraded_read"] <= 0:
             fail("degraded reads launched the kernel no time")
+        if ik_launches["ec_bulk_locate"] <= 0:
+            fail("bulk_locate launched index_search no time")
         emit({
             "phase": "degraded_read",
             "lost": list(DEGRADED_LOST),
@@ -480,7 +1172,22 @@ def main() -> int:
             "seconds": read_s,
             "all_equal": True,
             "kernel_launches": launches["degraded_read"],
+            "bulk_locate": {
+                "ids": len(locate_ids),
+                "absent": len(absent),
+                "seconds": locate_s,
+                "equal_to_ecx_search": True,
+                "index_search_launches": ik_launches["ec_bulk_locate"],
+            },
         })
+
+        # --- phases 7-9 ---
+        for fn in os.listdir(work):  # free the EC volume's disk
+            os.remove(os.path.join(work, fn))
+        vres = phase_volume_lookup(torch, work, args.seed, needle_mod, crc_mod)
+        ik_launches["volume_lookup"] = vres["kernel_launches"]
+        ires = phase_index_kernel(torch, args.seed)
+        ares = phase_arena_gate(torch, work, args.seed)
     finally:
         shutil.rmtree(work, ignore_errors=True)
         try:
@@ -489,6 +1196,7 @@ def main() -> int:
             pass
     emit({"phase": "done", "total_s": time.perf_counter() - t_start})
 
+    k2 = ares["ragged_lookup"]["65536"]
     emit({
         "kernels": [{
             "name": "gf_matmul",
@@ -500,9 +1208,44 @@ def main() -> int:
             "equal_to_plain": True,
             "max_abs_err": kres["max_abs_err"],
             "ms": kres["ms"],
+            "ms_from": "events",
             "plain_ms": kres["plain_ms"],
             "bound_ms": kres["bound_ms"],
             "bound_by": kres["bound_by"],
+            "library_ms": None,
+        }, {
+            "name": "index_search",
+            "route": "cuda",
+            "source": "seaweedfs_tpu_torch/ops/csrc/index_search.cu",
+            "replaces": "seaweedfs_tpu/ops/index_kernel.py:80 (_bulk_lookup_bucketed; "
+                        "_bulk_lookup at :36)",
+            "launches": sum(ik_launches.values()),
+            "launches_by_path": ik_launches,
+            "equal_to_plain": True,
+            "max_abs_err": ires["max_abs_err"],
+            "shape": f"{INDEX_ENTRIES} entries, {INDEX_PROBES} probes, bucketed",
+            "ms": ires["ms"],
+            "ms_from": "events",
+            "plain_ms": ires["plain_ms"],
+            "bound_ms": ires["bound_ms"],
+            "bound_by": ires["bound_by"],
+            "library_ms": ires["library_ms"],
+        }, {
+            "name": "ragged_lookup",
+            "route": "cuda",
+            "source": "seaweedfs_tpu_torch/ops/csrc/ragged_lookup.cu",
+            "replaces": "seaweedfs_tpu/ops/ragged_lookup.py:181 (_ragged_dispatch)",
+            "launches": ares["kernel_launches"],
+            "launches_by_path": {"arena_gate": ares["kernel_launches"]},
+            "equal_to_plain": True,
+            "max_abs_err": ares["max_abs_err"],
+            "shape": f"65536 probes, {k2['slots']} slots over "
+                     f"{ares['arena']['resident_segments']} segments",
+            "ms": k2["ms"],
+            "ms_from": k2["ms_from"],
+            "plain_ms": k2["plain_ms"],
+            "bound_ms": k2["bound_ms"],
+            "bound_by": "bytes",
             "library_ms": None,
         }],
     })

@@ -4,8 +4,10 @@ Each kernel source under csrc/ is compiled by nvcc into a shared library
 with a plain C interface and loaded through ctypes; nothing includes
 PyTorch's headers, so a build takes seconds. Libraries land in
 seaweedfs_tpu_torch/ops/build/ (listed in .gitignore), named by a hash of
-the source and the flags, so an edited source rebuilds and an unchanged one
-loads the library already there.
+the source, the shared headers and the flags, so an edited source rebuilds
+and an unchanged one loads the library already there. Separate sources
+build independently: call build() for each from its own thread to run the
+nvcc processes at once.
 
 Importing this module needs no nvcc, no CUDA and no GPU: only a call to
 load_library() builds. A missing nvcc raises; it is never a reason to run
@@ -59,9 +61,13 @@ def find_nvcc() -> str:
 
 
 def library_path(name: str) -> str:
-    """Where the library for csrc/<name>.cu goes, keyed by source + flags."""
-    with open(os.path.join(CSRC_DIR, name + ".cu"), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    """Where the library for csrc/<name>.cu goes, keyed by its source, the
+    csrc/ headers (*.cuh, which sources share) and the flags."""
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    headers = sorted(f for f in os.listdir(CSRC_DIR) if f.endswith(".cuh"))
+    for fn in [name + ".cu", *headers]:
+        with open(os.path.join(CSRC_DIR, fn), "rb") as f:
+            digest.update(fn.encode() + b"\0" + f.read())
     return os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:16]}.so")
 
 

@@ -7,6 +7,10 @@ decodes an interval whose shard is missing from k local survivors through
 the codec (the local-shard part of the JAX package's volume server
 degraded read, server/volume_ec.py _recover_one_interval /
 read_ec_needle_at).
+
+bulk_locate answers a batch of needle ids from a snapshot of the live .ecx
+entries kept on the card (ops/index_kernel.py), the bulk analogue of
+find_needle_from_ecx.
 """
 
 from __future__ import annotations
@@ -98,7 +102,9 @@ def search_needle_from_sorted_index(
 class EcVolume:
     """An EC volume's .ecx, .vif and the shard files present in
     `directory`. Block sizes default to the reference's 1GB/1MB; they are
-    parameters so shrunk test geometries read back what they wrote."""
+    parameters so shrunk test geometries read back what they wrote.
+    `device` is where bulk_locate's .ecx snapshot lives: the card unless
+    the caller asks for the CPU."""
 
     def __init__(
         self,
@@ -107,6 +113,7 @@ class EcVolume:
         vid: int,
         large_block_size: int = EC_LARGE_BLOCK_SIZE,
         small_block_size: int = EC_SMALL_BLOCK_SIZE,
+        device=None,
     ):
         self.dir = directory
         self.collection = collection
@@ -134,6 +141,12 @@ class EcVolume:
         for sid in range(self.total_shards):
             if os.path.exists(base + to_ext(sid)):
                 self.shards.append(EcVolumeShard(directory, collection, vid, sid))
+        # device-resident .ecx snapshot for bulk probes; the port writes
+        # no .ecx tombstones, so one snapshot serves the volume's life
+        from ...ops.snapshot_cache import SnapshotCache
+
+        self.device = device
+        self._ecx_cache = SnapshotCache(device=device)
 
     def file_name(self) -> str:
         return ec_shard_file_name(self.collection, self.dir, self.volume_id)
@@ -159,6 +172,49 @@ class EcVolume:
         return search_needle_from_sorted_index(
             self._ecx, self.ecx_file_size, needle_id
         )
+
+    def ecx_snapshot(self):
+        """Live .ecx entries as sorted numpy columns
+        (keys u64[n], offset_units u32[n], sizes u32[n]) — the probe table
+        for the bulk-lookup kernel. Tombstoned entries are excluded."""
+        from ..idx import parse_index_bytes
+
+        keys, offsets, sizes = parse_index_bytes(
+            os.pread(self._ecx.fileno(), self.ecx_file_size, 0)
+        )
+        live = sizes != TOMBSTONE_FILE_SIZE
+        return keys[live], offsets[live], sizes[live]
+
+    def bulk_locate(self, needle_ids, use_device: Optional[bool] = None):
+        """Batched .ecx probes -> (offset_units u32[P], sizes u32[P],
+        found bool[P]).
+
+        One search on the card over a cached snapshot instead of P
+        on-disk searches (ref SearchNeedleFromSortedIndex,
+        ec_volume.go:210-235). use_device None: batches of 64 ids or more
+        go to the snapshot, smaller ones (and the 5-byte offset build) to
+        the on-disk search, as in the JAX package."""
+        from ...types import OFFSET_SIZE
+
+        needle_ids = np.asarray(needle_ids, dtype=np.uint64)
+        if use_device is None:
+            use_device = OFFSET_SIZE == 4 and len(needle_ids) >= 64
+        if not use_device:
+            off_dtype = np.uint64 if OFFSET_SIZE == 5 else np.uint32
+            offsets = np.zeros(len(needle_ids), dtype=off_dtype)
+            sizes = np.zeros(len(needle_ids), dtype=np.uint32)
+            found = np.zeros(len(needle_ids), dtype=bool)
+            for i, k in enumerate(needle_ids.tolist()):
+                try:
+                    o, s = self.find_needle_from_ecx(k)
+                except NeedleNotFound:
+                    continue
+                if s != TOMBSTONE_FILE_SIZE:
+                    offsets[i], sizes[i], found[i] = o, s, True
+            return offsets, sizes, found
+
+        accel = self._ecx_cache.get(lambda: 0, self.ecx_snapshot)
+        return accel.lookup(needle_ids)
 
     def intervals_for(self, offset_units: int, size: int) -> list[Interval]:
         """Shard intervals for an already-located needle."""

@@ -9,6 +9,8 @@ newest-wins fold that turns an .idx log into the sorted .ecx.
 
 from __future__ import annotations
 
+from typing import BinaryIO, Iterator
+
 import numpy as np
 
 from ..types import (
@@ -23,6 +25,8 @@ from ..types import (
     u64_to_bytes,
 )
 
+ROW_BATCH = 1024 * 1024  # entries per read batch when walking
+
 
 def entry_to_bytes(key: int, offset_units: int, size: int) -> bytes:
     return u64_to_bytes(key) + offset_to_bytes(offset_units) + u32_to_bytes(size)
@@ -35,6 +39,19 @@ def parse_entry(b: bytes) -> tuple[int, int, int]:
         bytes_to_offset(b[8 : 8 + OFFSET_SIZE]),
         bytes_to_u32(b[8 + OFFSET_SIZE : NEEDLE_MAP_ENTRY_SIZE]),
     )
+
+
+def iter_index(f: BinaryIO) -> Iterator[tuple[int, int, int]]:
+    """Iterate (key, offset_units, size) over an open .idx stream."""
+    while True:
+        chunk = f.read(NEEDLE_MAP_ENTRY_SIZE * ROW_BATCH)
+        if not chunk:
+            return
+        usable = len(chunk) - (len(chunk) % NEEDLE_MAP_ENTRY_SIZE)
+        for i in range(0, usable, NEEDLE_MAP_ENTRY_SIZE):
+            yield parse_entry(chunk[i : i + NEEDLE_MAP_ENTRY_SIZE])
+        if usable != len(chunk):
+            return
 
 
 def parse_index_bytes(data: bytes) -> tuple[np.ndarray, np.ndarray, np.ndarray]:

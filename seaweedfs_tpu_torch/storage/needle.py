@@ -349,3 +349,24 @@ class Needle:
         if version == VERSION3:
             ts = NEEDLE_HEADER_SIZE + size + NEEDLE_CHECKSUM_SIZE
             self.append_at_ns = bytes_to_u64(b[ts : ts + TIMESTAMP_SIZE])
+
+
+def read_needle_blob(backend_file, offset: int, size: int, version: int) -> bytes:
+    return backend_file.read_at(get_actual_size(size, version), offset)
+
+
+def read_needle_data(backend_file, offset: int, size: int, version: int) -> Needle:
+    n = Needle()
+    blob = read_needle_blob(backend_file, offset, size, version)
+    n.read_bytes(blob, offset, size, version)
+    return n
+
+
+def read_needle_header(backend_file, version: int, offset: int) -> tuple[Needle, int]:
+    """Returns (needle_with_header, body_length)."""
+    b = backend_file.read_at(NEEDLE_HEADER_SIZE, offset)
+    if len(b) < NEEDLE_HEADER_SIZE:
+        raise EOFError("short read at needle header")
+    n = Needle()
+    n.parse_header(b)
+    return n, needle_body_length(n.size, version)

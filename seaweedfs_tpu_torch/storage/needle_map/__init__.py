@@ -1,0 +1,33 @@
+"""Needle maps: fid -> (offset, size) indexes.
+
+The mapper contract follows the reference's NeedleMapper interface
+(ref: weed/storage/needle_map.go:21-34): Put/Get/Delete/AscendingVisit plus
+metrics. Every map can emit a sorted-array snapshot (numpy u64/u32 columns)
+consumed by the bulk-lookup kernel in ops/index_kernel.py, and the LSM map
+hands its sealed runs to the ragged arena (ops/ragged_lookup.py).
+
+Ported so far: the in-memory CompactMap/NeedleMap and the LSM map. The
+sqlite (leveldb) and sorted-file maps (disk_maps.py) and MemDb are not.
+"""
+
+from .needle_value import NeedleValue
+from .compact_map import CompactMap
+from .metric import MapMetric
+from .mapper import NeedleMap, new_needle_map, load_needle_map
+from .lsm_map import (
+    LsmNeedleMap,
+    load_lsm_needle_map,
+    new_lsm_needle_map,
+)
+
+__all__ = [
+    "NeedleValue",
+    "CompactMap",
+    "MapMetric",
+    "NeedleMap",
+    "new_needle_map",
+    "load_needle_map",
+    "LsmNeedleMap",
+    "load_lsm_needle_map",
+    "new_lsm_needle_map",
+]

@@ -129,3 +129,12 @@ class SuperBlock:
             if len(sb.extra) != extra_size:
                 raise ValueError("truncated super block extra")
         return sb
+
+
+def read_super_block(backend_file) -> SuperBlock:
+    header = backend_file.read_at(SUPER_BLOCK_SIZE, 0)
+    sb = SuperBlock.parse(header)
+    extra_size = bytes_to_u16(header[6:8])
+    if extra_size:
+        sb.extra = backend_file.read_at(extra_size, SUPER_BLOCK_SIZE)
+    return sb

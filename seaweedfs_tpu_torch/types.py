@@ -30,6 +30,10 @@ NEEDLE_PADDING_SIZE = 8
 NEEDLE_CHECKSUM_SIZE = 4
 TOMBSTONE_FILE_SIZE = 0xFFFFFFFF
 
+# offset bytes * 8-byte alignment => 32GB (4B) / 8TB (5B) max volume
+# (ref: weed/storage/types/offset_4bytes.go:14, offset_5bytes.go:15)
+MAX_POSSIBLE_VOLUME_SIZE = (1 << (8 * OFFSET_SIZE)) * NEEDLE_PADDING_SIZE
+
 _U64 = struct.Struct(">Q")
 _U32 = struct.Struct(">I")
 _U16 = struct.Struct(">H")

@@ -1,8 +1,10 @@
 """The port stands alone: no module of seaweedfs_tpu_torch, and not
-chip_smoke.py, imports jax, jaxlib or the JAX package seaweedfs_tpu (exact
-module names: seaweedfs_tpu_torch itself merely starts with the same
-letters), and a process that refuses those imports runs an encode, a
-rebuild and a degraded read through the port."""
+chip_smoke.py, imports jax, jaxlib, msgpack or the JAX package
+seaweedfs_tpu (exact module names: seaweedfs_tpu_torch itself merely
+starts with the same letters), and a process that refuses those imports
+(and triton, with no nvcc on its PATH) runs an encode, a rebuild, a
+degraded read, a Volume.bulk_lookup, an EcVolume.bulk_locate and one gate
+flush through the arena of the port, building no kernel."""
 
 import ast
 import os
@@ -14,7 +16,7 @@ import pytest
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(REPO, "seaweedfs_tpu_torch")
-FORBIDDEN = ("jax", "jaxlib", "seaweedfs_tpu")
+FORBIDDEN = ("jax", "jaxlib", "msgpack", "seaweedfs_tpu")
 
 
 def _forbidden(name: str) -> bool:
@@ -31,6 +33,7 @@ def _sources() -> list:
 def test_forbidden_matches_exact_names_only():
     assert _forbidden("jax") and _forbidden("jax.numpy") and _forbidden("jaxlib")
     assert _forbidden("seaweedfs_tpu") and _forbidden("seaweedfs_tpu.ops.gf256")
+    assert _forbidden("msgpack") and not _forbidden("msgpack_lite")
     assert not _forbidden("seaweedfs_tpu_torch")
     assert not _forbidden("seaweedfs_tpu_torch.ops.gf256")
     assert not _forbidden("jaxtyping")
@@ -70,7 +73,8 @@ _SCRIPT = textwrap.dedent(
     class Refuse(importlib.abc.MetaPathFinder):
         def find_spec(self, name, path=None, target=None):
             if any(name == f or name.startswith(f + ".")
-                   for f in ("jax", "jaxlib", "seaweedfs_tpu")):
+                   for f in ("jax", "jaxlib", "msgpack", "seaweedfs_tpu",
+                             "triton")):
                 raise ImportError("refused: " + name)
             return None
 
@@ -114,9 +118,46 @@ _SCRIPT = textwrap.dedent(
             assert (bytes(n.data), n.checksum) == (data, crc), nid
     assert rebuild_ec_files(base, codec=codec, chunk=700) == [0, 4, 10, 13]
     assert [open(base + to_ext(i), "rb").read() for i in range(14)] == shards
+
+    # the needle-index slice: bulk_locate, a volume's bulk_lookup over
+    # both maps, and one gate flush answered by the arena
+    import asyncio
+    from seaweedfs_tpu_torch.ops import index_kernel, ragged_lookup
+    from seaweedfs_tpu_torch.server.lookup_gate import BatchLookupGate
+    from seaweedfs_tpu_torch.storage.volume import Volume
+    ids = np.asarray(sorted(want) + [999], dtype=np.uint64)
+    with EcVolume(d, "", 5, 4096, 512, device="cpu") as ev:
+        assert ev.bulk_locate(ids)[2].tolist() == [True] * 74 + [False]
+    vols = {}
+    for vid, kind in ((6, "memory"), (7, "lsm")):
+        v = vols[vid] = Volume(d, "", vid, needle_map_kind=kind, device="cpu")
+        for nid in range(1, 300):
+            v.write_needle(Needle(cookie=1, id=nid, data=b"x" * (nid % 7)))
+        v.delete_needle(Needle(cookie=1, id=3))
+        found = v.bulk_lookup(np.arange(1, 400, dtype=np.uint64))[2]
+        assert found.sum() == 298 and not found[2], kind
+    vols[7].nm.save_snapshot()  # seal the memtable into a run
+    class Store:
+        def find_volume(self, vid):
+            return vols.get(vid)
+    arena = ragged_lookup.DeviceColumnArena(device="cpu")
+    arena.ensure(vols[7].nm.arena_view([])[1])
+    arena.refresh_sync()
+    gate = BatchLookupGate(Store(), arena=arena, identity_check=True)
+    async def flush():
+        return await asyncio.gather(*(gate.lookup(7, k) for k in range(1, 301)))
+    res = asyncio.run(flush())
+    assert sum(r is not None for r in res) == 298 and res[2] is None
+    assert gate.stats["device_probes"] == 300, gate.stats
+    assert gate.stats["identity_mismatches"] == 0
+    assert index_kernel._LIB is None and ragged_lookup._LIB is None
+    arena.close()
+    for v in vols.values():
+        v.close()
     loaded = [m for m in sys.modules
               if any(m == f or m.startswith(f + ".")
-                     for f in ("jax", "jaxlib", "seaweedfs_tpu"))]
+                     for f in ("jax", "jaxlib", "msgpack", "seaweedfs_tpu",
+                               "triton"))]
     assert not loaded, loaded
     print("ISOLATED-OK")
     """
@@ -124,8 +165,10 @@ _SCRIPT = textwrap.dedent(
 
 
 def test_port_runs_with_jax_imports_refused(tmp_path):
-    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("PYTHONPATH", "CUDA_HOME")}
     env["PYTHONPATH"] = REPO
+    env["PATH"] = "/usr/bin:/bin"  # no nvcc
     proc = subprocess.run(
         [sys.executable, "-c", _SCRIPT, str(tmp_path)],
         cwd=str(tmp_path), env=env, capture_output=True, text=True, timeout=120,
