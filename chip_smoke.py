@@ -559,16 +559,16 @@ def phase_index_kernel(torch, seed: int) -> dict:
     build_s = time.perf_counter() - t0
     if snap.starts is None:
         fail("the full-volume snapshot is not bucketed")
-    dev = snap.keys.device
+    dev = snap.rows.device
     pk = torch.from_numpy(probes.view(np.int64)).to(dev)
     bucket = torch.from_numpy(snap._bucket_of(probes).astype(np.int64)).to(dev)
-    cols = (snap.keys, snap.offsets, snap.sizes)
+    cols = (snap.keys, snap.offsets, snap.sizes)  # strided views of snap.rows
 
     def k1_bucketed():
-        return K._index_search_cuda(*cols, snap.starts, snap.kmin, snap.bstep, snap.nb, pk)
+        return K._index_search_cuda(snap.rows, snap.starts, snap.kmin, snap.bstep, snap.nb, pk)
 
     def k1_flat():
-        return K._index_search_cuda(*cols, None, 0, 1, 0, pk)
+        return K._index_search_cuda(snap.rows, None, 0, 1, 0, pk)
 
     def plain_bucketed():
         return K._bulk_lookup_bucketed_torch(snap.bsteps, *cols, snap.starts, pk, bucket)
@@ -577,15 +577,18 @@ def phase_index_kernel(torch, seed: int) -> dict:
         return K._bulk_lookup_torch(snap.steps, *cols, pk)
 
     # the one PyTorch call computing the same function: searchsorted over
-    # the sign-biased keys (which sort as the unsigned ones), then gathers
+    # the sign-biased keys (which sort as the unsigned ones), then gathers,
+    # over contiguous copies of the columns (its best layout)
     biased = snap.keys ^ K._SIGN
+    lib_offs = snap.offsets.contiguous()
+    lib_sizes = snap.sizes.contiguous()
     bp = pk ^ K._SIGN
     n = INDEX_ENTRIES
 
     def library():
         i = torch.searchsorted(biased, bp).clamp_(max=n - 1)
         f = biased[i] == bp
-        return (torch.where(f, snap.offsets[i], 0), torch.where(f, snap.sizes[i], 0), f)
+        return (torch.where(f, lib_offs[i], 0), torch.where(f, lib_sizes[i], 0), f)
 
     worst = 0
     for kern, plain in ((k1_bucketed, plain_bucketed), (k1_flat, plain_flat),
@@ -599,25 +602,31 @@ def phase_index_kernel(torch, seed: int) -> dict:
     found = int(got[2].sum())
     if found != INDEX_PROBES - n_absent:
         fail(f"found {found} of {INDEX_PROBES - n_absent} present probes")
-    ms = cuda_median_ms(torch, k1_bucketed, 30)
+    events_ms = cuda_median_ms(torch, k1_bucketed, 30)
     flat_ms = cuda_median_ms(torch, k1_flat, 10)
     plain_ms = cuda_median_ms(torch, plain_bucketed, 5, warm=1)
     plain_flat_ms = cuda_median_ms(torch, plain_flat, 3, warm=1)
     library_ms = cuda_median_ms(torch, library, 10)
-    device_ms = kernel_device_ms(torch, k1_bucketed, "index_search_kernel", 20)
+    ms = kernel_device_ms(torch, k1_bucketed, "index_search_kernel", 20)
+    if ms is None:
+        fail("the profiler recorded no device time for index_search_kernel")
     # bound: bytes every probe must move, each once: its key in, its three
-    # outputs out, and the distinct sectors of its bucket bounds, its final
-    # key row and (found) its offset and size rows
+    # outputs out, and the distinct 32-byte sectors of its bucket bounds
+    # and of its final 16-byte row (key, offset and size together)
     _o, _s, f, idx = K._search_range_bounded_torch(
         snap.bsteps, *cols, pk, snap.starts[bucket], snap.starts[bucket + 1], n,
         with_index=True)
+    io_bytes = INDEX_PROBES * (8 + 4 + 4 + 1)
+    bounds_bytes = unique_sector_bytes(torch, torch.cat([bucket, bucket + 1]), 4)
     # (unbucketed: the same rows without the bucket bounds)
-    nbytes_flat = (
-        INDEX_PROBES * (8 + 4 + 4 + 1)
-        + unique_sector_bytes(torch, idx, 8)
+    nbytes_flat = io_bytes + unique_sector_bytes(torch, idx, 16)
+    nbytes = nbytes_flat + bounds_bytes
+    # the same count in the column layout before packed rows (an 8-byte key
+    # column, 4-byte offset and size columns), to compare across layouts
+    nbytes_cols = (
+        io_bytes + bounds_bytes + unique_sector_bytes(torch, idx, 8)
         + 2 * unique_sector_bytes(torch, idx[f], 4)
     )
-    nbytes = nbytes_flat + unique_sector_bytes(torch, torch.cat([bucket, bucket + 1]), 4)
     del _o, _s, f, idx
     bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
     res = {
@@ -636,17 +645,25 @@ def phase_index_kernel(torch, seed: int) -> dict:
         "equal_to_library": True,
         "max_abs_err": worst,
         "tolerance": "exact",
+        "design": "packed 16-byte rows",
+        "registers": K._kernel_lib().index_search_registers(),
         "ms": ms,
-        "ms_note": "median CUDA-event time of one launch",
-        "device_ms_profiler": device_ms,
+        "ms_from": "profiler",
+        "ms_events": events_ms,
+        "ms_events_note": "median CUDA-event time of one launch",
         "ms_unbucketed": flat_ms,
         "plain_ms": plain_ms,
         "plain_ms_unbucketed": plain_flat_ms,
         "library_ms": library_ms,
-        "library_call": "torch.searchsorted on sign-biased int64 keys + 3 gathers",
+        "library_call": "torch.searchsorted on sign-biased int64 keys + 3 gathers "
+                        "over contiguous columns",
+        "ratio_to_library": ms / library_ms,
+        "ratio_to_library_unbucketed": flat_ms / library_ms,
         "bound_bytes": nbytes,
         "bound_ms": bound_ms,
         "bound_ms_unbucketed": nbytes_flat / HBM_BYTES_PER_S * 1e3,
+        "bound_bytes_column_layout": nbytes_cols,
+        "bound_ms_column_layout": nbytes_cols / HBM_BYTES_PER_S * 1e3,
         "bound_by": "bytes",
         "probes_per_s": INDEX_PROBES / (ms * 1e-3),
     }
@@ -1224,8 +1241,9 @@ def main() -> int:
             "equal_to_plain": True,
             "max_abs_err": ires["max_abs_err"],
             "shape": f"{INDEX_ENTRIES} entries, {INDEX_PROBES} probes, bucketed",
+            "design": ires["design"],
             "ms": ires["ms"],
-            "ms_from": "events",
+            "ms_from": ires["ms_from"],
             "plain_ms": ires["plain_ms"],
             "bound_ms": ires["bound_ms"],
             "bound_by": ires["bound_by"],

@@ -1,7 +1,9 @@
-// The bounded lower-bound search shared by index_search.cu (K1) and
-// ragged_lookup.cu (K2).
+// The bounded lower-bound search over a u64 key column, used by
+// ragged_lookup.cu (K2), whose arena keeps keys, offsets and sizes in
+// separate columns. (index_search.cu, K1, searches packed 16-byte rows
+// with its own loop.)
 //
-// It replaces the body both JAX programs share,
+// It replaces the body the JAX lookup programs share,
 // seaweedfs_tpu/ops/index_kernel.py::_search_range_bounded: a fixed
 // `steps`-round branchless binary search over (hi, lo) u32 key planes. On
 // Hopper a thread compares 64-bit keys natively, so the key column is one

@@ -23,10 +23,16 @@ Two implementations of the same function live here:
   tensors on the CPU; the tests run them against the JAX programs, and
   chip_smoke.py holds the kernel against them on the card.
 
-Keys are u64. torch on the CPU has no unsigned 64-bit comparison, so key
-columns are int64 tensors holding the u64 bits, and the plain versions
-compare them sign-biased (`x ^ (1 << 63)` orders as the unsigned value).
-Offsets and sizes are u32 bits in int32 tensors.
+The snapshot is one table of 16-byte rows, `rows` int64[n, 2]: word 0
+holds the key's u64 bits, word 1 the offset in its low and the size in its
+high 32 bits, so the kernel's every search step loads a key with its
+payload. `keys`, `offsets` and `sizes` are strided views of it, which the
+plain versions read as columns.
+
+Keys are u64. torch on the CPU has no unsigned 64-bit comparison, so keys
+are int64 tensors holding the u64 bits, and the plain versions compare
+them sign-biased (`x ^ (1 << 63)` orders as the unsigned value). Offsets
+and sizes are u32 bits in int32 tensors.
 """
 
 from __future__ import annotations
@@ -110,12 +116,13 @@ def _kernel_lib():
             lib = load_library("index_search")
             lib.index_search.restype = ctypes.c_int
             lib.index_search.argtypes = [
-                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                ctypes.c_void_p, ctypes.c_ulonglong, ctypes.c_ulonglong,
-                ctypes.c_ulonglong, ctypes.c_void_p, ctypes.c_longlong,
+                ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+                ctypes.c_ulonglong, ctypes.c_ulonglong, ctypes.c_ulonglong,
+                ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
                 ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                ctypes.c_void_p,
             ]
+            lib.index_search_registers.restype = ctypes.c_int
+            lib.index_search_registers.argtypes = []
             _LIB = lib
         return _LIB
 
@@ -130,9 +137,7 @@ def _check_cuda(name: str, t: torch.Tensor, dtype, device) -> None:
 
 
 def _index_search_cuda(
-    keys: torch.Tensor,
-    offsets: torch.Tensor,
-    sizes: torch.Tensor,
+    rows: torch.Tensor,
     starts: Optional[torch.Tensor],
     kmin: int,
     bstep: int,
@@ -141,21 +146,23 @@ def _index_search_cuda(
     out: Optional[tuple] = None,
 ):
     """Launch K1 on the current stream: probes int64[P] (u64 bits) on the
-    columns' CUDA device -> (offset int32[P], size int32[P], found
-    uint8[P]). `starts` None searches the whole table. Not synchronised."""
+    rows' CUDA device -> (offset int32[P], size int32[P], found uint8[P]).
+    `rows` is an IndexSnapshot's int64[n, 2] table; `starts` None searches
+    the whole table. Not synchronised."""
     global KERNEL_LAUNCHES
-    dev = keys.device
+    dev = rows.device
     if dev.type != "cuda":
         raise ValueError(f"the kernel takes CUDA tensors, got {dev}")
-    n = keys.shape[0]
+    _check_cuda("rows", rows, torch.int64, dev)
+    if rows.dim() != 2 or rows.shape[1] != 2 or rows.data_ptr() % 16:
+        raise ValueError(f"rows must be a 16-byte aligned int64 [n, 2] table, "
+                         f"got shape {tuple(rows.shape)}")
+    n = rows.shape[0]
     if not 1 <= n < 1 << 31:
         raise ValueError(f"the kernel takes 1 to 2^31-1 rows, got {n}")
-    _check_cuda("keys", keys, torch.int64, dev)
-    _check_cuda("offsets", offsets, torch.int32, dev)
-    _check_cuda("sizes", sizes, torch.int32, dev)
     _check_cuda("probes", probes, torch.int64, dev)
-    if offsets.shape != (n,) or sizes.shape != (n,) or probes.dim() != 1:
-        raise ValueError("columns must be 1-D of one length, probes 1-D")
+    if probes.dim() != 1:
+        raise ValueError("probes must be 1-D")
     if starts is not None:
         _check_cuda("starts", starts, torch.int32, dev)
         if starts.shape != (nb + 1,) or bstep < 1:
@@ -178,8 +185,7 @@ def _index_search_cuda(
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.index_search(
-            keys.data_ptr(), offsets.data_ptr(), sizes.data_ptr(), n,
-            starts.data_ptr() if starts is not None else None,
+            rows.data_ptr(), n, starts.data_ptr() if starts is not None else None,
             kmin, bstep, nb, probes.data_ptr(), p,
             out[0].data_ptr(), out[1].data_ptr(), out[2].data_ptr(), stream,
         )
@@ -344,9 +350,16 @@ class IndexSnapshot:
 
     def _upload(self, keys, off_u32, sizes_u32, starts) -> None:
         dev = self.device
-        self.keys = column_tensor(keys, torch.int64, dev)
-        self.offsets = column_tensor(off_u32, torch.int32, dev)
-        self.sizes = column_tensor(sizes_u32, torch.int32, dev)
+        # one 16-byte row per entry (the kernel's table), and the three
+        # columns as strided views of it: each column is uploaded, copied
+        # into its view and freed
+        self.rows = torch.empty((self.n, 2), dtype=torch.int64, device=dev)
+        words = self.rows.view(torch.int32)  # [n, 4]: key lo, key hi, offset, size
+        self.keys = self.rows[:, 0]
+        self.offsets = words[:, 2]
+        self.sizes = words[:, 3]
+        for view, col in ((self.keys, keys), (self.offsets, off_u32), (self.sizes, sizes_u32)):
+            view.copy_(column_tensor(col, view.dtype, dev))
         if starts is not None:
             self.starts = column_tensor(starts, torch.int32, dev)
         if dev.type == "cuda":
@@ -432,8 +445,8 @@ class IndexSnapshot:
         with torch.cuda.stream(stream):
             (dk,) = st.upload(p)
             _index_search_cuda(
-                self.keys, self.offsets, self.sizes, self.starts,
-                self.kmin, self.bstep, self.nb, dk, out=st.results(p),
+                self.rows, self.starts, self.kmin, self.bstep, self.nb, dk,
+                out=st.results(p),
             )
             off, size, found = st.download(p)
         # the readback lands in the staging buffers, which the next call

@@ -129,6 +129,33 @@ def test_plain_versions_equal_jit_programs():
         _assert_same(want, got)
 
 
+@pytest.mark.parametrize("name", list(TABLES))
+def test_plain_versions_over_row_views_equal_jit_programs(name):
+    """The plain versions read the snapshot's strided row views as columns
+    and still give exactly the jit programs' outputs, on every edge table,
+    at converging step counts and at step counts too small to converge."""
+    keys, offs, sizes = _cols(TABLES[name], 11)
+    probes = _around(keys)
+    ref = jax_ik.IndexSnapshot(keys, offs, sizes)
+    snap = ik.IndexSnapshot(keys, offs, sizes, device="cpu")
+    views = (snap.keys, snap.offsets, snap.sizes)
+    phi, plo = jax_ik._split_u64(probes)
+    pk = torch.from_numpy(probes.view(np.int64).copy())
+    for steps in (ref.steps, 2):
+        want = jax_ik._bulk_lookup(
+            steps, ref.khi, ref.klo, ref.offsets, ref.sizes, phi, plo)
+        _assert_same(want, ik._bulk_lookup_torch(steps, *views, pk))
+    if ref.starts is not None:
+        bucket = ref._bucket_of(probes)
+        for steps in (ref.bsteps, 1):
+            want = jax_ik._bulk_lookup_bucketed(
+                steps, ref.khi, ref.klo, ref.offsets, ref.sizes, ref.starts,
+                phi, plo, bucket)
+            got = ik._bulk_lookup_bucketed_torch(
+                steps, *views, snap.starts, pk, torch.from_numpy(bucket.astype(np.int64)))
+            _assert_same(want, got)
+
+
 def _assert_same(want, got):
     w_off, w_size, w_found = (np.asarray(a) for a in want)
     g_off, g_size, g_found = got
@@ -158,6 +185,110 @@ def test_snapshot_from_reference():
         probes = _around(keys[::7])
         for w, g in zip(ref.lookup(probes), snap.lookup(probes)):
             assert np.array_equal(w, g)
+
+
+def test_packed_rows_round_trip():
+    """One 16-byte row per entry: word 0 the key's u64 bits, word 1 the
+    offset in its low and the size in its high 32 bits, and the keys,
+    offsets and sizes views give the columns back, top bits included."""
+    keys = np.asarray([0, 1, (1 << 31) + 3, (1 << 63) - 1, 1 << 63,
+                       (1 << 63) + 9, U64_MAX - 1, U64_MAX], dtype=np.uint64)
+    offs = np.asarray([0, 1, (1 << 31) - 1, 1 << 31, (1 << 31) + 5,
+                       (1 << 32) - 2, 7, (1 << 32) - 1], dtype=np.uint32)
+    sizes = offs[::-1].copy()
+    snap = ik.IndexSnapshot(keys, offs, sizes, device="cpu")
+    rows = snap.rows
+    assert rows.dtype == torch.int64 and rows.shape == (len(keys), 2)
+    assert rows.is_contiguous() and rows.data_ptr() % 16 == 0
+    words = rows.numpy().view(np.uint64)
+    assert np.array_equal(words[:, 0], keys)
+    assert np.array_equal(words[:, 1], offs.astype(np.uint64) | (sizes.astype(np.uint64) << np.uint64(32)))
+    assert np.array_equal(snap.keys.numpy().view(np.uint64), keys)
+    assert np.array_equal(snap.offsets.numpy().view(np.uint32), offs)
+    assert np.array_equal(snap.sizes.numpy().view(np.uint32), sizes)
+    # the views share the rows' memory: 16 bytes per entry, no columns beside
+    for view in (snap.keys, snap.offsets, snap.sizes):
+        assert view.untyped_storage().data_ptr() == rows.untyped_storage().data_ptr()
+    off, size, found = snap.lookup(keys)
+    assert found.all() and np.array_equal(off, offs) and np.array_equal(size, sizes)
+
+
+def _row_search_model(snap, probes):
+    """The kernel's search, step for step, in numpy: lower bound over the
+    rows of [lo, hi) (the probe's bucket, or the whole table), answering
+    from the last row compared >= the probe, with no load after the
+    search."""
+    rows = snap.rows.numpy().view(np.uint64)
+    p = np.asarray(probes, dtype=np.uint64)
+    if snap.starts is not None:
+        b = snap._bucket_of(p).astype(np.int64)
+        starts = snap.starts.numpy().astype(np.int64)
+        lo, hi = starts[b], starts[b + 1]
+    else:
+        lo, hi = np.zeros(len(p), np.int64), np.full(len(p), snap.n, np.int64)
+    last_key = ~p  # never equals the probe
+    last_word = np.zeros(len(p), np.uint64)
+    while (lo < hi).any():
+        act = lo < hi
+        mid = (lo + hi) // 2
+        row = rows[np.where(act, mid, 0)]
+        less = act & (row[:, 0] < p)
+        left = act & ~less
+        lo = np.where(less, mid + 1, lo)
+        hi = np.where(left, mid, hi)
+        last_key = np.where(left, row[:, 0], last_key)
+        last_word = np.where(left, row[:, 1], last_word)
+    found = last_key == p
+    return (np.where(found, last_word & np.uint64(0xFFFFFFFF), 0).astype(np.uint32),
+            np.where(found, last_word >> np.uint64(32), 0).astype(np.uint32), found)
+
+
+@pytest.mark.parametrize("name", list(TABLES))
+def test_row_search_answers_equal_jax(name):
+    """The kernel's design, that a probe whose search never compares a row
+    >= it is absent (the range ends at a bucket boundary above it, or at
+    n), gives exactly the JAX IndexSnapshot's answers on every edge table."""
+    keys, offs, sizes = _cols(TABLES[name], 12)
+    probes = _around(keys)
+    ref = jax_ik.IndexSnapshot(keys, offs, sizes)
+    snap = ik.IndexSnapshot(keys, offs, sizes, device="cpu")
+    for w, g in zip(ref.lookup(probes), _row_search_model(snap, probes)):
+        assert np.array_equal(w, g)
+
+
+def test_snapshot_from_reference_table_equals_jax():
+    """snapshot_from_reference lays the JAX snapshot's columns into rows:
+    the keys, offsets, sizes, bucket table and parameters equal the JAX
+    snapshot's, bucketed or not."""
+    for name in ("pow2_bucket", "top_bits_unbucketed", "under_min_bucketed"):
+        keys, offs, sizes = _cols(TABLES[name], 13)
+        ref = jax_ik.IndexSnapshot(keys, offs, sizes)
+        snap = ik.snapshot_from_reference(ref, device="cpu")
+        khi = np.asarray(ref.khi, dtype=np.uint64)
+        klo = np.asarray(ref.klo, dtype=np.uint64)
+        assert np.array_equal(snap.keys.numpy().view(np.uint64), (khi << np.uint64(32)) | klo)
+        assert np.array_equal(snap.offsets.numpy().view(np.uint32), np.asarray(ref.offsets))
+        assert np.array_equal(snap.sizes.numpy().view(np.uint32), np.asarray(ref.sizes))
+        assert (snap.starts is None) == (ref.starts is None)
+        if ref.starts is not None:
+            assert np.array_equal(snap.starts.numpy(), np.asarray(ref.starts))
+            assert (snap.kmin, snap.bstep, snap.nb, snap.bsteps) == (
+                ref.kmin, ref.bstep, ref.nb, ref.bsteps)
+
+
+def test_index_search_cuda_refuses_cpu_rows():
+    """The kernel wrapper takes a snapshot's rows only on a CUDA device: a
+    CPU snapshot's rows and probes raise, bucketed or not; it never runs
+    the plain version."""
+    keys, offs, sizes = _cols(TABLES["pow2_bucket"], 14)
+    snap = ik.IndexSnapshot(keys, offs, sizes, device="cpu")
+    pk = torch.from_numpy(keys[:8].view(np.int64).copy())
+    before = ik.KERNEL_LAUNCHES
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        ik._index_search_cuda(snap.rows, snap.starts, snap.kmin, snap.bstep, snap.nb, pk)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        ik._index_search_cuda(snap.rows, None, 0, 1, 0, pk)
+    assert ik.KERNEL_LAUNCHES == before
 
 
 def test_concurrent_lookups_share_staging_safely():
@@ -203,4 +334,4 @@ def test_cuda_entry_points_raise_without_a_card():
         ik.IndexSnapshot(keys, offs, sizes)
     t = torch.zeros(4, dtype=torch.int64)
     with pytest.raises(ValueError, match="CUDA tensors"):
-        ik._index_search_cuda(t, t.int(), t.int(), None, 0, 1, 0, t)
+        ik._index_search_cuda(t.view(2, 2), None, 0, 1, 0, t)
