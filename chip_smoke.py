@@ -2,9 +2,10 @@
 """Chip smoke test of the PyTorch/CUDA port (seaweedfs_tpu_torch) on one GPU.
 
 Drives the port's two paths through the entry points a volume server
-calls, at full width, and holds each CUDA kernel against its plain PyTorch
-version: warm-storage erasure coding (gf_matmul) and the needle-index
-lookup (index_search, ragged_lookup):
+calls, at full width, then through the port's volume server itself, and
+holds each CUDA kernel against its plain PyTorch version: warm-storage
+erasure coding (gf_matmul) and the needle-index lookup (index_search,
+ragged_lookup):
 
   0  identity: nvidia-smi name and power limit, torch and CUDA versions
   1  build the three kernels from the checkout's sources (one nvcc each,
@@ -34,6 +35,22 @@ lookup (index_search, ragged_lookup):
      BatchLookupGate at concurrency 256 with the identity check; then
      ragged_lookup against its plain version at the gate's batch and at
      65,536 probes
+ 10  volume_server (`weed benchmark` scale): volume 1 (LSM map, 1,048,576
+     needles of 1 KiB, 1 % deleted, 1 % overwritten) written, then the
+     server started through the CLI's entry function (`volume -index lsm
+     -batchLookup arena -storageBackend cuda`) on its own event-loop
+     thread; a load client in a child process (this script with
+     --client): AllocateVolume, 65,536 POSTs at concurrency 16, 10,000
+     warm-up GETs at concurrency 512 through which the server uploads its
+     own arena (its host fallbacks reported; any after the warm-up fail),
+     200,000 GETs at concurrency 256 over both volumes (10 % absent, 1 %
+     wrong cookie) with the gate's identity check on (as in the warm-up),
+     then off; BulkLookup of
+     every key of volume 1 plus 10 % absent against the host map; EC
+     generate through the server held byte for byte to an encode with
+     the kernel's plain version on the card; 2,000 degraded GETs with
+     shards 0, 3, 10, 13 gone; rebuild; stop within 10 s. All three
+     kernels must launch through the server.
 
 Each phase prints one JSON line; any mismatch or exception exits non-zero
 without the final line. The line before last but one is the kernels
@@ -48,6 +65,12 @@ median time, the plain version's, the card's bound and what bounds it, and
 the time of a PyTorch call computing the same function where one exists.
 
     python3 chip_smoke.py [--volume-gib 11] [--seed 0] [--workdir DIR]
+
+`--gate-cut-ab ROUNDS` measures the lookup gate's arena cut instead (the
+smallest wakeup it sends to ragged_lookup): phases 0-1, phase 10's server
+and warm-up, then ROUNDS passes of 25,000 GETs with the cut at 128 and 64
+in turns (128, 64, 64, 128, ...), reads/s, p50, p99 and the arena's share
+of batches per pass and their medians per cut; it prints no result line.
 """
 
 from __future__ import annotations
@@ -57,6 +80,7 @@ import hashlib
 import json
 import os
 import shutil
+import statistics
 import struct
 import subprocess
 import sys
@@ -902,6 +926,514 @@ def phase_arena_gate(torch, work: str, seed: int) -> dict:
     return res
 
 
+# --- phase 10 ----------------------------------------------------------------
+SERVER_NEEDLES = 1 << 20  # weed benchmark -n 1048576 -size 1024 -c 16
+SERVER_WRITES = 1 << 16
+WRITE_CONCURRENCY = 16
+SERVER_READS = 200_000
+READ_CONCURRENCY = 256
+WARMUP_READS = 10_000
+# the warm-up's concurrency: at 256 a wakeup holds 65-128 GETs, which the
+# gate's 128-probe arena cut keeps on the host maps; at 512 most wakeups
+# pass the cut, so the server finds its arena cold and uploads it itself
+WARMUP_CONCURRENCY = 512
+WRONG_COOKIE_SHARE = 0.01
+ABSENT_SHARE = 0.1
+DEGRADED_GETS = 2_000
+EC_LOST = (0, 3, 10, 13)
+SERVER_START_S = 120
+SERVER_STOP_S = 10
+AB_READS = 25_000  # GETs per pass of --gate-cut-ab
+
+
+def client_main(argv: list) -> int:
+    """Child mode of this script: the closed-loop load client of phase
+    10 (standard library only). Each of `concurrency` clients keeps one
+    keep-alive connection and waits for its own response before sending
+    its next request, as `weed benchmark` does. Reads the plan (a pickle
+    of the requests and the expected answers), checks every answer and
+    writes its counts, latencies and CPU time as JSON."""
+    import asyncio
+    import pickle
+
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--client", required=True)
+    ap.add_argument("--port", type=int, required=True)
+    ap.add_argument("--concurrency", type=int, required=True)
+    ap.add_argument("--out", required=True)
+    a = ap.parse_args(argv)
+    with open(a.client, "rb") as f:
+        plan = pickle.load(f)
+    blobs = plan["blobs"]
+    reqs = plan["requests"]  # (method, path, blob index | -1, status)
+    lat = [0.0] * len(reqs)
+    bad = []
+
+    async def one_client(k: int) -> None:
+        r, w = await asyncio.open_connection("127.0.0.1", a.port)
+        try:
+            for i in range(k, len(reqs), a.concurrency):
+                method, path, blob, want_status = reqs[i]
+                body = blobs[blob] if method == "POST" else b""
+                t0 = time.perf_counter()
+                w.write(b"%s %s HTTP/1.1\r\nHost: smoke\r\nContent-Length: %d\r\n\r\n"
+                        % (method.encode(), path.encode(), len(body)) + body)
+                head = await r.readuntil(b"\r\n\r\n")
+                status = int(head[9:12])
+                low = head.lower()
+                j = low.find(b"content-length:")
+                n = int(low[j + 15: low.index(b"\r\n", j)]) if j >= 0 else 0
+                got = await r.readexactly(n) if n else b""
+                lat[i] = time.perf_counter() - t0
+                if status != want_status:
+                    bad.append((i, path, status, want_status, got[:80].decode("latin1")))
+                elif method == "GET" and status == 200 and got != blobs[blob]:
+                    bad.append((i, path, "body differs"))
+                elif method == "POST":
+                    reply = json.loads(got)
+                    etag = plan["etags"][blob]
+                    if reply.get("size") != len(blobs[blob]) or reply.get("eTag") != etag:
+                        bad.append((i, path, "reply", got[:120].decode("latin1")))
+        finally:
+            w.close()
+
+    async def run() -> None:
+        await asyncio.gather(*(one_client(k) for k in range(a.concurrency)))
+
+    c0 = os.times()
+    t0 = time.perf_counter()
+    asyncio.run(run())
+    wall = time.perf_counter() - t0
+    c1 = os.times()
+    cpu = (c1.user - c0.user) + (c1.system - c0.system)
+    srt = sorted(lat)
+    with open(a.out, "w") as f:
+        json.dump({
+            "requests": len(reqs),
+            "wall_s": wall,
+            "per_s": len(reqs) / wall,
+            "p50_ms": srt[len(srt) // 2] * 1e3,
+            "p99_ms": srt[min(len(srt) - 1, int(len(srt) * 0.99))] * 1e3,
+            "client_cpu_s": cpu,
+            "client_cpu_share": cpu / wall,
+            "bad": len(bad),
+            "bad_examples": bad[:5],
+        }, f)
+    return 0
+
+
+def _drive(work: str, name: str, port: int, plan: dict, concurrency: int,
+           timeout: float) -> dict:
+    """Run the load client as a child process over `plan`; fail on any
+    wrong answer."""
+    import pickle
+
+    plan_path = os.path.join(work, f"{name}.plan")
+    out_path = os.path.join(work, f"{name}.json")
+    with open(plan_path, "wb") as f:
+        pickle.dump(plan, f, protocol=pickle.HIGHEST_PROTOCOL)
+    proc = subprocess.run(
+        [sys.executable, os.path.abspath(__file__), "--client", plan_path,
+         "--port", str(port), "--concurrency", str(concurrency),
+         "--out", out_path],
+        capture_output=True, text=True, timeout=timeout,
+    )
+    if proc.returncode != 0:
+        fail(f"load client {name} exited {proc.returncode}: {proc.stderr[-2000:]}")
+    with open(out_path) as f:
+        res = json.load(f)
+    os.remove(plan_path)
+    os.remove(out_path)
+    if res["bad"]:
+        fail(f"{name}: {res['bad']} wrong answers, e.g. {res['bad_examples']}")
+    return res
+
+
+def _http_json(port: int, path: str) -> dict:
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=30)
+    try:
+        conn.request("GET", path)
+        resp = conn.getresponse()
+        body = resp.read()
+        if resp.status != 200:
+            fail(f"GET {path}: {resp.status} {body[:200]!r}")
+        return json.loads(body)
+    finally:
+        conn.close()
+
+
+def _gate_cut_ab(work: str, port: int, base_plan: dict, read_plan, rounds: int) -> dict:
+    """The gate's arena cut (`lookup_gate._ARENA_MIN_WAKEUP`) at the
+    reference's 128 against the port's 64, on one warm server: `rounds`
+    read passes of AB_READS GETs at READ_CONCURRENCY in the order 128,
+    64, 64, 128, 128, 64, ... Each pass sets the cut before its client
+    starts; the gate reads it at every flush."""
+    from seaweedfs_tpu_torch.server import lookup_gate as LG
+
+    shipped = LG._ARENA_MIN_WAKEUP
+    out = []
+    try:
+        for r in range(rounds):
+            cut = (128, 64)[((r + 1) // 2) % 2]
+            LG._ARENA_MIN_WAKEUP = cut
+            g0 = _http_json(port, "/debug/needle_map")["gate"]
+            res = _drive(work, f"ab{r}", port, dict(base_plan, requests=read_plan(AB_READS)),
+                         READ_CONCURRENCY, 600)
+            g1 = _http_json(port, "/debug/needle_map")["gate"]
+            batches = g1["batches"] - g0["batches"]
+            out.append({"round": r, "cut": cut, "per_s": res["per_s"],
+                        "p50_ms": res["p50_ms"], "p99_ms": res["p99_ms"],
+                        "client_cpu_share": res["client_cpu_share"],
+                        "arena_batch_share": (g1["device_batches"] - g0["device_batches"])
+                        / max(1, batches),
+                        "host_fallbacks": g1["host_fallbacks"] - g0["host_fallbacks"]})
+    finally:
+        LG._ARENA_MIN_WAKEUP = shipped
+    med = {}
+    for cut in (128, 64):
+        mine = [o for o in out if o["cut"] == cut]
+        med[str(cut)] = {k: statistics.median(o[k] for o in mine)
+                         for k in ("per_s", "p50_ms", "p99_ms", "arena_batch_share")}
+    return {"phase": "gate_cut_ab", "reads_per_round": AB_READS,
+            "concurrency": READ_CONCURRENCY, "shipped_cut": shipped,
+            "rounds": out, "median_by_cut": med}
+
+
+def phase_volume_server(torch, work: str, seed: int, needle_mod, crc_mod,
+                        cut_ab_rounds: int = 0) -> dict:
+    """The port's volume server, started through the CLI's entry function
+    on its own event-loop thread, at `weed benchmark` scale; a load
+    client in a child process; EC generate, degraded reads and rebuild
+    through the server's RPCs. Every answer is checked. With
+    `cut_ab_rounds`, it stops after the warm-up and `_gate_cut_ab`."""
+    import asyncio
+    import socket
+
+    import numpy as np
+
+    from seaweedfs_tpu_torch.command import cli
+    from seaweedfs_tpu_torch.ops import gf256 as G
+    from seaweedfs_tpu_torch.ops import index_kernel as IK
+    from seaweedfs_tpu_torch.ops import ragged_lookup as RL
+    from seaweedfs_tpu_torch.ops.rs_kernel import CudaRSCodec
+    from seaweedfs_tpu_torch.pb import grpc_address
+    from seaweedfs_tpu_torch.pb.rpc import Stub
+    from seaweedfs_tpu_torch.storage.erasure_coding import encoder as enc
+    from seaweedfs_tpu_torch.storage.file_id import FileId
+    from seaweedfs_tpu_torch.storage.volume import Volume
+
+    rng = np.random.default_rng(seed + 10)
+    d = os.path.join(work, "server")
+    os.makedirs(d)
+    # volume 1 before the server starts: LSM map, 1 KiB needles from a
+    # seeded pool whose CRCs are computed once (as phase 7)
+    pool = [rng.integers(0, 256, NEEDLE_BYTES, dtype=np.uint8).tobytes()
+            for _ in range(128)]  # 0-63 volume 1, 64-127 volume 2
+    pool_crc = [crc_mod.masked_crc(b) for b in pool]
+    crc_of = dict(zip(pool, pool_crc))
+    real_crc = needle_mod.masked_crc
+    ids = np.unique(rng.integers(1, 1 << 48, size=SERVER_NEEDLES + 4096, dtype=np.uint64))
+    ids = rng.permutation(ids)[:SERVER_NEEDLES]
+    cookies = rng.integers(1, 1 << 32, size=SERVER_NEEDLES, dtype=np.uint64)
+    blob_of = rng.integers(0, 64, size=SERVER_NEEDLES)
+    needle_mod.masked_crc = lambda data: crc_of.get(bytes(data)) or real_crc(data)
+    try:
+        t0 = time.perf_counter()
+        v = Volume(d, "", 1, needle_map_kind="lsm")
+        for c0 in range(0, SERVER_NEEDLES, 4096):
+            for r in v.write_needle_batch([
+                needle_mod.Needle(cookie=int(c), id=int(k), data=pool[int(b)])
+                for k, c, b in zip(ids[c0:c0 + 4096].tolist(),
+                                   cookies[c0:c0 + 4096].tolist(),
+                                   blob_of[c0:c0 + 4096].tolist())
+            ]):
+                if isinstance(r, Exception):
+                    fail(f"volume 1 write failed: {r!r}")
+        pick = rng.permutation(SERVER_NEEDLES)[: SERVER_NEEDLES // 50]
+        deleted = pick[: len(pick) // 2]
+        rewritten = pick[len(pick) // 2:]
+        for i in deleted.tolist():
+            v.delete_needle(needle_mod.Needle(cookie=int(cookies[i]), id=int(ids[i])))
+        blob_of[rewritten] = (blob_of[rewritten] + 1) % 64
+        for r in v.write_needle_batch([
+            needle_mod.Needle(cookie=int(cookies[i]), id=int(ids[i]), data=pool[int(blob_of[i])])
+            for i in rewritten.tolist()
+        ]):
+            if isinstance(r, Exception):
+                fail(f"volume 1 overwrite failed: {r!r}")
+        v.close()
+        write1_s = time.perf_counter() - t0
+    finally:
+        needle_mod.masked_crc = real_crc
+    live1 = np.ones(SERVER_NEEDLES, dtype=bool)
+    live1[deleted] = False
+
+    # start the server through the CLI's entry function
+    port = 0
+    for cand in range(18080, 19000):
+        try:
+            with socket.socket() as s1, socket.socket() as s2:
+                s1.bind(("127.0.0.1", cand))
+                s2.bind(("127.0.0.1", cand + 10000))
+            port = cand
+            break
+        except OSError:
+            continue
+    if not port:
+        fail("no free port pair for the volume server")
+    argv = ["-dir", d, "-port", str(port), "-index", "lsm",
+            "-batchLookup", "arena", "-storageBackend", "cuda"]
+    held, ready = {}, threading.Event()
+
+    def started(loop, stop, servers):
+        held.update(loop=loop, stop=stop, vs=servers[0])
+        ready.set()
+
+    def serve():
+        try:
+            held["rc"] = cli.cmd_volume(argv, started=started)
+        except (Exception, SystemExit) as e:  # reported by the waiting thread
+            held["error"] = e
+            ready.set()
+
+    t0 = time.perf_counter()
+    th = threading.Thread(target=serve, name="volume-server", daemon=True)
+    th.start()
+    if not ready.wait(SERVER_START_S) or "error" in held:
+        fail(f"volume server did not start in {SERVER_START_S} s: {held.get('error')!r}")
+    while True:
+        try:
+            socket.create_connection(("127.0.0.1", port), timeout=1).close()
+            break
+        except OSError:
+            if time.perf_counter() - t0 > SERVER_START_S:
+                fail(f"volume server accepts no connection in {SERVER_START_S} s")
+            time.sleep(0.05)
+    start_s = time.perf_counter() - t0
+    vs = held["vs"]
+    stub = Stub(grpc_address(f"127.0.0.1:{port}"), "volume")
+
+    def rpc(method, req, timeout=300):
+        t = time.perf_counter()
+        out = asyncio.run(stub.call(method, req, timeout=timeout))
+        if isinstance(out, dict) and out.get("error"):
+            fail(f"{method}: {out['error']}")
+        return out, time.perf_counter() - t
+
+    try:
+        # the path: every count at 0 now, read after the rebuild
+        G.KERNEL_LAUNCHES = IK.KERNEL_LAUNCHES = RL.KERNEL_LAUNCHES = 0
+        rpc("AllocateVolume", {"volume_id": 2})
+        # writes: 65,536 POSTs of 1 KiB into volume 2 at concurrency 16
+        ids2 = rng.permutation(np.unique(rng.integers(1 << 48, 1 << 49, size=SERVER_WRITES + 512,
+                                                     dtype=np.uint64)))[:SERVER_WRITES]
+        cookies2 = rng.integers(1, 1 << 32, size=SERVER_WRITES, dtype=np.uint64)
+        blob2 = rng.integers(64, 128, size=SERVER_WRITES)
+        fid = lambda vid, k, c: "/" + str(FileId(vid, int(k), int(c)))  # noqa: E731
+        base_plan = {"blobs": pool, "etags": [f"{c:08x}" for c in pool_crc]}
+        wres = _drive(work, "writes", port, dict(base_plan, requests=[
+            ("POST", fid(2, k, c), int(b), 201)
+            for k, c, b in zip(ids2.tolist(), cookies2.tolist(), blob2.tolist())
+        ]), WRITE_CONCURRENCY, 600)
+
+        # reads over both volumes: 10 % absent, 1 % wrong cookie
+        def read_plan(n):
+            out = []
+            which = rng.random(n)
+            pick1 = rng.integers(0, SERVER_NEEDLES, size=n)
+            pick2 = rng.integers(0, SERVER_WRITES, size=n)
+            absent = rng.integers(1 << 50, 1 << 51, size=n, dtype=np.uint64)
+            for j in range(n):
+                w = which[j]
+                if w < ABSENT_SHARE:
+                    out.append(("GET", fid(1 + j % 2, absent[j], 7), -1, 404))
+                    continue
+                wrong = w < ABSENT_SHARE + WRONG_COOKIE_SHARE
+                if w < 0.8:
+                    i = int(pick1[j])
+                    path = fid(1, ids[i], int(cookies[i]) ^ (1 if wrong else 0))
+                    ok = live1[i] and not wrong
+                    out.append(("GET", path, int(blob_of[i]) if ok else -1,
+                                200 if ok else 404))
+                else:
+                    i = int(pick2[j])
+                    path = fid(2, ids2[i], int(cookies2[i]) ^ (1 if wrong else 0))
+                    out.append(("GET", path, -1 if wrong else int(blob2[i]),
+                                404 if wrong else 200))
+            return out
+
+        # the warm-up: the server's own wakeups find the arena cold, serve
+        # from the host maps (counted as fallbacks) and queue its upload;
+        # the identity check holds every arena answer to the host map
+        vs.lookup_gate.identity_check = True
+        before_warm = _http_json(port, "/debug/needle_map")
+        warm = _drive(work, "warmup", port, dict(base_plan, requests=read_plan(WARMUP_READS)),
+                      WARMUP_CONCURRENCY, 600)
+        before = _http_json(port, "/debug/needle_map")
+        warm_fallbacks = (before["gate"]["host_fallbacks"]
+                          - before_warm["gate"]["host_fallbacks"])
+        warm_launches = RL.KERNEL_LAUNCHES
+        if cut_ab_rounds:
+            res = _gate_cut_ab(work, port, base_plan, read_plan, cut_ab_rounds)
+            res["host_fallbacks_in_warmup"] = warm_fallbacks
+            emit(res)
+            return res
+        read_plan_main = read_plan(SERVER_READS)
+        rres_on = _drive(work, "reads_identity_on", port,
+                         dict(base_plan, requests=read_plan_main),
+                         READ_CONCURRENCY, 900)
+        mid = _http_json(port, "/debug/needle_map")
+        vs.lookup_gate.identity_check = False
+        cpu0 = time.process_time()
+        rres = _drive(work, "reads", port, dict(base_plan, requests=read_plan_main),
+                      READ_CONCURRENCY, 900)
+        server_cpu_share = (time.process_time() - cpu0) / rres["wall_s"]
+        after = _http_json(port, "/debug/needle_map")
+        fallbacks = after["gate"]["host_fallbacks"] - before["gate"]["host_fallbacks"]
+        mism = {"identity_on": mid["gate"]["identity_mismatches"]
+                - before_warm["gate"]["identity_mismatches"],
+                "identity_off": after["gate"]["identity_mismatches"] - mid["gate"]["identity_mismatches"]}
+        if fallbacks or after["device"]["errors"] or any(mism.values()) or after["device_errors"]:
+            fail(f"reads after warm-up: {fallbacks} host fallbacks, arena errors "
+                 f"{after['device']['errors']}, mismatches {mism}, device errors "
+                 f"{after['device_errors']}")
+        read_launches = RL.KERNEL_LAUNCHES - warm_launches
+
+        # BulkLookup of every key of volume 1 plus 10 % absent
+        absent = rng.integers(1 << 50, 1 << 51, size=SERVER_NEEDLES // 10, dtype=np.uint64)
+        probes = rng.permutation(np.concatenate([ids, absent]))
+        reply, bulk_s = rpc("BulkLookup", {"volume_id": 1, "keys": probes.astype("<u8").tobytes()})
+        want = vs.store.find_volume(1).bulk_lookup(probes, use_device=False)
+        got = (np.frombuffer(reply["offsets"], dtype=reply["offset_dtype"]),
+               np.frombuffer(reply["sizes"], dtype="<u4"),
+               np.frombuffer(reply["found"], dtype=np.uint8).astype(bool))
+        for j, name in enumerate(("offsets", "sizes", "found")):
+            if not np.array_equal(got[j], want[j]):
+                bad = int(np.count_nonzero(got[j] != want[j]))
+                fail(f"BulkLookup {name} differs from the host map at {bad} probes")
+        if int(got[2].sum()) != int(live1.sum()):
+            fail(f"BulkLookup finds {int(got[2].sum())}, expected {int(live1.sum())}")
+
+        # EC: generate 10.4 through the server, held to the plain version
+        rpc("VolumeMarkReadonly", {"volume_id": 1})
+        _, gen_s = rpc("VolumeEcShardsGenerate", {"volume_id": 1})
+        base = os.path.join(d, "1")
+        shard_paths = [base + f".ec{i:02d}" for i in range(14)]
+        pd = os.path.join(work, "plain")
+        os.makedirs(pd)
+        for ext in (".dat", ".idx"):
+            os.symlink(base + ext, os.path.join(pd, "1" + ext))
+
+        class PlainOnCard(CudaRSCodec):
+            """The codec with the kernel's plain version on the card."""
+
+            def _apply(self, matrix, rows, out=None):
+                data = np.stack([np.asarray(r, dtype=np.uint8) for r in rows])
+                packed = torch.from_numpy(G.pack_bytes_host(data).view(np.int32)).to(
+                    self.device)
+                res = G.unpack_bytes_host(
+                    G._gf_matmul_torch_packed(np.asarray(matrix, np.uint8), packed).cpu().numpy(),
+                    data.shape[1])
+                if out is not None:
+                    out[:] = res
+                    return out
+                return res
+
+        gf_before = G.KERNEL_LAUNCHES
+        t0 = time.perf_counter()
+        enc.write_ec_files(os.path.join(pd, "1"), codec=PlainOnCard())
+        enc.write_sorted_file_from_idx(os.path.join(pd, "1"))
+        plain_s = time.perf_counter() - t0
+        if G.KERNEL_LAUNCHES != gf_before:
+            fail("the plain encode launched the kernel")
+        names = [f".ec{i:02d}" for i in range(14)] + [".ecx"]
+        sums = sha1_files([base + e for e in names] + [os.path.join(pd, "1" + e) for e in names])
+        for e in names:
+            if sums[base + e] != sums[os.path.join(pd, "1" + e)]:
+                fail(f"the server's {e} differs from the plain version's")
+        shutil.rmtree(pd)
+        rpc("VolumeEcShardsMount", {"volume_id": 1, "shard_ids": list(range(14))})
+        rpc("VolumeDelete", {"volume_id": 1, "keep_ec_files": True})
+        if os.path.exists(base + ".dat") or vs.store.find_ec_volume(1) is None:
+            fail("VolumeDelete left the .dat or the EC volume is not mounted")
+        rpc("VolumeEcShardsUnmount", {"volume_id": 1, "shard_ids": list(EC_LOST)})
+        for i in EC_LOST:
+            os.remove(shard_paths[i])
+        live_idx = np.nonzero(live1)[0]
+        sample = rng.choice(live_idx, DEGRADED_GETS, replace=False)
+        gf_before = G.KERNEL_LAUNCHES
+        dres = _drive(work, "degraded", port, dict(base_plan, requests=[
+            ("GET", fid(1, ids[i], cookies[i]), int(blob_of[i]), 200) for i in sample.tolist()
+        ]), WRITE_CONCURRENCY, 600)
+        degraded_launches = G.KERNEL_LAUNCHES - gf_before
+        if degraded_launches <= 0:
+            fail("the degraded reads decoded nothing on the card")
+        reply, rebuild_s = rpc("VolumeEcShardsRebuild", {"volume_id": 1})
+        if reply.get("rebuilt_shard_ids") != list(EC_LOST):
+            fail(f"rebuild made {reply}, expected {list(EC_LOST)}")
+        got_sums = sha1_files([shard_paths[i] for i in EC_LOST])
+        for i in EC_LOST:
+            if got_sums[shard_paths[i]] != sums[shard_paths[i]]:
+                fail(f"rebuilt shard .ec{i:02d} differs from the generated one")
+        launches = {"gf_matmul": G.KERNEL_LAUNCHES, "index_search": IK.KERNEL_LAUNCHES,
+                    "ragged_lookup": RL.KERNEL_LAUNCHES}
+        status = _http_json(port, "/debug/needle_map")
+    finally:
+        t0 = time.perf_counter()
+        loop = held.get("loop")
+        if loop is not None and not loop.is_closed():
+            loop.call_soon_threadsafe(held["stop"].set)
+        th.join(SERVER_STOP_S)
+        stop_s = time.perf_counter() - t0
+    if th.is_alive():
+        fail(f"the volume server did not stop in {SERVER_STOP_S} s")
+    if held.get("rc") != 0:
+        fail(f"the volume server exited with {held.get('rc')!r}: {held.get('error')!r}")
+    for name, n in launches.items():
+        if n <= 0:
+            fail(f"{name} launched no time through the server")
+    res = {
+        "phase": "volume_server",
+        "argv": argv,
+        "volume1": {"needles": SERVER_NEEDLES, "deleted": len(deleted),
+                    "overwritten": len(rewritten), "write_s": write1_s},
+        "server_start_s": start_s,
+        "writes": {"requests": SERVER_WRITES, "concurrency": WRITE_CONCURRENCY, **wres},
+        "warmup_reads": {"requests": WARMUP_READS, "concurrency": WARMUP_CONCURRENCY,
+                         "wall_s": warm["wall_s"], "host_fallbacks": warm_fallbacks,
+                         "device_batches": before["gate"]["device_batches"]
+                         - before_warm["gate"]["device_batches"]},
+        "reads": {"requests": SERVER_READS, "concurrency": READ_CONCURRENCY,
+                  "absent_share": ABSENT_SHARE, "wrong_cookie_share": WRONG_COOKIE_SHARE,
+                  "identity_check": "off (as a server runs)", **rres,
+                  "server_process_cpu_share": server_cpu_share},
+        "reads_identity_on": rres_on,
+        "gate": after["gate"],
+        "gate_batch_hist": after["gate_batch_hist"],
+        "host_fallbacks_after_warmup": fallbacks,
+        "arena_errors": after["device"]["errors"],
+        "identity_mismatches": mism,
+        "bulk_lookup": {"probes": len(probes), "absent": len(absent), "wall_s": bulk_s,
+                        "probes_per_s": len(probes) / bulk_s, "equal_to_host_map": True},
+        "ec": {"generate_s": gen_s, "plain_encode_s": plain_s,
+               "shards_and_ecx_equal_to_plain": True, "lost": list(EC_LOST),
+               "degraded_gets": DEGRADED_GETS, "degraded": dres,
+               "degraded_gf_launches": degraded_launches,
+               "rebuild_s": rebuild_s, "rebuilt_identical": True},
+        "server_stop_s": stop_s,
+        "ragged_lookup_launches": {"warmup": warm_launches, "reads": read_launches},
+        "read_batches_on_the_arena": [after["gate"]["device_batches"]
+                                      - before["gate"]["device_batches"],
+                                      after["gate"]["batches"] - before["gate"]["batches"]],
+        "kernel_launches": launches,
+        "device_errors": status["device_errors"],
+    }
+    emit(res)
+    return res
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--volume-gib", type=float, default=11.0)
@@ -910,6 +1442,12 @@ def main() -> int:
         "--workdir", default=os.path.join(HERE, "smoke_work"),
         help="directory under which a fresh scratch directory holds the "
              "volume and its shards (removed at the end)",
+    )
+    ap.add_argument(
+        "--gate-cut-ab", type=int, default=0, metavar="ROUNDS",
+        help="measure the gate's arena cut instead: phases 0-1, then phase "
+             "10's server and warm-up, then ROUNDS read passes alternating "
+             "the cut between 128 and 64; no kernel line and no result line",
     )
     args = ap.parse_args()
 
@@ -989,6 +1527,17 @@ def main() -> int:
         "gf256_max_rows": limits[0], "gf256_max_cols": limits[1],
         "gf256_rows_per_launch": limits[2],
     })
+
+    if args.gate_cut_ab:
+        os.makedirs(args.workdir, exist_ok=True)
+        work = tempfile.mkdtemp(prefix="chip_smoke-", dir=args.workdir)
+        try:
+            phase_volume_server(torch, work, args.seed, needle_mod, crc_mod,
+                                cut_ab_rounds=args.gate_cut_ab)
+        finally:
+            shutil.rmtree(work, ignore_errors=True)
+        print(smi, flush=True)
+        return 0
 
     # --- phase 2 ---
     kres = kernel_against_plain(torch, G, galois, args.seed, clock_mhz * 1e6)
@@ -1205,6 +1754,17 @@ def main() -> int:
         ik_launches["volume_lookup"] = vres["kernel_launches"]
         ires = phase_index_kernel(torch, args.seed)
         ares = phase_arena_gate(torch, work, args.seed)
+
+        # --- phase 10 ---
+        for fn in os.listdir(work):  # free the earlier phases' disk
+            path = os.path.join(work, fn)
+            if os.path.isdir(path):
+                shutil.rmtree(path)
+            else:
+                os.remove(path)
+        sres = phase_volume_server(torch, work, args.seed, needle_mod, crc_mod)
+        launches["volume_server"] = sres["kernel_launches"]["gf_matmul"]
+        ik_launches["volume_server"] = sres["kernel_launches"]["index_search"]
     finally:
         shutil.rmtree(work, ignore_errors=True)
         try:
@@ -1253,8 +1813,11 @@ def main() -> int:
             "route": "cuda",
             "source": "seaweedfs_tpu_torch/ops/csrc/ragged_lookup.cu",
             "replaces": "seaweedfs_tpu/ops/ragged_lookup.py:181 (_ragged_dispatch)",
-            "launches": ares["kernel_launches"],
-            "launches_by_path": {"arena_gate": ares["kernel_launches"]},
+            "launches": ares["kernel_launches"] + sres["kernel_launches"]["ragged_lookup"],
+            "launches_by_path": {
+                "arena_gate": ares["kernel_launches"],
+                "volume_server": sres["kernel_launches"]["ragged_lookup"],
+            },
             "equal_to_plain": True,
             "max_abs_err": ares["max_abs_err"],
             "shape": f"65536 probes, {k2['slots']} slots over "
@@ -1280,4 +1843,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if "--client" in sys.argv[1:]:
+        sys.exit(client_main(sys.argv[1:]))
     sys.exit(main())

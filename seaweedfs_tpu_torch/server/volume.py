@@ -1,0 +1,938 @@
+"""Volume server: HTTP data plane + unary RPC admin.
+
+HTTP (ref: weed/server/volume_server_handlers_{read,write}.go):
+  GET/HEAD /{vid},{fid}[/name][.ext]  read (EC volumes with shards
+                                      missing decode on the card)
+  POST/PUT /{vid},{fid}               write
+  DELETE   /{vid},{fid}               delete
+  GET      /status, /metrics, /debug/needle_map
+
+RPC "volume" service (pb/rpc.py; ref: weed/server/volume_grpc_*.go):
+AllocateVolume, VolumeMount, VolumeUnmount, VolumeDelete,
+VolumeMarkReadonly, VolumeMarkWritable, BatchDelete, BulkLookup,
+VolumeServerStatus and the EC calls of volume_ec.py.
+
+Ported from the JAX package's server/volume.py. One device serves the
+whole server (`device`: the card unless the caller asks for the CPU): the
+codec of the EC calls (kernel gf256.cu), every volume's index snapshot
+for BulkLookup and `-batchLookup device` (index_search.cu) and the
+arena of `-batchLookup arena` (ragged_lookup.cu). A device failure
+reaches the client as a 500 (an `{"error": ...}` reply over RPC) and is
+counted in `device_errors` and `seaweedfs_tpu_device_errors_total`; it
+is never served around from the host.
+
+One HTTP server answers every request (util/fasthttp.py): where the JAX
+package's fast tier hands a shape to its aiohttp application, the port
+serves it here, with the same status codes, bodies, Etags and
+Content-Range. Request shapes that need the master or other servers
+answer 501 `{"error": "not ported: ..."}` until a later slice ports them:
+replicated writes and deletes (copy count > 1), chunked manifests,
+`/!batch/put`, deletes on EC volumes, reads of volumes that are not
+local, and `/ui`. Not ported either: the heartbeat, the group-commit
+worker (`?fsync=true` writes sync the append itself), vacuum, tiering,
+scrub and the lifecycle RPCs, the server streams, and the overload,
+tenancy and fault seams.
+"""
+
+from __future__ import annotations
+
+import asyncio
+import functools as _functools
+import gzip
+import logging
+import os
+from concurrent.futures import ThreadPoolExecutor
+from typing import Optional
+from urllib.parse import parse_qsl
+
+from ..pb import grpc_address
+from ..pb.rpc import Service, serve
+from ..storage.file_id import FileId
+from ..storage.needle import Needle, NotFoundError
+from ..storage.store import Store
+from ..storage.volume import AlreadyDeleted, CookieMismatch, NotFound
+from ..util import metrics
+from ..util.fasthttp import (
+    DETACHED,
+    finish_detached,
+    parse_multipart,
+    render_response,
+)
+from .serving_core import ServingCore, json_body, not_ported
+from .volume_ec import EcHandlers
+
+_LOG = logging.getLogger(__name__)
+
+_NEEDS_FULL_PATH = object()  # needle shape the byte-level read path defers
+
+# pre-assembled response head for the common read shape (no
+# Last-Modified). %08x of the u32 checksum == u32_to_bytes(checksum).hex().
+_HEAD_200 = (
+    b"HTTP/1.1 200 OK\r\n"
+    b"Content-Type: %b\r\n"
+    b"Content-Length: %d\r\n"
+    b'Etag: "%08x"\r\n'
+    b"Accept-Ranges: bytes\r\n"
+    b"Connection: keep-alive\r\n\r\n"
+)
+
+_NOT_FOUND = b'{"error": "not found"}'
+
+# hot-needle cache sizing: 64 MiB (the reference's default), entry bodies
+# capped so one large blob cannot monopolize the LRU
+READ_CACHE_BYTES_CAP = 64 << 20
+READ_CACHE_MAX_ENTRY = 128 * 1024
+
+BATCH_LOOKUP_MODES = ("off", "auto", "host", "device", "arena")
+CODEC_BACKENDS = ("cuda", "cpu", "numpy")
+
+
+class HotNeedleCache:
+    """Byte-bounded LRU of whole small needle responses keyed by
+    (vid, key), ported from the JAX package (server/volume.py:81). A hit
+    is served only while the SAME Volume object is mounted and its live
+    map still points the key at the same (offset_units, size): the .dat is
+    append-only, so an unchanged location means unchanged bytes, and hits
+    are byte-identical to uncached reads. TTL'd needles are never
+    cached."""
+
+    def __init__(self, capacity_bytes: int = READ_CACHE_BYTES_CAP,
+                 max_entry: int = READ_CACHE_MAX_ENTRY):
+        import threading
+        import weakref
+        from collections import OrderedDict
+
+        self.capacity = capacity_bytes
+        self.max_entry = max_entry
+        # (vid, key) -> (vol_ref, cookie, offset_units, size, resp, head_len)
+        self._entries: "OrderedDict[tuple, tuple]" = OrderedDict()
+        self._bytes = 0
+        self._lock = threading.Lock()
+        self._weakref = weakref.ref
+
+    def get(self, v, vid: int, key: int, cookie: int, head_only: bool):
+        """The response bytes for a cached needle, or None. `v` is the
+        currently mounted Volume the caller resolved for vid."""
+        k = (vid, key)
+        with self._lock:
+            e = self._entries.get(k)
+            if e is not None:
+                self._entries.move_to_end(k)
+        if e is None or e[1] != cookie:
+            # a wrong cookie is the request's, not staleness: the
+            # uncached path owns the 404 and the entry stays
+            return None
+        vol_ref, _cookie, offset_units, size, resp, head_len = e
+        if vol_ref() is not v or v.locate_live(key) != (offset_units, size):
+            with self._lock:
+                if self._entries.get(k) is e:
+                    del self._entries[k]
+                    self._bytes -= len(resp)
+            return None
+        return resp[:head_len] if head_only else resp
+
+    def put(self, v, vid: int, n, offset_units: int, size: int, resp: bytes,
+            head_len: int) -> None:
+        """Admit one rendered simple-shape GET response."""
+        if len(resp) > self.max_entry or n.has_ttl():
+            return
+        k = (vid, n.id)
+        entry = (self._weakref(v), n.cookie, offset_units, size, bytes(resp),
+                 head_len)
+        with self._lock:
+            old = self._entries.pop(k, None)
+            if old is not None:
+                self._bytes -= len(old[4])
+            self._entries[k] = entry
+            self._bytes += len(resp)
+            while self._bytes > self.capacity and self._entries:
+                _k, e = self._entries.popitem(last=False)
+                self._bytes -= len(e[4])
+
+    def invalidate_key(self, vid: int, key: int) -> None:
+        with self._lock:
+            e = self._entries.pop((vid, key), None)
+            if e is not None:
+                self._bytes -= len(e[4])
+
+    def invalidate_volume(self, vid: int) -> None:
+        with self._lock:
+            for k in [k for k in self._entries if k[0] == vid]:
+                self._bytes -= len(self._entries.pop(k)[4])
+
+
+def _parse_fid_path_cached(path: str):
+    """Pure fid-path parse, memoized for the hot path (FileId is frozen).
+    Long paths bypass the cache: keys are client-controlled."""
+    if len(path) > 96:
+        return _parse_fid_path_impl(path)
+    return _parse_fid_path_lru(path)
+
+
+@_functools.lru_cache(maxsize=131072)
+def _parse_fid_path_lru(path: str):
+    return _parse_fid_path_impl(path)
+
+
+def _parse_fid_path_impl(path: str):
+    parts = path.lstrip("/").split("/")
+    fid_part = parts[0]
+    if "," not in fid_part and len(parts) > 1:
+        # /vid/fid[/filename] form
+        fid_part = parts[0] + "," + parts[1]
+        filename = parts[2] if len(parts) > 2 else ""
+    else:
+        filename = parts[1] if len(parts) > 1 else ""
+    ext = ""
+    if "." in fid_part:
+        fid_part, _, tail = fid_part.rpartition(".")
+        ext = "." + tail
+    if not ext and "." in filename:
+        ext = "." + filename.rsplit(".", 1)[1]
+    return FileId.parse(fid_part), filename, ext
+
+
+def _decode_keys(req: dict):
+    """BulkLookup probe keys: <u8-LE bytes or list[int] -> u64[P]."""
+    import numpy as np
+
+    raw = req.get("keys", b"")
+    if isinstance(raw, (bytes, bytearray)):
+        return np.frombuffer(raw, dtype="<u8").astype(np.uint64)
+    return np.asarray(raw, dtype=np.uint64)
+
+
+def _query(req) -> dict:
+    """The first value of each query parameter, as aiohttp's
+    `request.query.get` reads it."""
+    out: dict = {}
+    for k, v in parse_qsl(req.query, keep_blank_values=True):
+        out.setdefault(k, v)
+    return out
+
+
+def _header(req, name: bytes) -> str:
+    return req.headers.get(name, b"").decode("latin1")
+
+
+def _json(status: int, obj, head_only: bool = False) -> bytes:
+    return render_response(status, json_body(obj), head_only=head_only)
+
+
+def _make_needle_map_debug(store, arena=None, gate=None, errors=None):
+    """/debug/needle_map: per-volume and aggregate bloom-filter economics
+    of every LSM map, the arena's residency and dispatch counters, the
+    gate's device-versus-host counters and the device errors (a closure
+    over leaf state, as in the JAX package)."""
+
+    async def handler(req):
+        per_volume = {}
+        agg = {"runs": 0, "runs_with_filter": 0, "probes": 0,
+               "negatives": 0}
+        for loc in store.locations:
+            for vid, v in list(loc.volumes.items()):
+                stats_fn = getattr(v.nm, "bloom_stats", None)
+                if stats_fn is None:
+                    continue
+                st = stats_fn()
+                per_volume[str(vid)] = st
+                for k in agg:
+                    agg[k] += st.get(k, 0)
+        agg["filter_hit_rate"] = (
+            round(agg["negatives"] / agg["probes"], 4)
+            if agg["probes"] else 0.0
+        )
+        body = {
+            "kind": store.needle_map_kind,
+            "aggregate": agg,
+            "volumes": per_volume,
+        }
+        if arena is not None:
+            body["device"] = arena.stats()
+        if gate is not None:
+            body["gate"] = dict(gate.stats)
+            body["gate_batch_hist"] = {
+                str(k): v for k, v in sorted(gate.batch_hist.items())
+            }
+        if errors is not None:
+            body["device_errors"] = dict(errors)
+        return _json(200, body, head_only=req.method == "HEAD")
+
+    return handler
+
+
+class VolumeServer(EcHandlers):
+    def __init__(
+        self,
+        directories: list[str],
+        host: str = "127.0.0.1",
+        port: int = 8080,
+        max_volume_counts: Optional[list[int]] = None,
+        codec_backend: str = "cuda",
+        device=None,
+        jwt_signing_key: str = "",
+        needle_map_kind: str = "memory",
+        white_list: tuple = (),
+        batch_lookup: str = "off",
+    ):
+        """`device` None follows `codec_backend`: the card for "cuda",
+        the CPU (the plain versions) for "cpu" and "numpy". The card is
+        never optional once asked for: without CUDA this raises."""
+        from ..ops.gf256 import resolve_device
+        from ..util.security import Guard
+
+        if codec_backend == "adaptive":
+            raise NotImplementedError(
+                "not ported: storage backend 'adaptive' (the native host "
+                "codec and its selection come with a later slice)"
+            )
+        if codec_backend not in CODEC_BACKENDS:
+            raise ValueError(
+                f"unknown storage backend {codec_backend!r} "
+                f"(want one of {', '.join(CODEC_BACKENDS)})"
+            )
+        batch_lookup = batch_lookup or "off"
+        if batch_lookup not in BATCH_LOOKUP_MODES:
+            raise ValueError(
+                f"unknown batch lookup mode {batch_lookup!r} "
+                f"(want one of {', '.join(BATCH_LOOKUP_MODES)})"
+            )
+        if device is None:
+            device = "cuda" if codec_backend == "cuda" else "cpu"
+        self.device = resolve_device(device)
+        self.jwt_signing_key = jwt_signing_key
+        self.guard = Guard(
+            white_list=tuple(white_list), signing_key=jwt_signing_key
+        )
+        self.host = host
+        self.port = port
+        self.address = f"{host}:{port}"
+        self.codec_backend = codec_backend
+        self.store = Store(
+            directories,
+            max_volume_counts or [7] * len(directories),
+            needle_map_kind=needle_map_kind,
+            device=self.device,
+        )
+        self.store.load()
+        self._core: Optional[ServingCore] = None
+        self._rpc_server = None
+        self._codec = None
+        # DETACHED reads finished through the full path (the loop keeps
+        # tasks only weakly)
+        self._tasks: set = set()
+        # blocking device work (EC generate and rebuild, BulkLookup,
+        # degraded-read decodes) runs here, off the event loop; the
+        # codec keeps one CUDA stream per worker thread
+        self._executor = ThreadPoolExecutor(
+            max_workers=4, thread_name_prefix="volume-device"
+        )
+        # requests answered 500 because device work raised, by operation
+        self.device_errors: dict = {}
+        self.lookup_gate = None
+        self.lookup_arena = None
+        if batch_lookup == "arena":
+            from ..ops.ragged_lookup import DeviceColumnArena
+            from .lookup_gate import BatchLookupGate
+
+            # the server's own arena on its device (closed by stop())
+            self.lookup_arena = DeviceColumnArena(device=self.device)
+            self.lookup_gate = BatchLookupGate(
+                self.store, arena=self.lookup_arena
+            )
+        elif batch_lookup != "off":
+            from .lookup_gate import BatchLookupGate
+
+            self.lookup_gate = BatchLookupGate(
+                self.store,
+                use_device={"auto": None, "host": False, "device": True}[
+                    batch_lookup
+                ],
+            )
+        self.read_cache = HotNeedleCache()
+
+    def make_codec(self, data_shards: int = 10, parity_shards: int = 4):
+        """A codec of this server's backend and device."""
+        if self.codec_backend == "cuda":
+            from ..ops.rs_kernel import CudaRSCodec
+
+            return CudaRSCodec(data_shards, parity_shards, device=self.device)
+        from ..gpu.coder import get_codec
+
+        return get_codec(self.codec_backend, data_shards, parity_shards)
+
+    @property
+    def codec(self):
+        if self._codec is None:
+            self._codec = self.make_codec()
+        return self._codec
+
+    def note_device_error(self, op: str, exc: BaseException) -> None:
+        """Count a request that failed because device work raised."""
+        self.device_errors[op] = self.device_errors.get(op, 0) + 1
+        metrics.DEVICE_ERRORS.inc(operation=op)
+        _LOG.warning("volume server %s: device work failed: %s: %s",
+                     op, type(exc).__name__, exc)
+
+    async def run_blocking(self, fn, *args):
+        """Run blocking (device or disk) work on the server's executor."""
+        return await asyncio.get_running_loop().run_in_executor(
+            self._executor, fn, *args
+        )
+
+    # ---------------- lifecycle ----------------
+    async def start(self) -> None:
+        self._core = ServingCore(
+            "volume", self._dispatch, self.host, self.port,
+            debug_handlers={
+                "/debug/needle_map": _make_needle_map_debug(
+                    self.store,
+                    arena=self.lookup_arena,
+                    gate=self.lookup_gate,
+                    errors=self.device_errors,
+                )
+            },
+        )
+        await self._core.start()
+        svc = Service("volume")
+        svc.unary("AllocateVolume")(self._grpc_allocate_volume)
+        svc.unary("VolumeMount")(self._grpc_volume_mount)
+        svc.unary("VolumeUnmount")(self._grpc_volume_unmount)
+        svc.unary("VolumeDelete")(self._grpc_volume_delete)
+        svc.unary("VolumeMarkReadonly")(self._grpc_volume_mark_readonly)
+        svc.unary("VolumeMarkWritable")(self._grpc_volume_mark_writable)
+        svc.unary("BatchDelete")(self._grpc_batch_delete)
+        svc.unary("BulkLookup")(self._grpc_bulk_lookup)
+        svc.unary("VolumeServerStatus")(self._grpc_status)
+        self.register_ec_rpcs(svc)
+        self._rpc_server = await serve(grpc_address(self.address), svc)
+
+    async def stop(self) -> None:
+        """Close the gate (its waiters get an error), the RPC and HTTP
+        sockets with their connections, the executor, the arena and the
+        store."""
+        if self.lookup_gate is not None:
+            self.lookup_gate.close()
+        if self._rpc_server is not None:
+            await self._rpc_server.stop()
+        if self._core is not None:
+            await self._core.stop()
+        await asyncio.to_thread(self._executor.shutdown, True)
+        if self.lookup_arena is not None:
+            self.lookup_arena.close()
+        self.store.close()
+
+    # ---------------- HTTP dispatch ----------------
+    async def _dispatch(self, req):
+        method = req.method
+        path = req.path
+        head_only = method == "HEAD"
+        if path == "/status":
+            return _json(200, {"Version": "seaweedfs-tpu", "Volumes": []},
+                         head_only=head_only)
+        if path in ("/ui", "/ui/"):
+            return not_ported("the /ui status page", head_only=head_only)
+        if method in ("GET", "HEAD"):
+            return await self._answer(self._read(req), head_only)
+        if method in ("POST", "PUT"):
+            if path == "/!batch/put":
+                return not_ported(
+                    "/!batch/put (batched chunk writes from the filer)"
+                )
+            return await self._answer(self._write(req))
+        if method == "DELETE":
+            return await self._answer(self._delete(req))
+        return _json(405, {"error": "method not allowed"})
+
+    @staticmethod
+    async def _answer(handler, head_only: bool = False):
+        """Await a handler, answering the errors it raises as the JAX
+        package's `_dispatch_inner` does."""
+        try:
+            return await handler
+        except (NotFound, NotFoundError, AlreadyDeleted, LookupError) as e:
+            return _json(404, {"error": str(e)}, head_only)
+        except ValueError as e:
+            # unparsable file id (ref volume_server_handlers_read.go:35-39)
+            return _json(400, {"error": str(e)}, head_only)
+        except CookieMismatch as e:
+            return _json(403, {"error": str(e)}, head_only)
+
+    def _parse_fid_path(self, path: str) -> tuple[FileId, str, str]:
+        return _parse_fid_path_cached(path)
+
+    # ---------------- read (ref volume_server_handlers_read.go) ----------------
+    async def _read(self, req):
+        """The byte-level path for the plain shape (no query, no Range, a
+        local volume), the full path for every other one."""
+        h = req.headers
+        if (
+            not req.query
+            and req.path
+            and req.path != "/"
+            and "debug" not in req.path
+            and b"range" not in h
+            and b"if-range" not in h
+        ):
+            try:
+                fid, _filename, _ext = self._parse_fid_path(req.path)
+            except Exception:
+                fid = None
+            if fid is not None:
+                v = self.store.find_volume(fid.volume_id)
+                if v is not None:
+                    out = self._fast_read(req, v, fid)
+                    if out is not _NEEDS_FULL_PATH:
+                        return out
+        return await self._handle_read(req)
+
+    def _fast_read(self, req, v, fid):
+        head_only = req.method == "HEAD"
+        vid = fid.volume_id
+        cache = self.read_cache
+        out = cache.get(v, vid, fid.key, fid.cookie, head_only)
+        if out is not None:
+            return out
+        if self.lookup_gate is not None:
+            # batched serving path: the index probe joins the gate's
+            # wakeup, and the whole continuation (pread -> render ->
+            # socket write) runs inside the flush callback
+            def done(loc, exc) -> None:
+                out = self._render_gated(v, vid, fid, head_only, loc, exc)
+                if out is None:  # compressed or manifest: the full path
+                    self._detach_full_read(req)
+                else:
+                    self._core.count(req.method)
+                    finish_detached(req, out)
+
+            self.lookup_gate.lookup_cb(vid, fid.key, done)
+            return DETACHED
+        try:
+            n, off_units, size = v.read_needle_by_key_located(fid.key)
+        except (NotFound, NotFoundError, AlreadyDeleted, LookupError):
+            return render_response(404, _NOT_FOUND, head_only=head_only)
+        except Exception:
+            return _NEEDS_FULL_PATH
+        out = self._render_needle(n, fid, head_only)
+        if out is _NEEDS_FULL_PATH:
+            return out
+        self._maybe_cache_fill(cache, v, vid, fid, n, off_units, size, out,
+                               head_only)
+        return out
+
+    def _detach_full_read(self, req) -> None:
+        """Finish a DETACHED read through the full path."""
+
+        async def run() -> None:
+            try:
+                out = await self._answer(self._handle_read(req),
+                                         req.method == "HEAD")
+            except Exception:
+                out = _json(500, {"error": "internal error"})
+            self._core.count(req.method)
+            finish_detached(req, out)
+
+        t = asyncio.ensure_future(run())
+        self._tasks.add(t)
+        t.add_done_callback(self._tasks.discard)
+
+    def _maybe_cache_fill(self, cache, v, vid, fid, n, off_units, size, out,
+                          head_only) -> None:
+        if (
+            head_only
+            or n.last_modified
+            or n.cookie != fid.cookie
+            or n.is_chunked_manifest()
+            or n.is_compressed()
+        ):
+            return
+        cache.put(v, vid, n, off_units, size, out, len(out) - len(n.data))
+
+    def _render_gated(self, v, vid, fid, head_only, loc, exc):
+        """Response bytes for a gated read, run inside the gate's flush;
+        None for a shape the full path renders."""
+        try:
+            if exc is not None:
+                if isinstance(exc, LookupError):
+                    return render_response(404, _NOT_FOUND,
+                                           head_only=head_only)
+                self.note_device_error("read", exc)
+                return render_response(
+                    500, b'{"error": "lookup failed"}', head_only=head_only
+                )
+            if loc is None:
+                return render_response(404, _NOT_FOUND, head_only=head_only)
+            offset_units, size = loc
+            n = Needle(id=fid.key)
+            stale = False
+            try:
+                if size > 0:
+                    n = v.read_needle_at(offset_units, size)
+                stale = size > 0 and n.cookie != fid.cookie
+            except Exception:
+                stale = True
+            if stale:
+                # the .dat may have changed between probe and pread; the
+                # locked per-request path is atomic
+                n = Needle(id=fid.key)
+                self.store.read_volume_needle(vid, n)
+            out = self._render_needle(n, fid, head_only)
+            if out is _NEEDS_FULL_PATH:
+                return None
+            if not stale:
+                self._maybe_cache_fill(self.read_cache, v, vid, fid, n,
+                                       offset_units, size, out, head_only)
+            return out
+        except (NotFound, NotFoundError, AlreadyDeleted, LookupError):
+            return render_response(404, _NOT_FOUND, head_only=head_only)
+        except Exception:
+            return render_response(
+                500, b'{"error": "internal error"}', head_only=head_only
+            )
+
+    def _render_needle(self, n, fid, head_only):
+        if n.cookie != fid.cookie:
+            return render_response(
+                404, b'{"error": "cookie mismatch"}', head_only=head_only,
+            )
+        if n.is_chunked_manifest() or n.is_compressed():
+            return _NEEDS_FULL_PATH
+        ctype = bytes(n.mime) if n.mime else b"application/octet-stream"
+        if not n.last_modified:
+            head = _HEAD_200 % (ctype, len(n.data), n.checksum & 0xFFFFFFFF)
+            return head if head_only else b"".join((head, n.data))
+        extra = b'Etag: "%s"\r\nAccept-Ranges: bytes\r\n' % n.etag().encode()
+        extra += b"Last-Modified-Ts: %d\r\n" % n.last_modified
+        return render_response(
+            200, n.data, content_type=ctype, extra=extra,
+            head_only=head_only,
+        )
+
+    async def _handle_read(self, req):
+        head_only = req.method == "HEAD"
+        fid, _filename, ext = self._parse_fid_path(req.path)
+        vid = fid.volume_id
+        q = _query(req)
+        if self.store.has_volume(vid):
+            n = Needle(id=fid.key)
+            v = self.store.find_volume(vid)
+            if self.lookup_gate is not None and v is not None:
+                try:
+                    loc = await self.lookup_gate.lookup(vid, fid.key)
+                except LookupError:
+                    raise
+                except Exception as e:
+                    self.note_device_error("read", e)
+                    return _json(500, {"error": "lookup failed"}, head_only)
+                if loc is None:
+                    return _json(404, {"error": "not found"}, head_only)
+                offset_units, size = loc
+                try:
+                    if size > 0:
+                        n = v.read_needle_at(offset_units, size)
+                    stale = size > 0 and n.cookie != fid.cookie
+                except Exception:
+                    stale = True
+                if stale:
+                    n = Needle(id=fid.key)
+                    self.store.read_volume_needle(vid, n)
+            else:
+                self.store.read_volume_needle(vid, n)
+            if n.cookie != fid.cookie:
+                return _json(404, {"error": "cookie mismatch"}, head_only)
+            if n.is_chunked_manifest() and q.get("cm") != "false":
+                return not_ported("chunked manifests (the chunks may live "
+                                  "on other servers)", head_only)
+            return self._needle_response(req, q, n, ext)
+
+        ev = self.store.find_ec_volume(vid)
+        if ev is not None:
+            try:
+                n = await self.read_ec_needle(ev, fid.key)
+            except Exception as e:
+                self.note_device_error("ec_read", e)
+                return _json(500, {"error": f"{type(e).__name__}: {e}"},
+                             head_only)
+            if n is None:
+                return _json(404, {"error": "not found"}, head_only)
+            if n.cookie != fid.cookie:
+                return _json(404, {"error": "cookie mismatch"}, head_only)
+            if n.is_chunked_manifest() and q.get("cm") != "false":
+                return not_ported("chunked manifests (the chunks may live "
+                                  "on other servers)", head_only)
+            return self._needle_response(req, q, n, ext)
+        return not_ported(
+            f"reads of volume {vid}, which is not local (the redirect "
+            "needs the master)", head_only,
+        )
+
+    def _needle_response(self, req, q: dict, n: Needle, ext: str = "") -> bytes:
+        from .. import images
+
+        head_only = req.method == "HEAD"
+        etag = f'"{n.etag()}"'
+        extra = [f"Etag: {etag}", "Accept-Ranges: bytes"]
+        if n.last_modified:
+            extra.append(f"Last-Modified-Ts: {n.last_modified}")
+        width, height, mode, do_resize = images.should_resize(ext, q)
+        body = bytes(n.data)
+        encoded = False
+        if n.is_compressed():
+            # resize requires plaintext regardless of what the client
+            # accepts (ref volume_server_handlers_read.go:210-238)
+            if "gzip" in _header(req, b"accept-encoding") and not do_resize:
+                extra.append("Content-Encoding: gzip")
+                encoded = True
+            else:
+                body = gzip.decompress(body)
+        ctype = bytes(n.mime) if n.mime else b"application/octet-stream"
+        if do_resize:
+            body, _, _ = images.resized(ext, body, width, height, mode)
+
+        def respond(status: int, payload: bytes, lines: list) -> bytes:
+            hdrs = "".join(f"{ln}\r\n" for ln in lines).encode("latin1")
+            return render_response(status, payload, content_type=ctype,
+                                   extra=hdrs, head_only=head_only)
+
+        if head_only:
+            return respond(200, body, extra)
+        # single-range requests (ref http.ServeContent); an unparsable
+        # Range header is ignored per RFC 9110. The gzip representation is
+        # never sliced: its ETag is shared with the identity variant.
+        if encoded:
+            return respond(200, body, extra)
+        if_range = _header(req, b"if-range")
+        if if_range and if_range != etag:
+            return respond(200, body, extra)
+        from ..util.http_range import parse_range
+
+        span = parse_range(_header(req, b"range"), len(body))
+        if span == "invalid-range":
+            return render_response(
+                416, b"", content_type=b"application/octet-stream",
+                extra=b"Content-Range: bytes */%d\r\n" % len(body),
+            )
+        if span is not None:
+            start, end = span
+            return respond(
+                206, body[start:end + 1],
+                extra + [f"Content-Range: bytes {start}-{end}/{len(body)}"],
+            )
+        return respond(200, body, extra)
+
+    # ---------------- write (ref volume_server_handlers_write.go) ----------------
+    def _check_write_auth(self, req, fid: FileId):
+        if not self.guard.check_whitelist(req.peer):
+            return _json(403, {"error": "forbidden"})
+        if self.jwt_signing_key and not self.guard.check_jwt(
+            _header(req, b"authorization"), str(fid)
+        ):
+            return _json(401, {"error": "unauthorized"})
+        return None
+
+    async def _write(self, req):
+        fid, _, _ = self._parse_fid_path(req.path)
+        denied = self._check_write_auth(req, fid)
+        if denied is not None:
+            return denied
+        vid = fid.volume_id
+        v = self.store.find_volume(vid)
+        if v is None:
+            return _json(404, {"error": f"volume {vid} not found"})
+        if v.super_block.replica_placement.copy_count() > 1:
+            return not_ported(
+                f"writes to volume {vid}, which is replicated (the fan-out "
+                "needs the master)"
+            )
+        q = _query(req)
+        if q.get("cm") == "true":
+            return not_ported("chunk manifest uploads")
+        ct = req.headers.get(b"content-type", b"")
+        if ct.startswith(b"multipart/form-data"):
+            parsed = parse_multipart(req.body, ct)
+            if parsed is None:
+                return _json(400, {"error": "unparsable multipart body"})
+            data, filename, mime = parsed
+        else:
+            # the raw request body IS the payload, handed over uncopied
+            data, filename, mime = req.body, "", ct.decode("latin1")
+        n = Needle(cookie=fid.cookie, id=fid.key, data=data)
+        if filename:
+            n.set_name(filename.encode())
+        if mime and mime != "application/octet-stream":
+            n.set_mime(mime.encode())
+        if q.get("ts"):
+            n.set_last_modified(int(q["ts"]))
+        if q.get("ttl"):
+            from ..storage.ttl import TTL
+
+            n.set_ttl(TTL.read(q["ttl"]))
+        try:
+            _off, size, _unchanged = self.store.write_volume_needle(
+                vid, n, sync=q.get("fsync") == "true"
+            )
+        except Exception as e:
+            # the append may or may not have landed: report, never retry
+            return _json(500, {"error": str(e)})
+        self.read_cache.invalidate_key(vid, fid.key)
+        if q or (filename and (
+            '"' in filename or "\\" in filename or not filename.isprintable()
+        )):
+            body = json_body({"name": filename, "size": size,
+                              "eTag": n.etag()})
+        else:
+            body = (
+                '{"name": "%s", "size": %d, "eTag": "%s"}'
+                % (filename, size, n.etag())
+            ).encode()
+        return render_response(201, body)
+
+    async def _delete(self, req):
+        fid, _, _ = self._parse_fid_path(req.path)
+        denied = self._check_write_auth(req, fid)
+        if denied is not None:
+            return denied
+        vid = fid.volume_id
+        v = self.store.find_volume(vid)
+        if v is not None:
+            if v.super_block.replica_placement.copy_count() > 1:
+                return not_ported(
+                    f"deletes on volume {vid}, which is replicated (the "
+                    "fan-out needs the master)"
+                )
+            check = Needle(id=fid.key)
+            try:
+                self.store.read_volume_needle(vid, check)
+            except (NotFound, AlreadyDeleted):
+                return _json(404, {"size": 0})
+            if check.cookie != fid.cookie:
+                return _json(403, {"error": "cookie mismatch"})
+            if check.is_chunked_manifest():
+                return not_ported("deletes of chunked manifests (their "
+                                  "chunks may live on other servers)")
+            size = self.store.delete_volume_needle(
+                vid, Needle(id=fid.key, cookie=fid.cookie)
+            )
+            self.read_cache.invalidate_key(vid, fid.key)
+            return _json(202, {"size": size})
+        if self.store.find_ec_volume(vid) is not None:
+            return not_ported(
+                f"deletes on EC volume {vid} (the tombstone fans out to "
+                "every shard holder through the master)"
+            )
+        return _json(404, {"error": "volume not found"})
+
+    # ---------------- RPC admin ----------------
+    async def _grpc_allocate_volume(self, req, context) -> dict:
+        try:
+            self.store.add_volume(
+                int(req["volume_id"]),
+                req.get("collection", ""),
+                req.get("replication", "000") or "000",
+                req.get("ttl", "") or "",
+                int(req.get("preallocate", 0)),
+            )
+            return {}
+        except Exception as e:
+            return {"error": str(e)}
+
+    async def _grpc_volume_mount(self, req, context) -> dict:
+        if req.get("seed_read_heat") is not None:
+            raise NotImplementedError(
+                "not ported: seed_read_heat (the lifecycle plane)"
+            )
+        self.store.mount_volume(int(req["volume_id"]))
+        return {}
+
+    async def _grpc_volume_unmount(self, req, context) -> dict:
+        vid = int(req["volume_id"])
+        self.store.unmount_volume(vid)
+        self.read_cache.invalidate_volume(vid)
+        return {}
+
+    async def _grpc_volume_delete(self, req, context) -> dict:
+        vid = int(req["volume_id"])
+        # keep_ec_files: EC conversion retires the source volume but the
+        # shards at the same base name still need the .vif
+        self.store.delete_volume(
+            vid, keep_ec_files=bool(req.get("keep_ec_files"))
+        )
+        self.read_cache.invalidate_volume(vid)
+        return {}
+
+    async def _grpc_volume_mark_readonly(self, req, context) -> dict:
+        self.store.mark_volume_readonly(int(req["volume_id"]))
+        return {}
+
+    async def _grpc_volume_mark_writable(self, req, context) -> dict:
+        """Undo VolumeMarkReadonly (ref volume_grpc_admin.go
+        VolumeMarkWritable)."""
+        vid = int(req["volume_id"])
+        v = self.store.find_volume(vid)
+        if v is None:
+            return {"error": f"volume {vid} not found"}
+        v.no_write_or_delete = False
+        return {}
+
+    async def _grpc_batch_delete(self, req, context) -> dict:
+        results = []
+        for fid_str in req.get("file_ids", []):
+            try:
+                fid = FileId.parse(fid_str)
+                v = self.store.find_volume(fid.volume_id)
+                if v is not None and (
+                    v.super_block.replica_placement.copy_count() > 1
+                ):
+                    raise NotImplementedError(
+                        "not ported: deletes on replicated volumes"
+                    )
+                n = Needle(id=fid.key, cookie=fid.cookie)
+                size = self.store.delete_volume_needle(fid.volume_id, n)
+                self.read_cache.invalidate_key(fid.volume_id, fid.key)
+                results.append({"file_id": fid_str, "status": 202, "size": size})
+            except Exception as e:
+                results.append({"file_id": fid_str, "status": 500, "error": str(e)})
+        return {"results": results}
+
+    async def _grpc_bulk_lookup(self, req, context) -> dict:
+        """Batched fid -> (offset, size) probes served from the volume's
+        index snapshot on the server's device (kernel index_search.cu).
+
+        req:  {volume_id, keys: <u8-LE bytes | list[int]}
+        resp: {offsets: <u4-LE bytes, sizes: <u4-LE bytes, found: u8 bytes}
+        columns aligned with the probe order.
+        """
+        import numpy as np
+
+        vid = int(req["volume_id"])
+        keys = _decode_keys(req)
+        v = self.store.find_volume(vid)
+        if v is not None:
+            fn = v.bulk_lookup
+        else:
+            ev = self.store.find_ec_volume(vid)
+            if ev is None:
+                return {"error": f"volume {vid} not found"}
+            fn = ev.bulk_locate
+        try:
+            offsets, sizes, found = await self.run_blocking(fn, keys)
+        except Exception as e:
+            self.note_device_error("bulk_lookup", e)
+            raise
+        # 5-byte-offset volumes need u64 columns on the wire
+        off_dtype = "<u8" if offsets.dtype.itemsize > 4 else "<u4"
+        return {
+            "offsets": np.ascontiguousarray(offsets, dtype=off_dtype).tobytes(),
+            "offset_dtype": off_dtype,
+            "sizes": np.ascontiguousarray(sizes, dtype="<u4").tobytes(),
+            "found": np.ascontiguousarray(found, dtype=np.uint8).tobytes(),
+        }
+
+    async def _grpc_status(self, req, context) -> dict:
+        return {
+            "volumes": [
+                self.store._volume_message(v)
+                for loc in self.store.locations
+                for v in loc.volumes.values()
+            ],
+        }

@@ -104,7 +104,9 @@ class EcVolume:
     `directory`. Block sizes default to the reference's 1GB/1MB; they are
     parameters so shrunk test geometries read back what they wrote.
     `device` is where bulk_locate's .ecx snapshot lives: the card unless
-    the caller asks for the CPU."""
+    the caller asks for the CPU. `shard_ids` names the shard files to
+    mount (None: every one present; the volume server mounts them one by
+    one, as VolumeEcShardsMount asks)."""
 
     def __init__(
         self,
@@ -114,6 +116,7 @@ class EcVolume:
         large_block_size: int = EC_LARGE_BLOCK_SIZE,
         small_block_size: int = EC_SMALL_BLOCK_SIZE,
         device=None,
+        shard_ids=None,
     ):
         self.dir = directory
         self.collection = collection
@@ -138,7 +141,7 @@ class EcVolume:
             self.data_shards = info.data_shards
             self.parity_shards = info.parity_shards
         self.shards: list[EcVolumeShard] = []
-        for sid in range(self.total_shards):
+        for sid in range(self.total_shards) if shard_ids is None else shard_ids:
             if os.path.exists(base + to_ext(sid)):
                 self.shards.append(EcVolumeShard(directory, collection, vid, sid))
         # device-resident .ecx snapshot for bulk probes; the port writes
@@ -154,6 +157,21 @@ class EcVolume:
     @property
     def total_shards(self) -> int:
         return self.data_shards + self.parity_shards
+
+    def add_shard(self, shard: EcVolumeShard) -> bool:
+        """Mount one more local shard file (ref: ec_volume.go AddEcVolumeShard)."""
+        if any(s.shard_id == shard.shard_id for s in self.shards):
+            return False
+        self.shards.append(shard)
+        self.shards.sort(key=lambda s: s.shard_id)
+        return True
+
+    def delete_shard(self, shard_id: int) -> Optional[EcVolumeShard]:
+        """Unmount a shard; the caller closes it."""
+        for i, s in enumerate(self.shards):
+            if s.shard_id == shard_id:
+                return self.shards.pop(i)
+        return None
 
     def find_shard(self, shard_id: int) -> Optional[EcVolumeShard]:
         for s in self.shards:

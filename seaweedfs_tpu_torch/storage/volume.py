@@ -16,8 +16,7 @@ volume_read_write.go, volume_loading.go, volume_checking.go):
 Ported from the JAX package's storage/volume.py: the `memory` and `lsm`
 needle maps, torn-tail recovery, writes, deletes, reads and bulk lookups.
 Not ported yet: the sqlite and sorted-file maps, tiered (remote) .dat
-files, the vacuum shadow sweep at load, content digests, scans and
-destroy.
+files, the vacuum shadow sweep at load, content digests and scans.
 """
 
 from __future__ import annotations
@@ -765,6 +764,26 @@ class Volume:
             ):
                 raise NotFound(f"needle {n.id} expired")
         return n
+
+    def destroy(self, keep_ec_files: bool = False) -> None:
+        """Remove the volume's files (ref: volume_read_write.go:44-65).
+        keep_ec_files spares the .vif and .heat sidecars that an EC volume
+        generated from this one at the same base name still needs, while
+        the .dat and .idx go either way."""
+        self.close()
+        base = self.file_name()
+        exts = (".dat", ".idx", ".sdx", ".cpd", ".cpx", ".scrub")
+        if not keep_ec_files:
+            exts += (".vif", ".heat")
+        for ext in exts:
+            try:
+                os.remove(base + ext)
+            except FileNotFoundError:
+                pass
+        # lsm sidecars (manifest and run files), whatever the current map
+        from .needle_map.lsm_map import invalidate_snapshot
+
+        invalidate_snapshot(base)
 
     def sync(self) -> None:
         self.nm.sync()

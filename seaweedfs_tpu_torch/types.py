@@ -94,6 +94,16 @@ def bytes_to_offset(b: bytes) -> int:
     return v
 
 
+
+# --- needle id / cookie codecs (file ids, storage/file_id.py) ---
+def needle_id_to_bytes(nid: int) -> bytes:
+    return u64_to_bytes(nid)
+
+
+def cookie_to_bytes(cookie: int) -> bytes:
+    return u32_to_bytes(cookie)
+
+
 # --- needle versions (ref: weed/storage/needle/volume_version.go) ---
 VERSION1 = 1
 VERSION2 = 2

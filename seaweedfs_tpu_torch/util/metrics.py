@@ -2,8 +2,8 @@
 
 A small copy of the JAX package's metrics registry (util/metrics.py):
 labelled counters and gauges with the same metric names, kept in-process.
-Only the families the ported storage and lookup modules update are here;
-the Prometheus text rendering comes with the port's servers.
+Only the families the ported modules update are here; `render()` gives
+the Prometheus text exposition the volume server serves at /metrics.
 """
 
 from __future__ import annotations
@@ -127,3 +127,35 @@ NEEDLE_MAP_DEVICE_ERRORS = REGISTRY.counter(
     "arena refreshes and dispatches that raised (a CUDA or kernel error); "
     "the affected probes are served by the host maps",
 )
+
+# the volume server (server/): requests served per server and method,
+# requests failed by device work, and EC degraded-read reconstructions
+REQUEST_COUNTER = REGISTRY.counter(
+    "seaweedfs_tpu_request_total", "number of requests by server/operation"
+)
+DEVICE_ERRORS = REGISTRY.counter(
+    "seaweedfs_tpu_device_errors_total",
+    "requests answered 500 because device work (a kernel build or launch, "
+    "a snapshot or arena upload) raised, by operation",
+)
+EC_RECONSTRUCTIONS = REGISTRY.counter(
+    "seaweedfs_tpu_ec_reconstructions_total",
+    "EC degraded-read interval reconstructions by kind (cold/cache_hit)",
+)
+
+
+def render() -> str:
+    """Every family in the Prometheus text exposition format (the
+    /metrics body)."""
+    lines = []
+    with REGISTRY._lock:
+        families = list(REGISTRY.metrics.values())
+    for m in families:
+        lines.append(f"# HELP {m.name} {m.help}")
+        lines.append(f"# TYPE {m.name} {m.kind}")
+        with m._lock:
+            items = sorted(m._values.items())
+        for labels, v in items:
+            lab = ",".join(f'{k}="{val}"' for k, val in labels)
+            lines.append(f"{m.name}{{{lab}}} {v:g}" if lab else f"{m.name} {v:g}")
+    return "\n".join(lines) + "\n"

@@ -1,10 +1,14 @@
 """The port stands alone: no module of seaweedfs_tpu_torch, and not
-chip_smoke.py, imports jax, jaxlib, msgpack or the JAX package
-seaweedfs_tpu (exact module names: seaweedfs_tpu_torch itself merely
-starts with the same letters), and a process that refuses those imports
-(and triton, with no nvcc on its PATH) runs an encode, a rebuild, a
-degraded read, a Volume.bulk_lookup, an EcVolume.bulk_locate and one gate
-flush through the arena of the port, building no kernel."""
+chip_smoke.py, imports jax, jaxlib, msgpack, aiohttp, grpc (grpcio) or
+the JAX package seaweedfs_tpu (exact module names: seaweedfs_tpu_torch
+itself merely starts with the same letters), and a process that refuses
+those imports (and triton, with no nvcc on its PATH) runs an encode, a
+rebuild, a degraded read, a Volume.bulk_lookup, an EcVolume.bulk_locate,
+one gate flush through the arena of the port, and the port's volume
+server on the CPU answering an RPC, a POST and a GET, building no
+kernel. The plain versions of the server's transport: a unary RPC round
+trip through pb/rpc.py, and util/mpack.py against msgpack on the RPC
+messages."""
 
 import ast
 import os
@@ -16,7 +20,7 @@ import pytest
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(REPO, "seaweedfs_tpu_torch")
-FORBIDDEN = ("jax", "jaxlib", "msgpack", "seaweedfs_tpu")
+FORBIDDEN = ("jax", "jaxlib", "msgpack", "seaweedfs_tpu", "aiohttp", "grpc")
 
 
 def _forbidden(name: str) -> bool:
@@ -37,6 +41,9 @@ def test_forbidden_matches_exact_names_only():
     assert not _forbidden("seaweedfs_tpu_torch")
     assert not _forbidden("seaweedfs_tpu_torch.ops.gf256")
     assert not _forbidden("jaxtyping")
+    assert _forbidden("aiohttp") and _forbidden("aiohttp.web")
+    assert _forbidden("grpc") and _forbidden("grpc.aio")
+    assert not _forbidden("grpc_free")
 
 
 @pytest.mark.parametrize(
@@ -74,7 +81,7 @@ _SCRIPT = textwrap.dedent(
         def find_spec(self, name, path=None, target=None):
             if any(name == f or name.startswith(f + ".")
                    for f in ("jax", "jaxlib", "msgpack", "seaweedfs_tpu",
-                             "triton")):
+                             "triton", "aiohttp", "grpc")):
                 raise ImportError("refused: " + name)
             return None
 
@@ -154,14 +161,63 @@ _SCRIPT = textwrap.dedent(
     arena.close()
     for v in vols.values():
         v.close()
+
+    # the volume server on the CPU: one RPC, one POST, one GET
+    from seaweedfs_tpu_torch.pb import grpc_address
+    from seaweedfs_tpu_torch.pb.rpc import Stub
+    from seaweedfs_tpu_torch.server.volume import VolumeServer
+    port = int(sys.argv[2])
+    async def serve():
+        vs = VolumeServer([os.path.join(d, "srv")], port=port,
+                          codec_backend="cpu", batch_lookup="arena",
+                          needle_map_kind="lsm")
+        await vs.start()
+        try:
+            stub = Stub(grpc_address(vs.address), "volume")
+            assert await stub.call("AllocateVolume", {"volume_id": 4}) == {}
+            async def http(req):
+                r, w = await asyncio.open_connection("127.0.0.1", port)
+                w.write(req)
+                head = await r.readuntil(b"\\r\\n\\r\\n")
+                n = int(head.lower().split(b"content-length:")[1].split(b"\\r\\n")[0])
+                body = await r.readexactly(n)
+                w.close()
+                return head.split(b" ")[1], body
+            st, body = await http(b"POST /4,0163e1b2c3 HTTP/1.1\\r\\n"
+                                  b"Content-Length: 5\\r\\n\\r\\nhello")
+            assert st == b"201", (st, body)
+            st, body = await http(b"GET /4,0163e1b2c3 HTTP/1.1\\r\\n\\r\\n")
+            assert (st, body) == (b"200", b"hello"), (st, body)
+        finally:
+            await vs.stop()
+    asyncio.run(asyncio.wait_for(serve(), 30))
     loaded = [m for m in sys.modules
               if any(m == f or m.startswith(f + ".")
                      for f in ("jax", "jaxlib", "msgpack", "seaweedfs_tpu",
-                               "triton"))]
+                               "triton", "aiohttp", "grpc"))]
     assert not loaded, loaded
     print("ISOLATED-OK")
     """
 )
+
+
+def _free_port() -> int:
+    """A port whose RPC port (+10000) is free too, both under the
+    ephemeral range (32768-) and clear of the JAX tests' 21000-22000."""
+    import random
+    import socket
+
+    for _ in range(200):
+        p = random.randrange(12000, 20000)
+        try:
+            with socket.socket() as s:
+                s.bind(("127.0.0.1", p))
+            with socket.socket() as s:
+                s.bind(("127.0.0.1", p + 10000))
+            return p
+        except OSError:
+            continue
+    raise RuntimeError("no free port pair")
 
 
 def test_port_runs_with_jax_imports_refused(tmp_path):
@@ -170,8 +226,94 @@ def test_port_runs_with_jax_imports_refused(tmp_path):
     env["PYTHONPATH"] = REPO
     env["PATH"] = "/usr/bin:/bin"  # no nvcc
     proc = subprocess.run(
-        [sys.executable, "-c", _SCRIPT, str(tmp_path)],
+        [sys.executable, "-c", _SCRIPT, str(tmp_path), str(_free_port())],
         cwd=str(tmp_path), env=env, capture_output=True, text=True, timeout=120,
     )
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert "ISOLATED-OK" in proc.stdout
+
+
+# RPC messages as the volume server's calls carry them
+RPC_MESSAGES = [
+    {},
+    {"error": "volume 7 not found"},
+    {"volume_id": 3, "collection": "", "replication": "000", "ttl": "",
+     "preallocate": 0},
+    {"volume_id": 1, "keys": bytes(range(256)) * 300},
+    {"offsets": b"\x01\x00\x00\x00" * 70_000, "offset_dtype": "<u4",
+     "sizes": b"", "found": b"\x01"},
+    {"rebuilt_shard_ids": [0, 3, 10, 13], "data_shards": 10,
+     "parity_shards": 4},
+    {"results": [{"file_id": "3,01637037d6", "status": 202, "size": 1024},
+                 {"file_id": "x", "status": 500, "error": "wrong fid"}]},
+    {"volumes": [{"id": 1, "size": 1 << 33, "read_only": True,
+                  "append_at_ns": 1_700_000_000_123_456_789, "ttl": 0,
+                  "modified_at_second": -1, "heat": 0.25, "none": None}]},
+    {"keys": list(range(-40, 40)) + [1 << 63, -(1 << 63), 255, 65_536],
+     "s": "é" * 40, "long": "x" * 70_000, "nested": [[[]], {"a": {}}]},
+    {7: "int key", "shard_ids": list(range(20))},
+]
+
+
+@pytest.mark.parametrize("i", range(len(RPC_MESSAGES)))
+def test_mpack_equals_msgpack_on_rpc_messages(i):
+    import msgpack
+
+    from seaweedfs_tpu_torch.util import mpack
+
+    msg = RPC_MESSAGES[i]
+    packed = mpack.packb(msg)
+    assert packed == msgpack.packb(msg, use_bin_type=True)
+    assert mpack.unpackb(packed) == msgpack.unpackb(
+        packed, raw=False, strict_map_key=False) == msg
+
+
+def test_rpc_round_trip():
+    """A unary call through pb/rpc.py: the reply, the {"error": ...}
+    convention, a handler that raises (500) and a method the server does
+    not have (501)."""
+    import asyncio
+
+    from seaweedfs_tpu_torch.pb import grpc_address, http_address
+    from seaweedfs_tpu_torch.pb.rpc import RpcError, Service, Stub, serve
+
+    svc = Service("volume")
+
+    @svc.unary("Echo")
+    async def echo(req, context):
+        return {"got": req, "peer": context.peer}
+
+    @svc.unary("Refuse")
+    async def refuse(req, context):
+        return {"error": "refused"}
+
+    @svc.unary("Boom")
+    async def boom(req, context):
+        raise ValueError("boom")
+
+    async def body():
+        port = _free_port()
+        addr = grpc_address(f"127.0.0.1:{port}")
+        assert addr == f"127.0.0.1:{port + 10000}"
+        assert http_address(addr) == f"127.0.0.1:{port}"
+        server = await serve(addr, svc)
+        try:
+            stub = Stub(addr, "volume")
+            msg = RPC_MESSAGES[3]
+            out = [await stub.call("Echo", msg),
+                   await stub.call("Refuse", {})]
+            for method, status in (("Boom", 500), ("Nope", 501)):
+                try:
+                    await stub.call(method, {})
+                except RpcError as e:
+                    out.append((e.status, e.message))
+            return out
+        finally:
+            await server.stop()
+
+    echo_reply, refused, boomed, missing = asyncio.run(
+        asyncio.wait_for(body(), 30))
+    assert echo_reply == {"got": RPC_MESSAGES[3], "peer": "127.0.0.1"}
+    assert refused == {"error": "refused"}
+    assert boomed == (500, "ValueError: boom")
+    assert missing == (501, "not ported: rpc volume/Nope")
