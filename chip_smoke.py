@@ -51,6 +51,28 @@ ragged_lookup):
      the kernel's plain version on the card; 2,000 degraded GETs with
      shards 0, 3, 10, 13 gone; rebuild; stop within 10 s. All three
      kernels must launch through the server.
+ 11  cluster (`weed benchmark` scale): phase 10's volume 1 as volume A in
+     the first directory of `server -index lsm -batchLookup arena
+     -storageBackend cuda -volumeSizeLimitMB 1024` (A, 1,127 MB, is full)
+     beside three `volume -mserver ... -storageBackend cuda`, each through
+     the CLI's entry function on its own event-loop thread; 10,000
+     warm-up GETs of A at concurrency 512 through which the `server`
+     uploads its own arena, then 50,000 GETs of A at concurrency 256 with
+     the gate's identity check on (ragged_lookup must launch); from the
+     warm-up's end on, any host fallback, identity mismatch or device
+     error on the `server`'s gate fails; `benchmark -n 65536 -c 16` (cut
+     from -n 1048576 for time) and `shell` as child processes: benchmark
+     writes and reads (every body checked), 5,000 /dir/assign, `ec.encode
+     -volumeId A` (generate and spread timed by the shell) spread 4/4/3/3
+     with every shard and .ecx equal to the plain version's encode,
+     BulkLookup of A's ids
+     on its .ecx, `ec.encode` of two benchmark volumes of one server
+     through VolumeEcShardsGenerateBatch (equal to the plain version's),
+     2,000 GETs of A over all four servers (remote shards, 10 % absent),
+     then a 4-shard server stopped and 2,000 degraded GETs through the
+     other three (each must decode on the card), `ec.rebuild` (the lost
+     shards come back identical), 100 EC deletes answering 404 from every
+     live server, and every server stopped within 10 s.
 
 Each phase prints one JSON line; any mismatch or exception exits non-zero
 without the final line. The line before last but one is the kernels
@@ -79,6 +101,7 @@ import argparse
 import hashlib
 import json
 import os
+import re
 import shutil
 import statistics
 import struct
@@ -946,6 +969,60 @@ SERVER_STOP_S = 10
 AB_READS = 25_000  # GETs per pass of --gate-cut-ab
 
 
+def _port_pair(taken: set) -> int:
+    """A free port whose +10000 (the RPC port) is free too."""
+    import socket
+
+    for cand in range(20000, 30000):
+        if cand in taken:
+            continue
+        try:
+            with socket.socket() as s1, socket.socket() as s2:
+                s1.bind(("127.0.0.1", cand))
+                s2.bind(("127.0.0.1", cand + 10000))
+        except OSError:
+            continue
+        taken.add(cand)
+        return cand
+    fail("no free port pair")
+
+
+def _serve_in_thread(fn, argv: list, name: str) -> dict:
+    """Run a CLI entry function (cmd_server, cmd_volume) on its own
+    event-loop thread; the returned dict gets its loop, stop event and
+    servers once they listen."""
+    held = {"ready": threading.Event()}
+
+    def started(loop, stop, servers):
+        held.update(loop=loop, stop=stop, servers=servers)
+        held["ready"].set()
+
+    def run():
+        try:
+            held["rc"] = fn(argv, started=started)
+        except (Exception, SystemExit) as e:  # reported by the caller
+            held["error"] = e
+            held["ready"].set()
+
+    held["thread"] = threading.Thread(target=run, name=name, daemon=True)
+    held["thread"].start()
+    return held
+
+
+def _stop_served(held: dict, timeout: float) -> float:
+    t0 = time.perf_counter()
+    loop = held.get("loop")
+    if loop is not None and not loop.is_closed():
+        loop.call_soon_threadsafe(held["stop"].set)
+    held["thread"].join(timeout)
+    if held["thread"].is_alive():
+        fail(f"{held['thread'].name} did not stop in {timeout} s")
+    if held.get("rc") != 0:
+        fail(f"{held['thread'].name} exited with {held.get('rc')!r}: "
+             f"{held.get('error')!r}")
+    return time.perf_counter() - t0
+
+
 def client_main(argv: list) -> int:
     """Child mode of this script: the closed-loop load client of phase
     10 (standard library only). Each of `concurrency` clients keeps one
@@ -1101,34 +1178,14 @@ def _gate_cut_ab(work: str, port: int, base_plan: dict, read_plan, rounds: int) 
             "rounds": out, "median_by_cut": med}
 
 
-def phase_volume_server(torch, work: str, seed: int, needle_mod, crc_mod,
-                        cut_ab_rounds: int = 0) -> dict:
-    """The port's volume server, started through the CLI's entry function
-    on its own event-loop thread, at `weed benchmark` scale; a load
-    client in a child process; EC generate, degraded reads and rebuild
-    through the server's RPCs. Every answer is checked. With
-    `cut_ab_rounds`, it stops after the warm-up and `_gate_cut_ab`."""
-    import asyncio
-    import socket
-
+def write_benchmark_volume(d: str, rng, needle_mod, crc_mod) -> dict:
+    """Volume 1 in `d` before a server starts: LSM map, SERVER_NEEDLES 1 KiB
+    needles from a seeded pool whose CRCs are computed once (as phase 7),
+    1 % deleted, 1 % overwritten. Returns the table a reader checks
+    against: pool, CRCs, ids, cookies, the pool index of each needle,
+    which are live, and the write wall."""
     import numpy as np
 
-    from seaweedfs_tpu_torch.command import cli
-    from seaweedfs_tpu_torch.ops import gf256 as G
-    from seaweedfs_tpu_torch.ops import index_kernel as IK
-    from seaweedfs_tpu_torch.ops import ragged_lookup as RL
-    from seaweedfs_tpu_torch.ops.rs_kernel import CudaRSCodec
-    from seaweedfs_tpu_torch.pb import grpc_address
-    from seaweedfs_tpu_torch.pb.rpc import Stub
-    from seaweedfs_tpu_torch.storage.erasure_coding import encoder as enc
-    from seaweedfs_tpu_torch.storage.file_id import FileId
-    from seaweedfs_tpu_torch.storage.volume import Volume
-
-    rng = np.random.default_rng(seed + 10)
-    d = os.path.join(work, "server")
-    os.makedirs(d)
-    # volume 1 before the server starts: LSM map, 1 KiB needles from a
-    # seeded pool whose CRCs are computed once (as phase 7)
     pool = [rng.integers(0, 256, NEEDLE_BYTES, dtype=np.uint8).tobytes()
             for _ in range(128)]  # 0-63 volume 1, 64-127 volume 2
     pool_crc = [crc_mod.masked_crc(b) for b in pool]
@@ -1140,6 +1197,8 @@ def phase_volume_server(torch, work: str, seed: int, needle_mod, crc_mod,
     blob_of = rng.integers(0, 64, size=SERVER_NEEDLES)
     needle_mod.masked_crc = lambda data: crc_of.get(bytes(data)) or real_crc(data)
     try:
+        from seaweedfs_tpu_torch.storage.volume import Volume
+
         t0 = time.perf_counter()
         v = Volume(d, "", 1, needle_map_kind="lsm")
         for c0 in range(0, SERVER_NEEDLES, 4096):
@@ -1164,44 +1223,109 @@ def phase_volume_server(torch, work: str, seed: int, needle_mod, crc_mod,
             if isinstance(r, Exception):
                 fail(f"volume 1 overwrite failed: {r!r}")
         v.close()
-        write1_s = time.perf_counter() - t0
+        write_s = time.perf_counter() - t0
     finally:
         needle_mod.masked_crc = real_crc
-    live1 = np.ones(SERVER_NEEDLES, dtype=bool)
-    live1[deleted] = False
+    live = np.ones(SERVER_NEEDLES, dtype=bool)
+    live[deleted] = False
+    return {"pool": pool, "pool_crc": pool_crc, "ids": ids, "cookies": cookies,
+            "blob_of": blob_of, "live": live, "deleted": len(deleted),
+            "rewritten": len(rewritten), "write_s": write_s}
+
+
+def plain_on_card_codec(torch):
+    """CudaRSCodec whose matrix products run the kernel's plain version on
+    the card (the reference an encode through the kernel is held to)."""
+    import numpy as np
+
+    from seaweedfs_tpu_torch.ops import gf256 as G
+    from seaweedfs_tpu_torch.ops.rs_kernel import CudaRSCodec
+
+    class PlainOnCard(CudaRSCodec):
+        def _apply(self, matrix, rows, out=None):
+            data = np.stack([np.asarray(r, dtype=np.uint8) for r in rows])
+            packed = torch.from_numpy(G.pack_bytes_host(data).view(np.int32)).to(
+                self.device)
+            res = G.unpack_bytes_host(
+                G._gf_matmul_torch_packed(np.asarray(matrix, np.uint8), packed).cpu().numpy(),
+                data.shape[1])
+            if out is not None:
+                out[:] = res
+                return out
+            return res
+
+    return PlainOnCard()
+
+
+EC_NAMES = [f".ec{i:02d}" for i in range(14)] + [".ecx"]
+
+
+def plain_encode_sums(torch, work: str, src_base: str, name: str) -> dict:
+    """sha1 of .ec00-.ec13 and .ecx of `src_base`'s .dat/.idx encoded by
+    the kernel's plain version on the card (in a scratch directory that
+    is removed); fails if the kernel launched meanwhile."""
+    from seaweedfs_tpu_torch.ops import gf256 as G
+    from seaweedfs_tpu_torch.storage.erasure_coding import encoder as enc
+
+    pd = os.path.join(work, f"plain-{name}")
+    os.makedirs(pd)
+    try:
+        for ext in (".dat", ".idx"):
+            os.symlink(src_base + ext, os.path.join(pd, name + ext))
+        gf_before = G.KERNEL_LAUNCHES
+        enc.write_ec_files(os.path.join(pd, name), codec=plain_on_card_codec(torch))
+        enc.write_sorted_file_from_idx(os.path.join(pd, name))
+        if G.KERNEL_LAUNCHES != gf_before:
+            fail("the plain encode launched the kernel")
+        sums = sha1_files([os.path.join(pd, name + e) for e in EC_NAMES])
+        return {e: sums[os.path.join(pd, name + e)] for e in EC_NAMES}
+    finally:
+        shutil.rmtree(pd)
+
+
+def phase_volume_server(torch, work: str, seed: int, needle_mod, crc_mod,
+                        cut_ab_rounds: int = 0, keep: dict | None = None) -> dict:
+    """The port's volume server, started through the CLI's entry function
+    on its own event-loop thread, at `weed benchmark` scale; a load
+    client in a child process; EC generate, degraded reads and rebuild
+    through the server's RPCs. Every answer is checked. With
+    `cut_ab_rounds`, it stops after the warm-up and `_gate_cut_ab`."""
+    import asyncio
+    import socket
+
+    import numpy as np
+
+    from seaweedfs_tpu_torch.command import cli
+    from seaweedfs_tpu_torch.ops import gf256 as G
+    from seaweedfs_tpu_torch.ops import index_kernel as IK
+    from seaweedfs_tpu_torch.ops import ragged_lookup as RL
+    from seaweedfs_tpu_torch.pb import grpc_address
+    from seaweedfs_tpu_torch.pb.rpc import Stub
+    from seaweedfs_tpu_torch.storage.file_id import FileId
+
+    rng = np.random.default_rng(seed + 10)
+    d = os.path.join(work, "server")
+    os.makedirs(d)
+    table = write_benchmark_volume(d, rng, needle_mod, crc_mod)
+    pool, pool_crc = table["pool"], table["pool_crc"]
+    ids, cookies, blob_of, live1 = (table[k] for k in ("ids", "cookies", "blob_of", "live"))
+    if keep is not None:
+        # phase 11 serves the same volume: its files as written, linked
+        # before this server opens them
+        stash = os.path.join(work, "cluster-a")
+        os.makedirs(stash)
+        for fn in os.listdir(d):
+            if fn.startswith("1."):
+                os.link(os.path.join(d, fn), os.path.join(stash, fn))
+        keep.update(table, dir=stash)
 
     # start the server through the CLI's entry function
-    port = 0
-    for cand in range(18080, 19000):
-        try:
-            with socket.socket() as s1, socket.socket() as s2:
-                s1.bind(("127.0.0.1", cand))
-                s2.bind(("127.0.0.1", cand + 10000))
-            port = cand
-            break
-        except OSError:
-            continue
-    if not port:
-        fail("no free port pair for the volume server")
+    port = _port_pair(set())
     argv = ["-dir", d, "-port", str(port), "-index", "lsm",
             "-batchLookup", "arena", "-storageBackend", "cuda"]
-    held, ready = {}, threading.Event()
-
-    def started(loop, stop, servers):
-        held.update(loop=loop, stop=stop, vs=servers[0])
-        ready.set()
-
-    def serve():
-        try:
-            held["rc"] = cli.cmd_volume(argv, started=started)
-        except (Exception, SystemExit) as e:  # reported by the waiting thread
-            held["error"] = e
-            ready.set()
-
     t0 = time.perf_counter()
-    th = threading.Thread(target=serve, name="volume-server", daemon=True)
-    th.start()
-    if not ready.wait(SERVER_START_S) or "error" in held:
+    held = _serve_in_thread(cli.cmd_volume, argv, "volume-server")
+    if not held["ready"].wait(SERVER_START_S) or "error" in held:
         fail(f"volume server did not start in {SERVER_START_S} s: {held.get('error')!r}")
     while True:
         try:
@@ -1212,7 +1336,7 @@ def phase_volume_server(torch, work: str, seed: int, needle_mod, crc_mod,
                 fail(f"volume server accepts no connection in {SERVER_START_S} s")
             time.sleep(0.05)
     start_s = time.perf_counter() - t0
-    vs = held["vs"]
+    vs = held["servers"][0]
     stub = Stub(grpc_address(f"127.0.0.1:{port}"), "volume")
 
     def rpc(method, req, timeout=300):
@@ -1321,39 +1445,15 @@ def phase_volume_server(torch, work: str, seed: int, needle_mod, crc_mod,
         _, gen_s = rpc("VolumeEcShardsGenerate", {"volume_id": 1})
         base = os.path.join(d, "1")
         shard_paths = [base + f".ec{i:02d}" for i in range(14)]
-        pd = os.path.join(work, "plain")
-        os.makedirs(pd)
-        for ext in (".dat", ".idx"):
-            os.symlink(base + ext, os.path.join(pd, "1" + ext))
-
-        class PlainOnCard(CudaRSCodec):
-            """The codec with the kernel's plain version on the card."""
-
-            def _apply(self, matrix, rows, out=None):
-                data = np.stack([np.asarray(r, dtype=np.uint8) for r in rows])
-                packed = torch.from_numpy(G.pack_bytes_host(data).view(np.int32)).to(
-                    self.device)
-                res = G.unpack_bytes_host(
-                    G._gf_matmul_torch_packed(np.asarray(matrix, np.uint8), packed).cpu().numpy(),
-                    data.shape[1])
-                if out is not None:
-                    out[:] = res
-                    return out
-                return res
-
-        gf_before = G.KERNEL_LAUNCHES
         t0 = time.perf_counter()
-        enc.write_ec_files(os.path.join(pd, "1"), codec=PlainOnCard())
-        enc.write_sorted_file_from_idx(os.path.join(pd, "1"))
+        plain = plain_encode_sums(torch, work, base, "1")
         plain_s = time.perf_counter() - t0
-        if G.KERNEL_LAUNCHES != gf_before:
-            fail("the plain encode launched the kernel")
-        names = [f".ec{i:02d}" for i in range(14)] + [".ecx"]
-        sums = sha1_files([base + e for e in names] + [os.path.join(pd, "1" + e) for e in names])
-        for e in names:
-            if sums[base + e] != sums[os.path.join(pd, "1" + e)]:
+        sums = sha1_files([base + e for e in EC_NAMES])
+        for e in EC_NAMES:
+            if sums[base + e] != plain[e]:
                 fail(f"the server's {e} differs from the plain version's")
-        shutil.rmtree(pd)
+        if keep is not None:
+            keep["shard_sums"] = plain
         rpc("VolumeEcShardsMount", {"volume_id": 1, "shard_ids": list(range(14))})
         rpc("VolumeDelete", {"volume_id": 1, "keep_ec_files": True})
         if os.path.exists(base + ".dat") or vs.store.find_ec_volume(1) is None:
@@ -1381,24 +1481,15 @@ def phase_volume_server(torch, work: str, seed: int, needle_mod, crc_mod,
                     "ragged_lookup": RL.KERNEL_LAUNCHES}
         status = _http_json(port, "/debug/needle_map")
     finally:
-        t0 = time.perf_counter()
-        loop = held.get("loop")
-        if loop is not None and not loop.is_closed():
-            loop.call_soon_threadsafe(held["stop"].set)
-        th.join(SERVER_STOP_S)
-        stop_s = time.perf_counter() - t0
-    if th.is_alive():
-        fail(f"the volume server did not stop in {SERVER_STOP_S} s")
-    if held.get("rc") != 0:
-        fail(f"the volume server exited with {held.get('rc')!r}: {held.get('error')!r}")
+        stop_s = _stop_served(held, SERVER_STOP_S)
     for name, n in launches.items():
         if n <= 0:
             fail(f"{name} launched no time through the server")
     res = {
         "phase": "volume_server",
         "argv": argv,
-        "volume1": {"needles": SERVER_NEEDLES, "deleted": len(deleted),
-                    "overwritten": len(rewritten), "write_s": write1_s},
+        "volume1": {"needles": SERVER_NEEDLES, "deleted": table["deleted"],
+                    "overwritten": table["rewritten"], "write_s": table["write_s"]},
         "server_start_s": start_s,
         "writes": {"requests": SERVER_WRITES, "concurrency": WRITE_CONCURRENCY, **wres},
         "warmup_reads": {"requests": WARMUP_READS, "concurrency": WARMUP_CONCURRENCY,
@@ -1429,6 +1520,464 @@ def phase_volume_server(torch, work: str, seed: int, needle_mod, crc_mod,
                                       after["gate"]["batches"] - before["gate"]["batches"]],
         "kernel_launches": launches,
         "device_errors": status["device_errors"],
+    }
+    emit(res)
+    return res
+
+
+# --- phase 11 ----------------------------------------------------------------
+CLUSTER_VOLUME_SERVERS = 3  # `volume -mserver` beside the `server`
+CLUSTER_SIZE_LIMIT_MB = 1024  # volume A (1,127 MB) is full, as ec.encode wants
+BENCH_N = 1 << 16  # weed benchmark -n: cut from 1,048,576 for time
+BENCH_C = 16
+ASSIGNS = 5_000
+REMOTE_GETS = 2_000
+CLUSTER_DEGRADED_GETS = 2_000
+CLUSTER_ARENA_READS = 50_000  # A's GETs on the server after the arena's warm-up
+EC_DELETES = 100
+CLUSTER_START_S = 180
+CHILD_S = 900  # deadline of each child process (benchmark, shell)
+
+
+def _port_cli(args: list, timeout: float = CHILD_S) -> tuple:
+    """Run `python -m seaweedfs_tpu_torch ARGS` in a child process; fails
+    unless it exits 0. -> (stdout, wall seconds)."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = HERE + os.pathsep + env.get("PYTHONPATH", "")
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "seaweedfs_tpu_torch", *args],
+                          capture_output=True, text=True, timeout=timeout,
+                          cwd=HERE, env=env)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        fail(f"{args[:2]} exited {proc.returncode}: {proc.stderr[-2000:]}")
+    return proc.stdout, wall
+
+
+def _bench_numbers(section: str) -> dict:
+    """Requests, failures, rate and p50/p99 of one benchmark report."""
+    out = {}
+    for line in section.splitlines():
+        line = line.strip()
+        if line.startswith("Complete requests:"):
+            out["completed"] = int(line.split(":")[1])
+        elif line.startswith("Failed requests:"):
+            out["failed"] = int(line.split(":")[1])
+        elif line.startswith("Requests per second:"):
+            out["per_s"] = float(line.split(":")[1].split()[0])
+        elif line.startswith("50%"):
+            out["p50_ms"] = float(line.split()[1])
+        elif line.startswith("99%"):
+            out["p99_ms"] = float(line.split()[1])
+    return out
+
+
+def _ec_holders(maddr: str, vid: int, want_shards: int, deadline_s: float) -> dict:
+    """{url: [shard ids]} of an EC volume from the master's LookupEcVolume,
+    once it knows `want_shards` shards (fails past the deadline)."""
+    import asyncio
+
+    from seaweedfs_tpu_torch.pb import grpc_address
+    from seaweedfs_tpu_torch.pb.rpc import Stub
+
+    stub = Stub(grpc_address(maddr), "master")
+    t0 = time.perf_counter()
+    while True:
+        r = asyncio.run(stub.call("LookupEcVolume", {"volume_id": vid}))
+        held = {}
+        for e in r.get("shard_id_locations", []):
+            for loc in e["locations"]:
+                held.setdefault(loc["url"], []).append(int(e["shard_id"]))
+        if sum(len(v) for v in held.values()) == want_shards:
+            return held
+        if time.perf_counter() - t0 > deadline_s:
+            fail(f"ec volume {vid}: the master knows {held}, not {want_shards} shards")
+        time.sleep(0.1)
+
+
+def _assign_rate(maddr: str, n: int, concurrency: int) -> dict:
+    """n /dir/assign at `concurrency` over keep-alive connections."""
+    import asyncio
+
+    from seaweedfs_tpu_torch.util.fasthttp import FastHTTPClient
+
+    async def run():
+        http = FastHTTPClient(pool_per_host=concurrency)
+        left = [n]
+        bad = []
+
+        async def one():
+            while left[0] > 0:
+                left[0] -= 1
+                st, body = await http.request("GET", maddr, "/dir/assign")
+                if st != 200 or b'"fid"' not in body:
+                    bad.append((st, body[:120]))
+
+        t0 = time.perf_counter()
+        await asyncio.gather(*(one() for _ in range(concurrency)))
+        wall = time.perf_counter() - t0
+        await http.close()
+        return wall, bad
+
+    wall, bad = asyncio.run(run())
+    if bad:
+        fail(f"/dir/assign: {len(bad)} failed, e.g. {bad[:3]}")
+    return {"assigns": n, "concurrency": concurrency, "wall_s": wall, "per_s": n / wall}
+
+
+def phase_cluster(torch, work: str, seed: int, keep: dict) -> dict:
+    """The port's cluster at `weed benchmark` scale: `server` (master +
+    volume) and three `volume -mserver` through the CLI's entry functions,
+    each on its own event-loop thread; `benchmark` and `shell` as child
+    processes. Volume A is phase 10's volume 1 (`keep`). Every answer is
+    checked.
+
+    The kernel counts are process-wide: each `launches_by_window` entry
+    is what they moved while the script drove one server (the other
+    servers then serve only its remote shard reads, which launch no
+    kernel), not a count kept by that server."""
+    import asyncio
+
+    import numpy as np
+
+    from seaweedfs_tpu_torch.command import cli
+    from seaweedfs_tpu_torch.ops import gf256 as G
+    from seaweedfs_tpu_torch.ops import index_kernel as IK
+    from seaweedfs_tpu_torch.ops import ragged_lookup as RL
+    from seaweedfs_tpu_torch.pb import grpc_address
+    from seaweedfs_tpu_torch.pb.rpc import Stub
+    from seaweedfs_tpu_torch.storage.erasure_coding import encoder as enc
+    from seaweedfs_tpu_torch.storage.file_id import FileId
+
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(seed + 11)
+    root = os.path.join(work, "cluster")
+    dirs = [os.path.join(root, f"d{i}") for i in range(1 + CLUSTER_VOLUME_SERVERS)]
+    for d in dirs[1:]:
+        os.makedirs(d)
+    os.rename(keep["dir"], dirs[0])
+    pool, pool_crc = keep["pool"], keep["pool_crc"]
+    ids, cookies, blob_of, live = (keep[k] for k in ("ids", "cookies", "blob_of", "live"))
+    base_a = os.path.join(dirs[0], "1")
+    dat_bytes = os.path.getsize(base_a + ".dat")
+    shard_sums = keep["shard_sums"]
+
+    taken: set = set()
+    mport = _port_pair(taken)
+    maddr = f"127.0.0.1:{mport}"
+    vports = [_port_pair(taken) for _ in dirs]
+    urls = [f"127.0.0.1:{p}" for p in vports]
+    server_argv = ["-ip", "127.0.0.1", "-port", str(mport), "-volumePort", str(vports[0]),
+                   "-dir", dirs[0], "-index", "lsm", "-batchLookup", "arena",
+                   "-storageBackend", "cuda",
+                   "-volumeSizeLimitMB", str(CLUSTER_SIZE_LIMIT_MB)]
+    volume_argv = [["-ip", "127.0.0.1", "-port", str(vports[i]), "-dir", dirs[i],
+                    "-mserver", maddr, "-storageBackend", "cuda"]
+                   for i in range(1, len(dirs))]
+    fid = lambda vid, k, c: "/" + str(FileId(vid, int(k), int(c)))  # noqa: E731
+    base_plan = {"blobs": pool, "etags": [f"{c:08x}" for c in pool_crc]}
+    steps = {}  # window -> {driven url: {kernel: launches in the window}}
+
+    def counts():
+        return {"gf_matmul": G.KERNEL_LAUNCHES, "index_search": IK.KERNEL_LAUNCHES,
+                "ragged_lookup": RL.KERNEL_LAUNCHES}
+
+    def since(c0):
+        c1 = counts()
+        return {k: c1[k] - c0[k] for k in c1}
+
+    t0 = time.perf_counter()
+    served = [_serve_in_thread(cli.cmd_server, server_argv, "cluster-server")]
+    served += [_serve_in_thread(cli.cmd_volume, a, f"cluster-volume-{i + 1}")
+               for i, a in enumerate(volume_argv)]
+    try:
+        for h in served:
+            if not h["ready"].wait(CLUSTER_START_S) or "error" in h:
+                fail(f"{h['thread'].name} did not start: {h.get('error')!r}")
+        while True:
+            st = _http_json(mport, "/dir/status")
+            nodes = [dn["url"] for dc in st["Topology"]["data_centers"]
+                     for rack in dc["racks"] for dn in rack["data_nodes"]]
+            if len(nodes) == len(dirs):
+                break
+            if time.perf_counter() - t0 > CLUSTER_START_S:
+                fail(f"the master knows {nodes}, not {len(dirs)} data nodes")
+            time.sleep(0.1)
+        start_s = time.perf_counter() - t0
+        vs_of = {urls[0]: served[0]["servers"][1]}
+        vs_of.update({urls[i]: served[i]["servers"][0] for i in range(1, len(dirs))})
+
+        # the path: every count at 0 now, read at the end
+        G.KERNEL_LAUNCHES = IK.KERNEL_LAUNCHES = RL.KERNEL_LAUNCHES = 0
+
+        # A's reads on the `server` through its lookup gate: a warm-up in
+        # which the server uploads its own arena (its host fallbacks
+        # reported), then reads with the identity check on; from the
+        # warm-up's end to the phase's, any host fallback fails
+        vs0 = vs_of[urls[0]]
+
+        def a_reads(n):
+            pick = rng.integers(0, SERVER_NEEDLES, size=n)
+            absent = rng.integers(1 << 50, 1 << 51, size=n, dtype=np.uint64)
+            miss = rng.random(n) < ABSENT_SHARE
+            return [("GET", fid(1, absent[k], 7), -1, 404) if miss[k] else
+                    ("GET", fid(1, ids[i], cookies[i]), int(blob_of[i]) if live[i] else -1,
+                     200 if live[i] else 404)
+                    for k, i in enumerate(pick.tolist())]
+
+        vs0.lookup_gate.identity_check = True
+        g_cold = _http_json(vports[0], "/debug/needle_map")["gate"]
+        c0 = counts()
+        arena_warm = _drive(work, "arena_warmup", vports[0],
+                            dict(base_plan, requests=a_reads(WARMUP_READS)),
+                            WARMUP_CONCURRENCY, 600)
+        g_warm = _http_json(vports[0], "/debug/needle_map")["gate"]
+        arena_reads = _drive(work, "arena_reads", vports[0],
+                             dict(base_plan, requests=a_reads(CLUSTER_ARENA_READS)),
+                             READ_CONCURRENCY, 600)
+        vs0.lookup_gate.identity_check = False
+        steps["arena_reads_a"] = {urls[0]: since(c0)}
+        if steps["arena_reads_a"][urls[0]]["ragged_lookup"] <= 0:
+            fail("A's reads on the server launched ragged_lookup no time")
+        gate_windows = {"warmup": {k: g_warm[k] - g_cold[k] for k in g_warm}}
+
+        def gate_window(name, g0):
+            g1 = _http_json(vports[0], "/debug/needle_map")
+            gate_windows[name] = {k: g1["gate"][k] - g0[k] for k in g1["gate"]}
+            if gate_windows[name]["host_fallbacks"] or gate_windows[name]["identity_mismatches"] \
+                    or g1["device"]["errors"] or any(g1["device_errors"].values()):
+                fail(f"the server's gate after warm-up ({name}): {gate_windows[name]}, "
+                     f"arena errors {g1['device']['errors']}, device errors {g1['device_errors']}")
+            return g1["gate"]
+
+        g_now = gate_window("arena_reads", g_warm)
+
+        # weed benchmark through the master: writes, then reads
+        out, bench_wall = _port_cli(["benchmark", "-master", maddr, "-n", str(BENCH_N),
+                                     "-size", str(NEEDLE_BYTES), "-c", str(BENCH_C)])
+        w_part, _, r_part = out.partition("Randomly Reading Benchmark")
+        bench = {"writes": _bench_numbers(w_part), "reads": _bench_numbers(r_part)}
+        for k, b in bench.items():
+            if b.get("failed") != 0 or b.get("completed") != BENCH_N:
+                fail(f"benchmark {k}: {b}")
+        assign = _assign_rate(maddr, ASSIGNS, BENCH_C)
+        g_now = gate_window("benchmark", g_now)
+
+        # ec.encode of A through the shell, held to the plain version
+        c0 = counts()
+        out, encode_wall = _port_cli(["shell", "-master", maddr, "lock; ec.encode -volumeId 1"])
+        timed = re.search(r"volume 1: encoded, .*; generate_s=([0-9.]+) spread_s=([0-9.]+)", out)
+        if not timed:
+            fail(f"ec.encode -volumeId 1: {out!r}")
+        generate_s, spread_s = float(timed.group(1)), float(timed.group(2))
+        kernel_stages = dict(enc.LAST_STAGES)  # the server's write_ec_files of A
+        steps["encode_a"] = {urls[0]: since(c0)}
+        holders = _ec_holders(maddr, 1, 14, 60)
+        spread = sorted(len(v) for v in holders.values())
+        if spread != [3, 3, 4, 4]:
+            fail(f"A's shards spread {holders}, not 4/4/3/3")
+        for url, shard_ids in holders.items():
+            d = dirs[urls.index(url)]
+            got = sha1_files([os.path.join(d, "1" + e)
+                              for e in [f".ec{i:02d}" for i in shard_ids] + [".ecx"]])
+            for path, h in got.items():
+                if h != shard_sums[path[len(os.path.join(d, "1")):]]:
+                    fail(f"{path} differs from the plain version's encode")
+        if steps["encode_a"][urls[0]]["gf_matmul"] <= 0:
+            fail("A's encode launched gf_matmul no time")
+
+        # index_search: BulkLookup of A's ids on the server's EC shards
+        c0 = counts()
+        reply = asyncio.run(Stub(grpc_address(urls[0]), "volume").call(
+            "BulkLookup", {"volume_id": 1, "keys": ids.astype("<u8").tobytes()}, timeout=300))
+        found = np.frombuffer(reply["found"], dtype=np.uint8).astype(bool)
+        if not np.array_equal(found, live):
+            fail(f"BulkLookup on A's .ecx finds {int(found.sum())}, expected {int(live.sum())}")
+        steps["bulk_lookup_a"] = {urls[0]: since(c0)}
+
+        # two benchmark volumes on one server through VolumeEcShardsGenerateBatch
+        by_url = {}
+        for dc in _http_json(mport, "/dir/status")["Topology"]["data_centers"]:
+            for rack in dc["racks"]:
+                for dn in rack["data_nodes"]:
+                    vids = sorted(int(v["id"]) for v in dn.get("volumes", []) if int(v["id"]) != 1)
+                    if len(vids) >= 2:
+                        by_url[dn["url"]] = vids
+        if not by_url:
+            fail("no server holds two benchmark volumes")
+        src = sorted(by_url)[0]
+        pair = by_url[src][:2]
+        sd = dirs[urls.index(src)]
+        pair_sums = {}
+        for v in pair:
+            vd = os.path.join(work, f"pair-{v}")
+            os.makedirs(vd)
+            for ext in (".dat", ".idx"):
+                os.link(os.path.join(sd, f"{v}{ext}"), os.path.join(vd, f"{v}{ext}"))
+            pair_sums[v] = plain_encode_sums(torch, work, os.path.join(vd, str(v)), str(v))
+            shutil.rmtree(vd)
+        c0 = counts()
+        out, pair_wall = _port_cli(["shell", "-master", maddr,
+                                    f"lock; ec.encode -volumeId {pair[0]},{pair[1]}"])
+        steps["encode_pair"] = {src: since(c0)}
+        for v in pair:
+            if f"volume {v}: encoded" not in out:
+                fail(f"ec.encode -volumeId {pair}: {out!r}")
+            for url, shard_ids in _ec_holders(maddr, v, 14, 60).items():
+                d = dirs[urls.index(url)]
+                for e in [f".ec{i:02d}" for i in shard_ids] + [".ecx"]:
+                    if sha1_files([os.path.join(d, f"{v}{e}")])[os.path.join(d, f"{v}{e}")] \
+                            != pair_sums[v][e]:
+                        fail(f"batched encode of volume {v}: {e} differs from the plain version's")
+        if steps["encode_pair"][src]["gf_matmul"] <= 0:
+            fail("the batched encode launched gf_matmul no time")
+
+        # remote-shard GETs of A over all four servers, 10 % absent
+        n_each = REMOTE_GETS // len(urls)
+        remote = []
+        for j, url in enumerate(urls):
+            pick = rng.integers(0, SERVER_NEEDLES, size=n_each)
+            absent = rng.integers(1 << 50, 1 << 51, size=n_each, dtype=np.uint64)
+            reqs = []
+            for k in range(n_each):
+                if rng.random() < ABSENT_SHARE:
+                    reqs.append(("GET", fid(1, absent[k], 7), -1, 404))
+                    continue
+                i = int(pick[k])
+                ok = bool(live[i])
+                reqs.append(("GET", fid(1, ids[i], cookies[i]),
+                             int(blob_of[i]) if ok else -1, 200 if ok else 404))
+            c0 = counts()
+            remote.append(_drive(work, f"remote{j}", vports[j],
+                                 dict(base_plan, requests=reqs), BENCH_C, 600))
+            if since(c0)["gf_matmul"]:
+                fail(f"healthy GETs on {url} decoded on the card")
+        remote_wall = sum(r["wall_s"] for r in remote)
+        g_now = gate_window("remote_gets", g_now)
+
+        # the outage: stop a server (not the master's) that holds 4 of A's shards
+        victim = sorted(u for u, s in holders.items() if len(s) == 4 and u != urls[0])[0]
+        vi = urls.index(victim)
+        lost = sorted(holders[victim])
+        lost_sums = sha1_files([os.path.join(dirs[vi], f"1.ec{i:02d}") for i in lost])
+        outage_stop_s = _stop_served(served[vi], SERVER_STOP_S)
+        t1 = time.perf_counter()
+        while True:
+            st = _http_json(mport, "/dir/status")
+            nodes = [dn["url"] for dc in st["Topology"]["data_centers"]
+                     for rack in dc["racks"] for dn in rack["data_nodes"]]
+            if victim not in nodes:
+                break
+            if time.perf_counter() - t1 > 30:
+                fail(f"the master still lists {victim} after its stop")
+            time.sleep(0.1)
+        readers = [u for u in urls if u != victim]
+        sample = rng.choice(np.nonzero(live)[0], CLUSTER_DEGRADED_GETS, replace=False)
+        degraded = {}
+        steps["degraded"] = {}
+        for j, url in enumerate(readers):
+            part = sample[j::len(readers)]
+            c0 = counts()
+            degraded[url] = _drive(work, f"degraded{j}", vports[urls.index(url)], dict(
+                base_plan, requests=[("GET", fid(1, ids[i], cookies[i]), int(blob_of[i]), 200)
+                                     for i in part.tolist()]), BENCH_C, 600)
+            steps["degraded"][url] = since(c0)
+            if steps["degraded"][url]["gf_matmul"] <= 0:
+                fail(f"degraded GETs on {url} decoded nothing on the card")
+        degraded_wall = sum(r["wall_s"] for r in degraded.values())
+
+        # ec.rebuild through the shell: the lost shards come back identical
+        c0 = counts()
+        out, rebuild_wall = _port_cli(["shell", "-master", maddr, "lock; ec.rebuild"])
+        rebuilt_on = None
+        for line in out.splitlines():
+            if line.startswith("volume 1: rebuilt shards"):
+                rebuilt_on = line.rsplit(" on ", 1)[1].strip()
+        if rebuilt_on not in readers:
+            fail(f"ec.rebuild: {out!r}")
+        steps["rebuild"] = {rebuilt_on: since(c0)}
+        if steps["rebuild"][rebuilt_on]["gf_matmul"] <= 0:
+            fail("ec.rebuild launched gf_matmul no time")
+        rd = dirs[urls.index(rebuilt_on)]
+        got = sha1_files([os.path.join(rd, f"1.ec{i:02d}") for i in lost])
+        for i in lost:
+            if got[os.path.join(rd, f"1.ec{i:02d}")] != lost_sums[
+                    os.path.join(dirs[vi], f"1.ec{i:02d}")]:
+                fail(f"rebuilt .ec{i:02d} differs from the lost one")
+        _ec_holders(maddr, 1, 14, 60)
+
+        # EC deletes: each then answers 404 from every live server
+        doomed = rng.choice(np.nonzero(live)[0], EC_DELETES, replace=False)
+        paths = [fid(1, ids[i], cookies[i]) for i in doomed.tolist()]
+        for j, url in enumerate(readers):
+            _drive(work, f"delete{j}", vports[urls.index(url)], dict(
+                base_plan, requests=[("DELETE", p, -1, 202) for p in paths[j::len(readers)]]),
+                BENCH_C, 600)
+        for j, url in enumerate(readers):
+            _drive(work, f"deleted{j}", vports[urls.index(url)], dict(
+                base_plan, requests=[("GET", p, -1, 404) for p in paths]), BENCH_C, 600)
+        device_errors = {u: dict(vs_of[u].device_errors) for u in readers}
+        if any(device_errors.values()):
+            fail(f"device errors in the cluster: {device_errors}")
+        gate_window("to_the_end", g_now)
+        launches = counts()
+    finally:
+        stop_s = {}
+        for h, url in zip(served, urls):
+            if h["thread"].is_alive():
+                stop_s[url] = _stop_served(h, SERVER_STOP_S)
+    by_driven = {u: {"gf_matmul": 0, "index_search": 0, "ragged_lookup": 0} for u in urls}
+    for by_url in steps.values():
+        for u, c in by_url.items():
+            for k, n in c.items():
+                by_driven[u][k] += n
+    res = {
+        "phase": "cluster",
+        "device": {"nvidia_smi": nvidia_smi("name,power.limit")},
+        "server_argv": server_argv,
+        "volume_argv": volume_argv,
+        "volume_a": {"needles": SERVER_NEEDLES, "dat_bytes": dat_bytes,
+                     "from_phase_10": bool(keep)},
+        "cluster_start_s": start_s,
+        "arena_reads_a": {
+            "warmup": {"requests": WARMUP_READS, "concurrency": WARMUP_CONCURRENCY,
+                       "wall_s": arena_warm["wall_s"],
+                       "host_fallbacks": gate_windows["warmup"]["host_fallbacks"]},
+            "reads": {"requests": CLUSTER_ARENA_READS, "concurrency": READ_CONCURRENCY,
+                      "identity_check": True, "wall_s": arena_reads["wall_s"],
+                      "per_s": CLUSTER_ARENA_READS / arena_reads["wall_s"],
+                      "p50_ms": arena_reads["p50_ms"], "p99_ms": arena_reads["p99_ms"]}},
+        "gate_windows_on_server": gate_windows,
+        "benchmark": {"n": BENCH_N, "size": NEEDLE_BYTES, "c": BENCH_C,
+                      "cut_from_n": 1 << 20, "wall_s": bench_wall, **bench},
+        "assign": assign,
+        "ec_encode_a": {"shell_wall_s": encode_wall,
+                        "generate_s": generate_s, "spread_s": spread_s,
+                        "timed_by": "the shell: its VolumeEcShardsGenerate call, then "
+                                    "the copies, mounts and the source's deletes",
+                        "server_write_ec_files_s": kernel_stages.get("total_s"),
+                        "spread": {u: sorted(s) for u, s in holders.items()},
+                        "shards_and_ecx_equal_to_plain": True},
+        "ec_encode_batch": {"volumes": pair, "server": src, "shell_wall_s": pair_wall,
+                            "equal_to_plain": True},
+        "remote_gets": {"requests": REMOTE_GETS, "absent_share": ABSENT_SHARE,
+                        "wall_s": remote_wall, "per_s": n_each * len(urls) / remote_wall,
+                        "p99_ms": max(r["p99_ms"] for r in remote)},
+        "outage": {"stopped": victim, "lost": lost, "stop_s": outage_stop_s},
+        "degraded_gets": {"requests": CLUSTER_DEGRADED_GETS, "concurrency": BENCH_C,
+                          "wall_s": degraded_wall,
+                          "per_s": CLUSTER_DEGRADED_GETS / degraded_wall,
+                          "p99_ms": max(r["p99_ms"] for r in degraded.values())},
+        "ec_rebuild": {"shell_wall_s": rebuild_wall, "on": rebuilt_on,
+                       "rebuilt_identical": True},
+        "ec_deletes": {"needles": EC_DELETES, "404_on": readers},
+        "stop_s": stop_s,
+        "launches_by_window": steps,
+        "launches_in_windows_driving": by_driven,
+        "launches_note": "windows of the process-wide counters, each while "
+                         "the script drove the server named",
+        "kernel_launches": launches,
+        "phase_s": time.perf_counter() - t_phase,
     }
     emit(res)
     return res
@@ -1762,9 +2311,17 @@ def main() -> int:
                 shutil.rmtree(path)
             else:
                 os.remove(path)
-        sres = phase_volume_server(torch, work, args.seed, needle_mod, crc_mod)
+        keep: dict = {}
+        sres = phase_volume_server(torch, work, args.seed, needle_mod, crc_mod,
+                                   keep=keep)
         launches["volume_server"] = sres["kernel_launches"]["gf_matmul"]
         ik_launches["volume_server"] = sres["kernel_launches"]["index_search"]
+
+        # --- phase 11 ---
+        shutil.rmtree(os.path.join(work, "server"))  # phase 10's disk
+        cres = phase_cluster(torch, work, args.seed, keep)
+        launches["cluster"] = cres["kernel_launches"]["gf_matmul"]
+        ik_launches["cluster"] = cres["kernel_launches"]["index_search"]
     finally:
         shutil.rmtree(work, ignore_errors=True)
         try:
@@ -1813,10 +2370,12 @@ def main() -> int:
             "route": "cuda",
             "source": "seaweedfs_tpu_torch/ops/csrc/ragged_lookup.cu",
             "replaces": "seaweedfs_tpu/ops/ragged_lookup.py:181 (_ragged_dispatch)",
-            "launches": ares["kernel_launches"] + sres["kernel_launches"]["ragged_lookup"],
+            "launches": ares["kernel_launches"] + sres["kernel_launches"]["ragged_lookup"]
+            + cres["kernel_launches"]["ragged_lookup"],
             "launches_by_path": {
                 "arena_gate": ares["kernel_launches"],
                 "volume_server": sres["kernel_launches"]["ragged_lookup"],
+                "cluster": cres["kernel_launches"]["ragged_lookup"],
             },
             "equal_to_plain": True,
             "max_abs_err": ares["max_abs_err"],

@@ -1,14 +1,19 @@
 """`python -m seaweedfs_tpu_torch <command>` (ref: weed/command/command.go).
 
-Ported from the JAX package's command/cli.py with one command so far,
-`volume`: the volume server with the flags of `_add_volume_flags` and
-`_build_volume_server` there. `-storageBackend` takes `cuda` (the
-default: the card, which must be present), `cpu` and `numpy` (the host);
-`adaptive` raises as not ported. `-index` takes `memory` and `lsm`.
-`-batchLookup` takes `off`, `auto`, `host`, `device` and `arena`. The
-flags that need the parts still to port (`-mserver` and the heartbeat's,
-`-tierConfig`, `-config`, the profilers) are not declared, so argparse
-refuses them. SIGINT and SIGTERM stop the server: the gate, the arena, the executor and the
+Ported from the JAX package's command/cli.py with the commands
+`master`, `volume`, `server` (a master and a volume server in one process,
+on one event loop), `shell` (the semicolon-separated one-shot commands
+given as arguments, else a prompt) and `benchmark`. `-storageBackend`
+takes `cuda` (the default: the card, which must be present), `cpu` and
+`numpy` (the host); `adaptive` raises as not ported. `-index` takes
+`memory` and `lsm`. `-batchLookup` takes `off`, `auto`, `host`, `device`
+and `arena`. `-peers` runs a multi-master cluster through RaftLite.
+`-pulseSeconds` sets the volume server's heartbeat cadence (the JAX
+package reads it from SEAWEEDFS_TPU_PULSE_SECONDS). The flags of the
+parts still to port (`-garbageThreshold` and the master's other planes,
+`-tierConfig`, `-config`, the profilers, the filer and S3 of `server`)
+are not declared, so argparse refuses them. SIGINT and SIGTERM stop the
+servers: the heartbeat ends, the gate, the arena, the executor and the
 sockets close, and the process exits with 0.
 """
 
@@ -21,11 +26,37 @@ import sys
 import threading
 
 
-def _add_volume_flags(p: argparse.ArgumentParser) -> None:
+def _add_master_flags(p: argparse.ArgumentParser) -> None:
     p.add_argument("-ip", default="127.0.0.1")
-    p.add_argument("-port", type=int, default=8080)
-    p.add_argument("-dir", default="./data", help="comma-separated data dirs")
-    p.add_argument("-max", default="7", help="comma-separated max volume counts")
+    p.add_argument("-port", type=int, default=9333)
+    p.add_argument("-volumeSizeLimitMB", type=int, default=30_000)
+    p.add_argument("-defaultReplication", default="000")
+    p.add_argument(
+        "-peers",
+        default="",
+        help="comma-separated list of all master addresses (incl. self) "
+        "for a multi-master raft cluster (ref weed master -peers)",
+    )
+    p.add_argument(
+        "-jwtSigningKey",
+        default="",
+        help="HS256 key: the master issues fid-scoped upload JWTs and the "
+        "volume servers verify them (ref security/jwt.go)",
+    )
+    p.add_argument(
+        "-sequencerFile",
+        default="",
+        help="persist the file-id sequencer to this path; '' = in-memory",
+    )
+    p.add_argument(
+        "-raftStateFile",
+        default="",
+        help="persist raft term/vote/max-volume-id to this path; "
+        "'' = in-memory",
+    )
+
+
+def _add_backend_flags(p: argparse.ArgumentParser) -> None:
     p.add_argument(
         "-storageBackend",
         default="cuda",
@@ -51,19 +82,39 @@ def _add_volume_flags(p: argparse.ArgumentParser) -> None:
         " the port has memory and lsm)",
     )
     p.add_argument(
-        "-jwtSigningKey",
-        default="",
-        help="HS256 key gating uploads and deletes (ref security/jwt.go)",
-    )
-    p.add_argument(
         "-whiteList",
         default="",
         help="comma-separated IPs/CIDRs allowed to write (ref guard.go); "
         "empty = everyone",
     )
+    p.add_argument("-dir", default="./data", help="comma-separated data dirs")
+    p.add_argument("-max", default="7", help="comma-separated max volume counts")
+    p.add_argument("-dataCenter", default="")
+    p.add_argument("-rack", default="")
 
 
-def _build_volume_server(args):
+def _add_volume_flags(p: argparse.ArgumentParser) -> None:
+    p.add_argument("-ip", default="127.0.0.1")
+    p.add_argument("-port", type=int, default=8080)
+    p.add_argument(
+        "-mserver", default="",
+        help="comma-separated master addresses; '' = no master (the "
+        "server's volumes load from its directories)",
+    )
+    p.add_argument("-publicUrl", default="")
+    p.add_argument(
+        "-pulseSeconds", type=float, default=1.0,
+        help="seconds between heartbeats to the master",
+    )
+    p.add_argument(
+        "-jwtSigningKey",
+        default="",
+        help="HS256 key gating uploads and deletes (ref security/jwt.go)",
+    )
+    _add_backend_flags(p)
+
+
+def _build_volume_server(args, master, port: int, public_url: str = ""):
     from ..server.volume import VolumeServer
 
     dirs = args.dir.split(",")
@@ -73,13 +124,33 @@ def _build_volume_server(args):
     return VolumeServer(
         directories=dirs,
         host=args.ip,
-        port=args.port,
+        port=port,
         max_volume_counts=maxes,
         needle_map_kind=args.index,
         codec_backend=args.storageBackend,
         jwt_signing_key=args.jwtSigningKey,
         white_list=tuple(x for x in args.whiteList.split(",") if x),
         batch_lookup=args.batchLookup,
+        master=master,
+        public_url=public_url,
+        pulse_seconds=args.pulseSeconds,
+        data_center=args.dataCenter,
+        rack=args.rack,
+    )
+
+
+def _build_master_server(args):
+    from ..server.master import MasterServer
+
+    return MasterServer(
+        host=args.ip,
+        port=args.port,
+        volume_size_limit_mb=args.volumeSizeLimitMB,
+        default_replication=args.defaultReplication,
+        peers=[x for x in args.peers.split(",") if x] or None,
+        jwt_signing_key=args.jwtSigningKey,
+        sequencer_file=args.sequencerFile,
+        raft_state_file=args.raftStateFile,
     )
 
 
@@ -105,19 +176,123 @@ async def _run_forever(*servers, started=None) -> None:
             await s.stop()
 
 
+def cmd_master(argv: list[str], started=None) -> int:
+    p = argparse.ArgumentParser(prog="seaweedfs_tpu_torch master")
+    _add_master_flags(p)
+    args = p.parse_args(argv)
+    ms = _build_master_server(args)
+    print(f"master listening on {args.ip}:{args.port}", flush=True)
+    asyncio.run(_run_forever(ms, started=started))
+    return 0
+
+
 def cmd_volume(argv: list[str], started=None) -> int:
     p = argparse.ArgumentParser(prog="seaweedfs_tpu_torch volume")
     _add_volume_flags(p)
     args = p.parse_args(argv)
-    vs = _build_volume_server(args)
+    vs = _build_volume_server(
+        args, [x for x in args.mserver.split(",") if x], args.port,
+        args.publicUrl,
+    )
     print(f"volume server listening on {args.ip}:{args.port} "
           f"(device {vs.device})", flush=True)
     asyncio.run(_run_forever(vs, started=started))
     return 0
 
 
+def cmd_server(argv: list[str], started=None) -> int:
+    """A master and a volume server in one process, on one event loop
+    (ref command/server.go); the volume server heartbeats to the master
+    (or to every -peers master)."""
+    p = argparse.ArgumentParser(prog="seaweedfs_tpu_torch server")
+    _add_master_flags(p)
+    p.add_argument("-volumePort", type=int, default=8080)
+    p.add_argument(
+        "-pulseSeconds", type=float, default=1.0,
+        help="seconds between the volume server's heartbeats",
+    )
+    _add_backend_flags(p)
+    args = p.parse_args(argv)
+    peers = [x for x in args.peers.split(",") if x]
+    ms = _build_master_server(args)
+    vs = _build_volume_server(args, peers or f"{args.ip}:{args.port}",
+                              args.volumePort)
+    print(f"server: master on {args.ip}:{args.port}, volume on "
+          f"{args.ip}:{args.volumePort} (device {vs.device})", flush=True)
+    asyncio.run(_run_forever(ms, vs, started=started))
+    return 0
+
+
+def cmd_shell(argv: list[str]) -> int:
+    p = argparse.ArgumentParser(prog="seaweedfs_tpu_torch shell")
+    p.add_argument("-master", default="127.0.0.1:9333")
+    p.add_argument("commands", nargs="*",
+                   help="semicolon-separated one-shot commands")
+    args = p.parse_args(argv)
+
+    from ..shell import CommandEnv, run_command
+
+    async def repl() -> None:
+        env = CommandEnv(args.master)
+        try:
+            if args.commands:
+                for line in " ".join(args.commands).split(";"):
+                    out = await run_command(env, line)
+                    if out:
+                        print(out, flush=True)
+                return
+            print("seaweedfs-tpu shell; `help` lists commands, ctrl-d exits")
+            loop = asyncio.get_running_loop()
+            while True:
+                try:
+                    line = await loop.run_in_executor(None, input, "> ")
+                except EOFError:
+                    break
+                try:
+                    out = await run_command(env, line)
+                except Exception as e:
+                    # one failing command must not end the prompt
+                    out = f"error: {e}"
+                if out:
+                    print(out)
+        finally:
+            await env.release_lock()
+
+    asyncio.run(repl())
+    return 0
+
+
+def cmd_benchmark(argv: list[str]) -> int:
+    p = argparse.ArgumentParser(prog="seaweedfs_tpu_torch benchmark")
+    p.add_argument("-master", default="127.0.0.1:9333")
+    p.add_argument("-n", type=int, default=1024 * 1024)
+    p.add_argument("-size", type=int, default=1024)
+    p.add_argument("-c", type=int, default=16)
+    p.add_argument("-collection", default="")
+    p.add_argument("-skipRead", action="store_true")
+    args = p.parse_args(argv)
+    from .benchmark import run_benchmark
+
+    out = asyncio.run(
+        run_benchmark(
+            args.master,
+            num_files=args.n,
+            file_size=args.size,
+            concurrency=args.c,
+            collection=args.collection,
+            do_read=not args.skipRead,
+        )
+    )
+    print(out, flush=True)
+    return 0
+
+
 COMMANDS = {
+    "master": cmd_master,
     "volume": cmd_volume,
+    "server": cmd_server,
+    "shell": cmd_shell,
+    "benchmark": cmd_benchmark,
 }
 
 

@@ -9,8 +9,18 @@ HTTP (ref: weed/server/volume_server_handlers_{read,write}.go):
 
 RPC "volume" service (pb/rpc.py; ref: weed/server/volume_grpc_*.go):
 AllocateVolume, VolumeMount, VolumeUnmount, VolumeDelete,
-VolumeMarkReadonly, VolumeMarkWritable, BatchDelete, BulkLookup,
-VolumeServerStatus and the EC calls of volume_ec.py.
+VolumeMarkReadonly, VolumeMarkWritable, DeleteCollection, BatchDelete,
+BulkLookup, VolumeServerStatus, the CopyFile stream and the EC calls of
+volume_ec.py.
+
+Heartbeat loop (ref: weed/server/volume_grpc_client_to_master.go): with
+a master (`master`, the `-mserver` flag) the server keeps a bidi
+SendHeartbeat stream open, carrying its full inventory at connect and
+deltas each pulse, and follows the master's leader hints. The master
+then serves the shapes that need the cluster: replicated writes and
+deletes fan out to the replicas it names, a read of a volume that is
+not local answers 301 to its holder, and EC deletes and degraded reads
+reach the other shard holders (volume_ec.py).
 
 Ported from the JAX package's server/volume.py. One device serves the
 whole server (`device`: the card unless the caller asks for the CPU): the
@@ -24,14 +34,12 @@ is never served around from the host.
 One HTTP server answers every request (util/fasthttp.py): where the JAX
 package's fast tier hands a shape to its aiohttp application, the port
 serves it here, with the same status codes, bodies, Etags and
-Content-Range. Request shapes that need the master or other servers
-answer 501 `{"error": "not ported: ..."}` until a later slice ports them:
-replicated writes and deletes (copy count > 1), chunked manifests,
-`/!batch/put`, deletes on EC volumes, reads of volumes that are not
-local, and `/ui`. Not ported either: the heartbeat, the group-commit
-worker (`?fsync=true` writes sync the append itself), vacuum, tiering,
-scrub and the lifecycle RPCs, the server streams, and the overload,
-tenancy and fault seams.
+Content-Range. Request shapes a later slice ports answer 501
+`{"error": "not ported: ..."}`: chunked manifests, `/!batch/put` and
+`/ui`. Not ported either: the group-commit worker (`?fsync=true` writes
+sync the append itself), vacuum, tiering, scrub and the lifecycle RPCs,
+the BatchRead, Query, VolumeIncrementalCopy and tier-move streams, and
+the overload, tenancy and fault seams.
 """
 
 from __future__ import annotations
@@ -41,12 +49,13 @@ import functools as _functools
 import gzip
 import logging
 import os
+import time
 from concurrent.futures import ThreadPoolExecutor
 from typing import Optional
 from urllib.parse import parse_qsl
 
 from ..pb import grpc_address
-from ..pb.rpc import Service, serve
+from ..pb.rpc import EOF, Service, Stub, serve
 from ..storage.file_id import FileId
 from ..storage.needle import Needle, NotFoundError
 from ..storage.store import Store
@@ -54,6 +63,8 @@ from ..storage.volume import AlreadyDeleted, CookieMismatch, NotFound
 from ..util import metrics
 from ..util.fasthttp import (
     DETACHED,
+    FastHTTPClient,
+    build_multipart,
     finish_detached,
     parse_multipart,
     render_response,
@@ -274,10 +285,18 @@ class VolumeServer(EcHandlers):
         needle_map_kind: str = "memory",
         white_list: tuple = (),
         batch_lookup: str = "off",
+        master="",
+        public_url: str = "",
+        pulse_seconds: float = 1.0,
+        data_center: str = "",
+        rack: str = "",
     ):
         """`device` None follows `codec_backend`: the card for "cuda",
         the CPU (the plain versions) for "cpu" and "numpy". The card is
-        never optional once asked for: without CUDA this raises."""
+        never optional once asked for: without CUDA this raises.
+        `master` (a host:port or a list of them, the seed masters) starts
+        the heartbeat; "" runs the server alone, as a volume server whose
+        volumes load from its directories."""
         from ..ops.gf256 import resolve_device
         from ..util.security import Guard
 
@@ -307,16 +326,32 @@ class VolumeServer(EcHandlers):
         self.host = host
         self.port = port
         self.address = f"{host}:{port}"
+        self.public_url = public_url or self.address
+        # seed master list with failover + leader-hint following
+        # (ref volume_grpc_client_to_master.go:35-57)
+        self.masters = [master] if isinstance(master, str) else list(master)
+        self.masters = [m for m in self.masters if m]
+        self.master = self.masters[0] if self.masters else ""
+        self.pulse_seconds = pulse_seconds
+        self.data_center = data_center
+        self.rack = rack
         self.codec_backend = codec_backend
         self.store = Store(
             directories,
             max_volume_counts or [7] * len(directories),
             needle_map_kind=needle_map_kind,
             device=self.device,
+            ip=host,
+            port=port,
+            public_url=self.public_url,
         )
         self.store.load()
         self._core: Optional[ServingCore] = None
         self._rpc_server = None
+        self._heartbeat_task: Optional[asyncio.Task] = None
+        self._http_client: Optional[FastHTTPClient] = None
+        self._shutdown = False
+        self._replica_loc_cache: dict[int, tuple[float, list]] = {}
         self._codec = None
         # DETACHED reads finished through the full path (the loop keeps
         # tasks only weakly)
@@ -401,26 +436,115 @@ class VolumeServer(EcHandlers):
         svc.unary("VolumeDelete")(self._grpc_volume_delete)
         svc.unary("VolumeMarkReadonly")(self._grpc_volume_mark_readonly)
         svc.unary("VolumeMarkWritable")(self._grpc_volume_mark_writable)
+        svc.unary("DeleteCollection")(self._grpc_delete_collection)
         svc.unary("BatchDelete")(self._grpc_batch_delete)
         svc.unary("BulkLookup")(self._grpc_bulk_lookup)
         svc.unary("VolumeServerStatus")(self._grpc_status)
+        svc.server_stream("CopyFile")(self._grpc_copy_file)
         self.register_ec_rpcs(svc)
         self._rpc_server = await serve(grpc_address(self.address), svc)
+        self._http_client = FastHTTPClient()
+        if self.master:
+            self._heartbeat_task = asyncio.ensure_future(
+                self._heartbeat_loop()
+            )
 
     async def stop(self) -> None:
-        """Close the gate (its waiters get an error), the RPC and HTTP
-        sockets with their connections, the executor, the arena and the
-        store."""
+        """End the heartbeat (the master unregisters this server), close
+        the gate (its waiters get an error), the RPC and HTTP sockets with
+        their connections, the executor, the arena and the store."""
+        self._shutdown = True
+        if self._heartbeat_task is not None:
+            self._heartbeat_task.cancel()
+            try:
+                await self._heartbeat_task
+            except (asyncio.CancelledError, Exception):
+                pass
         if self.lookup_gate is not None:
             self.lookup_gate.close()
         if self._rpc_server is not None:
             await self._rpc_server.stop()
         if self._core is not None:
             await self._core.stop()
+        if self._http_client is not None:
+            await self._http_client.close()
         await asyncio.to_thread(self._executor.shutdown, True)
         if self.lookup_arena is not None:
             self.lookup_arena.close()
         self.store.close()
+
+    # ---------------- heartbeat (ref volume_grpc_client_to_master.go) ----------------
+    def _rotate_master(self) -> None:
+        if self.master in self.masters:
+            i = self.masters.index(self.master)
+            self.master = self.masters[(i + 1) % len(self.masters)]
+        else:
+            self.master = self.masters[0]
+
+    async def _heartbeat_loop(self) -> None:
+        while not self._shutdown:
+            try:
+                await self._heartbeat_once()
+                # stream ended cleanly (e.g. a leader hint switched
+                # self.master): redial after half a pulse
+                await asyncio.sleep(self.pulse_seconds / 2)
+            except asyncio.CancelledError:
+                return
+            except Exception:
+                # current master unreachable: rotate through the seeds
+                self._rotate_master()
+                await asyncio.sleep(self.pulse_seconds)
+
+    async def _heartbeat_once(self) -> None:
+        stub = Stub(grpc_address(self.master), "master")
+        call = stub.bidi_stream("SendHeartbeat")
+
+        # replies are drained by their own task: a read bounded by a
+        # timeout would end the stream on every quiet pulse
+        async def reader() -> None:
+            while True:
+                resp = await call.read()
+                if resp is EOF:
+                    return
+                if not isinstance(resp, dict):
+                    continue
+                if "leader" in resp:
+                    leader = resp.get("leader")
+                    if leader and leader != self.master:
+                        # follow the leader hint; the redial targets it
+                        if leader not in self.masters:
+                            self.masters.append(leader)
+                        self.master = leader
+                        return
+                    if not leader:
+                        # no known leader (deposed or mid-election)
+                        self._rotate_master()
+                        return
+
+        reader_task = asyncio.ensure_future(reader())
+        try:
+            hb = self.store.collect_heartbeat()
+            hb["data_center"] = self.data_center
+            hb["rack"] = self.rack
+            hb.update(self.store.collect_ec_heartbeat())
+            await call.write(hb)
+            tick = 0
+            while not self._shutdown:
+                await asyncio.sleep(self.pulse_seconds)
+                if reader_task.done():
+                    break  # master closed the stream; reconnect
+                tick += 1
+                deltas = self.store.drain_deltas()
+                hb = {"ip": self.host, "port": self.port}
+                if any(deltas.values()):
+                    hb.update({k: v for k, v in deltas.items() if v})
+                if tick % 17 == 0:
+                    # periodic full EC state (ref :121, EC tick = 17 pulses)
+                    hb.update(self.store.collect_ec_heartbeat())
+                await call.write(hb)
+        finally:
+            reader_task.cancel()
+            call.cancel()
 
     # ---------------- HTTP dispatch ----------------
     async def _dispatch(self, req):
@@ -661,10 +785,17 @@ class VolumeServer(EcHandlers):
                 return not_ported("chunked manifests (the chunks may live "
                                   "on other servers)", head_only)
             return self._needle_response(req, q, n, ext)
-        return not_ported(
-            f"reads of volume {vid}, which is not local (the redirect "
-            "needs the master)", head_only,
-        )
+        # not local: redirect via a master lookup (ref :41-53)
+        result = await self._lookup_volume(vid)
+        if result:
+            url = result[0]
+            if url != self.address and url != self.public_url:
+                return render_response(
+                    301, b"", content_type=b"text/plain",
+                    extra=f"Location: http://{url}{req.target}\r\n".encode(),
+                    head_only=head_only,
+                )
+        return _json(404, {"error": "volume not found"}, head_only)
 
     def _needle_response(self, req, q: dict, n: Needle, ext: str = "") -> bytes:
         from .. import images
@@ -721,9 +852,14 @@ class VolumeServer(EcHandlers):
         return respond(200, body, extra)
 
     # ---------------- write (ref volume_server_handlers_write.go) ----------------
-    def _check_write_auth(self, req, fid: FileId):
+    async def _check_write_auth(self, req, fid: FileId, q: dict):
+        """Whitelist + JWT gate shared by writes and deletes; replicate
+        traffic from registered cluster peers bypasses the whitelist but
+        never the JWT check (the primary forwards the client's token)."""
         if not self.guard.check_whitelist(req.peer):
-            return _json(403, {"error": "forbidden"})
+            if not (q.get("type") == "replicate"
+                    and await self._is_cluster_member(req.peer)):
+                return _json(403, {"error": "forbidden"})
         if self.jwt_signing_key and not self.guard.check_jwt(
             _header(req, b"authorization"), str(fid)
         ):
@@ -732,19 +868,14 @@ class VolumeServer(EcHandlers):
 
     async def _write(self, req):
         fid, _, _ = self._parse_fid_path(req.path)
-        denied = self._check_write_auth(req, fid)
+        q = _query(req)
+        denied = await self._check_write_auth(req, fid, q)
         if denied is not None:
             return denied
         vid = fid.volume_id
         v = self.store.find_volume(vid)
         if v is None:
             return _json(404, {"error": f"volume {vid} not found"})
-        if v.super_block.replica_placement.copy_count() > 1:
-            return not_ported(
-                f"writes to volume {vid}, which is replicated (the fan-out "
-                "needs the master)"
-            )
-        q = _query(req)
         if q.get("cm") == "true":
             return not_ported("chunk manifest uploads")
         ct = req.headers.get(b"content-type", b"")
@@ -767,14 +898,40 @@ class VolumeServer(EcHandlers):
             from ..storage.ttl import TTL
 
             n.set_ttl(TTL.read(q["ttl"]))
-        try:
-            _off, size, _unchanged = self.store.write_volume_needle(
-                vid, n, sync=q.get("fsync") == "true"
+        needs_fanout = (
+            q.get("type") != "replicate"
+            and v.super_block.replica_placement.copy_count() > 1
+        )
+        rep_task = None
+        # the replica POSTs are launched before the local append so they
+        # overlap it; the 201 still needs the local write and every
+        # replica. A write certain to fail locally (read-only, size
+        # ceiling) never lands on the replicas.
+        if needs_fanout and v.can_accept(len(n.data)):
+            rep_task = asyncio.ensure_future(
+                self._replicate(req, q, vid, "POST", bytes(n.data))
             )
+        sync = q.get("fsync") == "true"
+        try:
+            if rep_task is not None:
+                # off the loop, so the replica POSTs progress meanwhile
+                _off, size, _unchanged = await self.run_blocking(
+                    lambda: self.store.write_volume_needle(vid, n, sync=sync)
+                )
+            else:
+                _off, size, _unchanged = self.store.write_volume_needle(
+                    vid, n, sync=sync
+                )
         except Exception as e:
             # the append may or may not have landed: report, never retry
+            if rep_task is not None:
+                rep_task.cancel()
             return _json(500, {"error": str(e)})
         self.read_cache.invalidate_key(vid, fid.key)
+        if rep_task is not None:
+            err = await rep_task
+            if err:
+                return _json(500, {"error": err})
         if q or (filename and (
             '"' in filename or "\\" in filename or not filename.isprintable()
         )):
@@ -789,17 +946,14 @@ class VolumeServer(EcHandlers):
 
     async def _delete(self, req):
         fid, _, _ = self._parse_fid_path(req.path)
-        denied = self._check_write_auth(req, fid)
+        q = _query(req)
+        is_replicate = q.get("type") == "replicate"
+        denied = await self._check_write_auth(req, fid, q)
         if denied is not None:
             return denied
         vid = fid.volume_id
         v = self.store.find_volume(vid)
         if v is not None:
-            if v.super_block.replica_placement.copy_count() > 1:
-                return not_ported(
-                    f"deletes on volume {vid}, which is replicated (the "
-                    "fan-out needs the master)"
-                )
             check = Needle(id=fid.key)
             try:
                 self.store.read_volume_needle(vid, check)
@@ -814,13 +968,147 @@ class VolumeServer(EcHandlers):
                 vid, Needle(id=fid.key, cookie=fid.cookie)
             )
             self.read_cache.invalidate_key(vid, fid.key)
+            if not is_replicate:
+                # as in the JAX package, a replica that fails the delete
+                # does not fail the primary's answer
+                await self._replicate(req, q, vid, "DELETE", b"")
             return _json(202, {"size": size})
-        if self.store.find_ec_volume(vid) is not None:
-            return not_ported(
-                f"deletes on EC volume {vid} (the tombstone fans out to "
-                "every shard holder through the master)"
-            )
+        ev = self.store.find_ec_volume(vid)
+        if ev is not None:
+            try:
+                check = await self.read_ec_needle(ev, fid.key)
+            except Exception as e:
+                self.note_device_error("ec_read", e)
+                return _json(500, {"error": f"{type(e).__name__}: {e}"})
+            if check is not None and check.cookie != fid.cookie:
+                return _json(403, {"error": "cookie mismatch"})
+            if check is not None and check.is_chunked_manifest():
+                return not_ported("deletes of chunked manifests (their "
+                                  "chunks may live on other servers)")
+            size = await self.delete_ec_needle(ev, fid.key)
+            return _json(202, {"size": size})
         return _json(404, {"error": "volume not found"})
+
+    # ---------------- replication (ref store_replicate.go:20-121) ----------------
+    async def _is_cluster_member(self, ip: str) -> bool:
+        """True when ip belongs to a registered volume server: replicate
+        traffic is exempt from the whitelist only for cluster peers."""
+        now = time.monotonic()
+        cache = getattr(self, "_member_ips", None)
+        if cache is None or now - cache[0] > 10.0:
+            if not self.master:
+                return False
+            hosts: set[str] = set()
+            try:
+                stub = Stub(grpc_address(self.master), "master")
+                resp = await stub.call("VolumeList", {})
+                for dc in resp.get("topology_info", {}).get("data_centers", []):
+                    for rack in dc.get("racks", []):
+                        for dn in rack.get("data_nodes", []):
+                            hosts.add(dn.get("url", "").rsplit(":", 1)[0])
+            except Exception:
+                if cache is not None:
+                    return ip in cache[1]
+                return False
+            # registered hosts may be names: resolve them, bounded
+            ips: set[str] = set(hosts)
+            loop = asyncio.get_running_loop()
+
+            async def resolve(host: str) -> None:
+                try:
+                    infos = await asyncio.wait_for(
+                        loop.getaddrinfo(host, None), timeout=2.0
+                    )
+                    for info in infos:
+                        ips.add(info[4][0])
+                except (OSError, asyncio.TimeoutError):
+                    pass
+
+            await asyncio.gather(*(resolve(h) for h in hosts))
+            cache = (now, ips)
+            self._member_ips = cache
+        return ip in cache[1]
+
+    async def _lookup_volume(self, vid: int) -> list[str]:
+        """Replica locations for vid from the master, cached for 2 s (a
+        master RPC per replicated write would put the master on every
+        write's path); a stale entry serves for 30 s while the master is
+        unreachable."""
+        if not self.master:
+            return []
+        cached = self._replica_loc_cache.get(vid)
+        now = time.monotonic()
+        if cached is not None and now - cached[0] < 2.0:
+            return cached[1]
+        locations: list[str] = []
+        try:
+            stub = Stub(grpc_address(self.master), "master")
+            resp = await stub.call("LookupVolume", {"volume_ids": [str(vid)]})
+            for r in resp.get("volume_id_locations", []):
+                if int(r.get("volumeId", "0").split(",")[0]) == vid and r.get(
+                    "locations"
+                ):
+                    locations = [loc["url"] for loc in r["locations"]]
+                    break
+        except Exception:
+            if cached is not None and now - cached[0] < 30.0:
+                return cached[1]
+            return []
+        if not locations:
+            # a transient empty answer must cost one request, and bogus
+            # client vids must not fill the cache
+            self._replica_loc_cache.pop(vid, None)
+            return []
+        if len(self._replica_loc_cache) > 4096:  # runaway-vid backstop
+            self._replica_loc_cache.clear()
+        self._replica_loc_cache[vid] = (now, locations)
+        return locations
+
+    async def _replicate(self, req, q: dict, vid: int, method: str,
+                         body: bytes) -> str:
+        """Send a write or delete to the volume's other replicas;
+        "" when every one acknowledged, else the errors."""
+        v = self.store.find_volume(vid)
+        if v is None or v.super_block.replica_placement.copy_count() <= 1:
+            return ""
+        locations = await self._lookup_volume(vid)
+        others = [u for u in locations
+                  if u not in (self.address, self.public_url)]
+        if len(others) + 1 < v.super_block.replica_placement.copy_count():
+            return f"replicating to {len(others)} replicas, need more"
+        errs = []
+        # forward the client's JWT so replicas run the same auth check
+        headers = {}
+        auth = _header(req, b"authorization")
+        if auth:
+            headers["Authorization"] = auth
+        target = req.path + "?type=replicate"
+        rest = {k: val for k, val in q.items() if k != "type"}
+        if rest:
+            target += "&" + "&".join(f"{k}={val}" for k, val in rest.items())
+
+        async def one(url: str) -> None:
+            try:
+                if method == "POST":
+                    payload, ctype = build_multipart(
+                        "file", body, filename="replica"
+                    )
+                    status, _ = await self._http_client.request(
+                        "POST", url, target, payload, ctype, headers
+                    )
+                    if status >= 300:
+                        errs.append(f"{url}: status {status}")
+                else:
+                    status, _ = await self._http_client.request(
+                        "DELETE", url, target, headers=headers
+                    )
+                    if status >= 400 and status != 404:
+                        errs.append(f"{url}: status {status}")
+            except Exception as e:
+                errs.append(f"{url}: {e}")
+
+        await asyncio.gather(*(one(u) for u in others))
+        return "; ".join(errs)
 
     # ---------------- RPC admin ----------------
     async def _grpc_allocate_volume(self, req, context) -> dict:
@@ -874,18 +1162,19 @@ class VolumeServer(EcHandlers):
         v.no_write_or_delete = False
         return {}
 
+    async def _grpc_delete_collection(self, req, context) -> dict:
+        collection = req.get("collection", "")
+        for loc in self.store.locations:
+            for vid, v in list(loc.volumes.items()):
+                if v.collection == collection:
+                    loc.delete_volume(vid)
+        return {}
+
     async def _grpc_batch_delete(self, req, context) -> dict:
         results = []
         for fid_str in req.get("file_ids", []):
             try:
                 fid = FileId.parse(fid_str)
-                v = self.store.find_volume(fid.volume_id)
-                if v is not None and (
-                    v.super_block.replica_placement.copy_count() > 1
-                ):
-                    raise NotImplementedError(
-                        "not ported: deletes on replicated volumes"
-                    )
                 n = Needle(id=fid.key, cookie=fid.cookie)
                 size = self.store.delete_volume_needle(fid.volume_id, n)
                 self.read_cache.invalidate_key(fid.volume_id, fid.key)
@@ -927,6 +1216,28 @@ class VolumeServer(EcHandlers):
             "sizes": np.ascontiguousarray(sizes, dtype="<u4").tobytes(),
             "found": np.ascontiguousarray(found, dtype=np.uint8).tobytes(),
         }
+
+    async def _grpc_copy_file(self, req, context):
+        """Stream a volume file's bytes (ref volume_grpc_copy.go doCopyFile).
+
+        req: {volume_id, collection, ext, compaction_revision,
+              stop_offset, is_ec_volume}
+        """
+        from ..storage.volume import volume_base_name
+
+        vid = int(req["volume_id"])
+        collection = req.get("collection", "")
+        ext = req["ext"]
+        for loc in self.store.locations:
+            path = volume_base_name(loc.directory, collection, vid) + ext
+            if os.path.exists(path):
+                with open(path, "rb") as f:
+                    while True:
+                        chunk = f.read(1 << 20)
+                        if not chunk:
+                            return
+                        yield {"file_content": chunk}
+        yield {"error": f"{vid}{ext} not found"}
 
     async def _grpc_status(self, req, context) -> dict:
         return {

@@ -1,0 +1,479 @@
+"""Shell command registry (ref: weed/shell/commands.go + command files).
+
+Each command: async fn(env, argv) -> output string. Ported from the JAX
+package's shell/commands.py: help, lock, unlock, volume.list,
+volume.mark.readonly, volume.delete, volume.mount, volume.unmount,
+ec.encode (with VolumeEcShardsGenerateBatch for co-located volumes) and
+ec.rebuild. ec.rebuild asks each rebuilder for one VolumeEcShardsRebuild
+per volume: the batched rebuild RPC is not ported. Every other command
+of the JAX shell (ec.decode, ec.balance, volume.move/copy/vacuum,
+volume.tier.*, the fs.* and operator commands) answers "not ported".
+"""
+
+from __future__ import annotations
+
+import time
+from collections import defaultdict
+
+from ..storage.erasure_coding import DATA_SHARDS_COUNT, TOTAL_SHARDS_COUNT
+from ..storage.erasure_coding.ec_volume import ShardBits
+from .command_env import CommandEnv
+from .ec_common import EcNode, nodes_from_topology, plan_balanced_spread
+
+COMMANDS: dict[str, callable] = {}
+
+# commands of the JAX shell a later slice ports
+NOT_PORTED = (
+    "collection.list", "collection.delete", "volume.move", "volume.copy",
+    "volume.configure.replication", "volume.tier.upload",
+    "volume.tier.download", "volume.vacuum", "volume.lifecycle",
+    "volume.tier.sweep", "volume.fix.replication", "volume.balance",
+    "volume.fsck", "volume.scrub", "ec.decode", "ec.balance",
+    "ec.repair.status", "geo.status", "geo.resync", "meta.fleet.status",
+    "trace.status", "trace.dump", "overload.status",
+)
+
+
+def command(name: str):
+    def deco(fn):
+        COMMANDS[name] = fn
+        return fn
+
+    return deco
+
+def _parse_flags(argv: list[str]) -> dict[str, str]:
+    flags = {}
+    i = 0
+    while i < len(argv):
+        arg = argv[i]
+        if arg.startswith("-"):
+            key = arg.lstrip("-")
+            if "=" in key:
+                key, _, val = key.partition("=")
+                flags[key] = val
+            elif i + 1 < len(argv) and not argv[i + 1].startswith("-"):
+                flags[key] = argv[i + 1]
+                i += 1
+            else:
+                flags[key] = "true"
+        i += 1
+    return flags
+
+
+async def run_command(env: CommandEnv, line: str) -> str:
+    parts = line.strip().split()
+    if not parts:
+        return ""
+    name, argv = parts[0], parts[1:]
+    fn = COMMANDS.get(name)
+    if fn is None:
+        if name in NOT_PORTED or name.startswith(("fs.", "bucket.")):
+            return f"not ported: {name}"
+        return f"unknown command: {name} (try `help`)"
+    return await fn(env, argv)
+
+
+# ---------------- basic ----------------
+@command("help")
+async def cmd_help(env, argv) -> str:
+    return "commands:\n  " + "\n  ".join(sorted(COMMANDS))
+
+
+@command("lock")
+async def cmd_lock(env, argv) -> str:
+    await env.acquire_lock()
+    return "locked"
+
+
+@command("unlock")
+async def cmd_unlock(env, argv) -> str:
+    await env.release_lock()
+    return "unlocked"
+
+
+@command("volume.list")
+async def cmd_volume_list(env, argv) -> str:
+    nodes = await env.collect_data_nodes()
+    lines = []
+    for dn in nodes:
+        lines.append(
+            f"node {dn['url']} dc:{dn['data_center']} rack:{dn['rack']} "
+            f"volumes:{len(dn.get('volumes', []))} free:{dn.get('free_space', 0)}"
+        )
+        for v in dn.get("volumes", []):
+            lines.append(
+                f"  volume id:{v['id']} size:{v.get('size', 0)} "
+                f"collection:{v.get('collection', '')!r} "
+                f"file_count:{v.get('file_count', 0)} "
+                f"deleted:{v.get('delete_count', 0)} "
+                f"read_only:{v.get('read_only', False)}"
+            )
+        for m in dn.get("ec_shards", []):
+            bits = ShardBits(int(m["ec_index_bits"]))
+            lines.append(f"  ec volume id:{m['id']} shards:{bits.shard_ids()}")
+    return "\n".join(lines) or "no volume servers"
+
+
+# ---------------- volume management ----------------
+@command("volume.mark.readonly")
+async def cmd_volume_mark_readonly(env, argv) -> str:
+    env.confirm_is_locked()
+    flags = _parse_flags(argv)
+    vid = int(flags["volumeId"])
+    for dn in await env.collect_data_nodes():
+        if any(int(v["id"]) == vid for v in dn.get("volumes", [])):
+            await env.volume_stub(dn["url"]).call(
+                "VolumeMarkReadonly", {"volume_id": vid}
+            )
+    return f"volume {vid} marked readonly"
+
+
+@command("volume.delete")
+async def cmd_volume_delete(env, argv) -> str:
+    env.confirm_is_locked()
+    flags = _parse_flags(argv)
+    vid = int(flags["volumeId"])
+    node = flags.get("node", "")
+    for dn in await env.collect_data_nodes():
+        if node and dn["url"] != node:
+            continue
+        if any(int(v["id"]) == vid for v in dn.get("volumes", [])):
+            await env.volume_stub(dn["url"]).call("VolumeDelete", {"volume_id": vid})
+    return f"volume {vid} deleted"
+
+
+@command("volume.unmount")
+async def cmd_volume_unmount(env, argv) -> str:
+    env.confirm_is_locked()
+    flags = _parse_flags(argv)
+    vid = int(flags["volumeId"])
+    node = flags["node"]
+    await env.volume_stub(node).call("VolumeUnmount", {"volume_id": vid})
+    return f"volume {vid} unmounted from {node}"
+
+
+@command("volume.mount")
+async def cmd_volume_mount(env, argv) -> str:
+    env.confirm_is_locked()
+    flags = _parse_flags(argv)
+    vid = int(flags["volumeId"])
+    node = flags["node"]
+    await env.volume_stub(node).call("VolumeMount", {"volume_id": vid})
+    return f"volume {vid} mounted on {node}"
+
+
+# ---------------- EC suite ----------------
+async def _collect_ec_nodes(env) -> list[EcNode]:
+    return nodes_from_topology(await env.collect_data_nodes())
+
+
+async def _ec_geometry(env, vid: int, collection: str, holders) -> tuple[int, int]:
+    """(data_shards, parity_shards) of an EC volume, asked from a shard
+    holder's .vif (VolumeEcShardsInfo); falls back to the standard 10.4."""
+    for url in holders:
+        try:
+            r = await env.volume_stub(url).call(
+                "VolumeEcShardsInfo", {"volume_id": vid, "collection": collection}
+            )
+            if not r.get("error"):
+                return (
+                    int(r.get("data_shards") or DATA_SHARDS_COUNT),
+                    int(
+                        r.get("parity_shards")
+                        or TOTAL_SHARDS_COUNT - DATA_SHARDS_COUNT
+                    ),
+                )
+        except Exception:
+            continue
+    return DATA_SHARDS_COUNT, TOTAL_SHARDS_COUNT - DATA_SHARDS_COUNT
+
+
+@command("ec.encode")
+async def cmd_ec_encode(env, argv) -> str:
+    """Erasure-code volumes and spread shards
+    (ref command_ec_encode.go:55-264).
+
+    -shards k.m selects an alternate RS geometry (e.g. 6.3, 12.4); the
+    default is the reference's 10.4 (ec_encoder.go:17-23).
+    """
+    env.confirm_is_locked()
+    flags = _parse_flags(argv)
+    collection = flags.get("collection", "")
+    data_shards = parity_shards = 0
+    if "shards" in flags:
+        try:
+            k, _, m = flags["shards"].partition(".")
+            data_shards, parity_shards = int(k), int(m)
+        except ValueError:
+            data_shards = parity_shards = 0
+        if data_shards < 1 or parity_shards < 1:
+            return f"bad -shards {flags['shards']!r}; want e.g. 10.4 or 6.3"
+    vids: list[int] = []
+    if "volumeId" in flags:
+        # comma-separated ids allowed: co-located ones encode as one batch
+        vids = [int(x) for x in str(flags["volumeId"]).split(",") if x]
+    else:
+        full_pct = float(flags.get("fullPercent", 95))
+        nodes = await env.collect_data_nodes()
+        resp = await env.master_stub.call("VolumeList", {})
+        limit_mb = int(resp.get("volume_size_limit_mb", 30000))
+        seen = set()
+        for dn in nodes:
+            for v in dn.get("volumes", []):
+                vid = int(v["id"])
+                if vid in seen or v.get("collection", "") != collection:
+                    continue
+                if int(v.get("size", 0)) >= limit_mb * 1024 * 1024 * full_pct / 100:
+                    seen.add(vid)
+                    vids.append(vid)
+    results = []
+    # volumes co-located on one node encode as a single shared batch
+    # (VolumeEcShardsGenerateBatch -> write_ec_files_multi): one device
+    # dispatch per round serves every volume instead of encoding serially
+    nodes = await env.collect_data_nodes()
+    by_source: dict = {}
+    for vid in vids:
+        source = None
+        for dn in nodes:
+            if any(int(v["id"]) == vid for v in dn.get("volumes", [])):
+                source = dn["url"]
+                break
+        by_source.setdefault(source, []).append(vid)
+    for source, group in by_source.items():
+        if source is None:
+            results.extend(f"volume {v}: not found" for v in group)
+        elif len(group) == 1:
+            results.append(
+                await _do_ec_encode(
+                    env, group[0], collection, data_shards, parity_shards,
+                    source=source,
+                )
+            )
+        else:
+            sstub = env.volume_stub(source)
+            for v in group:
+                await sstub.call("VolumeMarkReadonly", {"volume_id": v})
+            gen_req = {"volume_ids": group, "collection": collection}
+            if data_shards:
+                gen_req["data_shards"] = data_shards
+                gen_req["parity_shards"] = parity_shards
+            t0 = time.perf_counter()
+            r = await sstub.call(
+                "VolumeEcShardsGenerateBatch", gen_req, timeout=3600
+            )
+            generate_s = time.perf_counter() - t0
+            errs = (
+                {str(v): r["error"] for v in group}
+                if r.get("error")
+                else r.get("errors", {})
+            )
+            for v in group:
+                if str(v) in errs:
+                    results.append(
+                        f"volume {v}: generate failed: {errs[str(v)]}"
+                    )
+                else:
+                    results.append(
+                        await _ec_spread(
+                            env, v, collection, data_shards,
+                            parity_shards, source, generate_s,
+                        )
+                    )
+    return "\n".join(results) or "no volumes to encode"
+
+
+async def _do_ec_encode(
+    env,
+    vid: int,
+    collection: str,
+    data_shards: int = 0,
+    parity_shards: int = 0,
+    source: str = "",
+) -> str:
+    if not source:
+        nodes = await env.collect_data_nodes()
+        for dn in nodes:
+            if any(int(v["id"]) == vid for v in dn.get("volumes", [])):
+                source = dn["url"]
+                break
+        if not source:
+            return f"volume {vid}: not found"
+    sstub = env.volume_stub(source)
+    await sstub.call("VolumeMarkReadonly", {"volume_id": vid})
+    gen_req = {"volume_id": vid, "collection": collection}
+    if data_shards:
+        gen_req["data_shards"] = data_shards
+        gen_req["parity_shards"] = parity_shards
+    t0 = time.perf_counter()
+    r = await sstub.call("VolumeEcShardsGenerate", gen_req, timeout=3600)
+    if r.get("error"):
+        return f"volume {vid}: generate failed: {r['error']}"
+    return await _ec_spread(
+        env, vid, collection, data_shards, parity_shards, source,
+        time.perf_counter() - t0,
+    )
+
+
+async def _ec_spread(
+    env,
+    vid: int,
+    collection: str,
+    data_shards: int,
+    parity_shards: int,
+    source: str,
+    generate_s: float,
+) -> str:
+    """Spread freshly-generated shards, mount them, drop the source volume
+    (the tail of ref command_ec_encode.go:110-135). The answer ends with
+    the generate call's wall (`generate_s`, shared by a batch) and this
+    spread's: the copies, mounts and the source's deletes."""
+    t0 = time.perf_counter()
+    sstub = env.volume_stub(source)
+    total = (data_shards + parity_shards) or TOTAL_SHARDS_COUNT
+    ec_nodes = await _collect_ec_nodes(env)
+    assignment = plan_balanced_spread(
+        ec_nodes, vid, list(range(total)), source
+    )
+    for target, shard_ids in assignment.items():
+        tstub = env.volume_stub(target)
+        if target != source:
+            r = await tstub.call(
+                "VolumeEcShardsCopy",
+                {
+                    "volume_id": vid,
+                    "collection": collection,
+                    "shard_ids": shard_ids,
+                    "copy_ecx_file": True,
+                    "source_data_node": source,
+                },
+                timeout=3600,
+            )
+            if r.get("error"):
+                return f"volume {vid}: copy to {target} failed: {r['error']}"
+        r = await tstub.call(
+            "VolumeEcShardsMount",
+            {"volume_id": vid, "collection": collection, "shard_ids": shard_ids},
+        )
+        if r.get("error"):
+            return f"volume {vid}: mount on {target} failed: {r['error']}"
+
+    # drop the source volume + its non-assigned shard files. Delete WHILE
+    # mounted (keep_ec_files spares the .vif/.heat the EC volume needs):
+    # the old unmount-then-delete sequence no-op'd the delete, leaving a
+    # stale .dat a later mount scan could resurrect as a writable twin
+    await sstub.call(
+        "VolumeDelete", {"volume_id": vid, "keep_ec_files": True}
+    )
+    own = assignment.get(source, [])
+    await sstub.call(
+        "VolumeEcShardsDelete",
+        {
+            "volume_id": vid,
+            "collection": collection,
+            "shard_ids": [i for i in range(total) if i not in own],
+        },
+    )
+    spread = {t: s for t, s in assignment.items()}
+    return (
+        f"volume {vid}: encoded, spread {spread}; generate_s={generate_s:.6f}"
+        f" spread_s={time.perf_counter() - t0:.6f}"
+    )
+
+
+@command("ec.rebuild")
+async def cmd_ec_rebuild(env, argv) -> str:
+    """Rebuild missing shards of damaged EC volumes
+    (ref command_ec_rebuild.go:97-244): the rebuilder (the node with the
+    most free slots) pulls every survivor it lacks, rebuilds the missing
+    shards on its codec, mounts them and drops the extra survivor
+    copies."""
+    env.confirm_is_locked()
+    flags = _parse_flags(argv)
+    collection = flags.get("collection", "")
+    ec_nodes = await _collect_ec_nodes(env)
+    by_vid: dict[int, ShardBits] = defaultdict(ShardBits)
+    for n in ec_nodes:
+        for vid, bits in n.shards.items():
+            by_vid[vid] = by_vid[vid].plus(bits)
+    results = []
+    plans = []  # (vid, rebuilder, local bits after pulls)
+    for vid, bits in sorted(by_vid.items()):
+        holders = [n.url for n in ec_nodes if vid in n.shards]
+        k, m = await _ec_geometry(env, vid, collection, holders)
+        missing = [i for i in range(k + m) if not bits.has(i)]
+        if not missing:
+            continue
+        if bits.count() < k:
+            results.append(f"volume {vid}: unrepairable ({bits.count()} shards)")
+            continue
+        rebuilder = max(ec_nodes, key=lambda n: n.free_slots)
+        rstub = env.volume_stub(rebuilder.url)
+        local = rebuilder.shards.get(vid, ShardBits())
+        # pull every survivor shard the rebuilder lacks; a copy failure
+        # skips THIS volume only — the other damaged volumes still rebuild
+        copy_error = None
+        for n in ec_nodes:
+            if n.url == rebuilder.url:
+                continue
+            pull = [
+                s
+                for s in n.shards.get(vid, ShardBits()).shard_ids()
+                if not local.has(s)
+            ]
+            if not pull:
+                continue
+            r = await rstub.call(
+                "VolumeEcShardsCopy",
+                {
+                    "volume_id": vid,
+                    "collection": collection,
+                    "shard_ids": pull,
+                    "copy_ecx_file": True,
+                    "source_data_node": n.url,
+                },
+                timeout=3600,
+            )
+            if r.get("error"):
+                copy_error = r["error"]
+                break
+            for s in pull:
+                local = local.add(s)
+        if copy_error is not None:
+            results.append(f"volume {vid}: copy for rebuild: {copy_error}")
+            continue
+        plans.append((vid, rebuilder, local))
+
+    for vid, rebuilder, local in plans:
+        rstub = env.volume_stub(rebuilder.url)
+        rr = await rstub.call(
+            "VolumeEcShardsRebuild",
+            {"volume_id": vid, "collection": collection},
+            timeout=3600,
+        )
+        if rr.get("error"):
+            results.append(f"volume {vid}: rebuild failed: {rr['error']}")
+            continue
+        rebuilt = rr.get("rebuilt_shard_ids", [])
+        await rstub.call(
+            "VolumeEcShardsMount",
+            {"volume_id": vid, "collection": collection,
+             "shard_ids": rebuilt},
+        )
+        # drop the extra survivor copies the rebuilder pulled
+        extra = [
+            s for s in local.shard_ids()
+            if s not in rebuilt
+            and not rebuilder.shards.get(vid, ShardBits()).has(s)
+        ]
+        if extra:
+            await rstub.call(
+                "VolumeEcShardsDelete",
+                {"volume_id": vid, "collection": collection,
+                 "shard_ids": extra},
+            )
+        results.append(
+            f"volume {vid}: rebuilt shards {rebuilt} on {rebuilder.url}"
+        )
+    return "\n".join(results) or "no damaged ec volumes"
+
+

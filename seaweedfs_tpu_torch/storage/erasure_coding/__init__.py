@@ -28,6 +28,7 @@ from .coder_cpu import CpuRSCodec  # noqa: E402
 from .encoder import (  # noqa: E402
     rebuild_ec_files,
     write_ec_files,
+    write_ec_files_multi,
     write_sorted_file_from_idx,
 )
 from .ec_volume import (  # noqa: E402
@@ -48,6 +49,7 @@ __all__ = [
     "locate_data",
     "CpuRSCodec",
     "write_ec_files",
+    "write_ec_files_multi",
     "rebuild_ec_files",
     "write_sorted_file_from_idx",
     "EcVolume",

@@ -16,6 +16,7 @@ find_needle_from_ecx.
 from __future__ import annotations
 
 import os
+import threading
 from typing import Callable, Optional
 
 import numpy as np
@@ -28,10 +29,14 @@ from . import (
     to_ext,
 )
 from ...types import (
+    NEEDLE_ID_SIZE,
     NEEDLE_MAP_ENTRY_SIZE,
+    OFFSET_SIZE,
     TOMBSTONE_FILE_SIZE,
     VERSION3,
+    needle_id_to_bytes,
     to_actual_offset,
+    u32_to_bytes,
 )
 from ..idx import parse_entry
 from ..needle import Needle, get_actual_size
@@ -46,6 +51,51 @@ def ec_shard_file_name(collection: str, directory: str, vid: int) -> str:
     if collection:
         return os.path.join(directory, f"{collection}_{vid}")
     return os.path.join(directory, str(vid))
+
+
+class ShardBits:
+    """uint32 bitmask of present shard ids (ref: ec_volume_info.go:61-110);
+    iteration spans the full 32 bits so alternate geometries with more than
+    14 shards (e.g. 12.4) are representable. Copied from the JAX package's
+    storage/erasure_coding/ec_volume.py."""
+
+    def __init__(self, bits: int = 0):
+        self.bits = bits & 0xFFFFFFFF
+
+    def add(self, shard_id: int) -> "ShardBits":
+        return ShardBits(self.bits | (1 << shard_id))
+
+    def remove(self, shard_id: int) -> "ShardBits":
+        return ShardBits(self.bits & ~(1 << shard_id))
+
+    def has(self, shard_id: int) -> bool:
+        return bool(self.bits & (1 << shard_id))
+
+    def shard_ids(self) -> list[int]:
+        return [i for i in range(32) if self.has(i)]
+
+    def count(self) -> int:
+        return bin(self.bits).count("1")
+
+    def minus(self, other: "ShardBits") -> "ShardBits":
+        return ShardBits(self.bits & ~other.bits)
+
+    def plus(self, other: "ShardBits") -> "ShardBits":
+        return ShardBits(self.bits | other.bits)
+
+    def minus_parity_shards(
+        self, data_shards: int = DATA_SHARDS_COUNT
+    ) -> "ShardBits":
+        b = self
+        for i in range(data_shards, 32):
+            b = b.remove(i)
+        return b
+
+    def __eq__(self, other) -> bool:
+        return isinstance(other, ShardBits) and self.bits == other.bits
+
+    def __repr__(self) -> str:
+        return f"ShardBits({self.shard_ids()})"
 
 
 class EcVolumeShard:
@@ -99,6 +149,16 @@ def search_needle_from_sorted_index(
     raise NeedleNotFound(f"needle {needle_id} not found in ecx")
 
 
+def mark_needle_deleted(f, entry_offset: int) -> None:
+    """Tombstone the size field of an .ecx entry in place
+    (ref MarkNeedleDeleted, ec_volume_delete.go:13-25)."""
+    os.pwrite(
+        f.fileno(),
+        u32_to_bytes(TOMBSTONE_FILE_SIZE),
+        entry_offset + NEEDLE_ID_SIZE + OFFSET_SIZE,  # key + offset come first
+    )
+
+
 class EcVolume:
     """An EC volume's .ecx, .vif and the shard files present in
     `directory`. Block sizes default to the reference's 1GB/1MB; they are
@@ -126,7 +186,7 @@ class EcVolume:
         base = self.file_name()
         if not os.path.exists(base + ".ecx"):
             raise FileNotFoundError(f"cannot open ec volume index {base}.ecx")
-        self._ecx = open(base + ".ecx", "rb")
+        self._ecx = open(base + ".ecx", "r+b")
         self.ecx_file_size = os.path.getsize(base + ".ecx")
         self.version = VERSION3
         # RS geometry: default 10.4, overridable per volume via .vif
@@ -144,12 +204,21 @@ class EcVolume:
         for sid in range(self.total_shards) if shard_ids is None else shard_ids:
             if os.path.exists(base + to_ext(sid)):
                 self.shards.append(EcVolumeShard(directory, collection, vid, sid))
-        # device-resident .ecx snapshot for bulk probes; the port writes
-        # no .ecx tombstones, so one snapshot serves the volume's life
+        # shard_id -> holder addresses, refreshed from the master by the
+        # volume server's remote reads (server/volume_ec.py)
+        self.shard_locations: dict[int, list[str]] = {}
+        self.shard_locations_lock = threading.RLock()
+        self.shard_locations_refresh_time = 0.0
+        # the .ecj deletion journal (ref ec_volume_delete.go)
+        self._ecj = None
+        self._ecj_lock = threading.Lock()
+        # device-resident .ecx snapshot for bulk probes; rebuilt after
+        # tombstone writes (see bulk_locate)
         from ...ops.snapshot_cache import SnapshotCache
 
         self.device = device
         self._ecx_cache = SnapshotCache(device=device)
+        self._ecx_mutations = 0
 
     def file_name(self) -> str:
         return ec_shard_file_name(self.collection, self.dir, self.volume_id)
@@ -181,6 +250,12 @@ class EcVolume:
 
     def shard_ids(self) -> list[int]:
         return [s.shard_id for s in self.shards]
+
+    def shard_bits(self) -> ShardBits:
+        b = ShardBits()
+        for s in self.shards:
+            b = b.add(s.shard_id)
+        return b
 
     def shard_size(self) -> int:
         return self.shards[0].size if self.shards else 0
@@ -231,7 +306,9 @@ class EcVolume:
                     offsets[i], sizes[i], found[i] = o, s, True
             return offsets, sizes, found
 
-        accel = self._ecx_cache.get(lambda: 0, self.ecx_snapshot)
+        accel = self._ecx_cache.get(
+            lambda: self._ecx_mutations, self.ecx_snapshot
+        )
         return accel.lookup(needle_ids)
 
     def intervals_for(self, offset_units: int, size: int) -> list[Interval]:
@@ -250,6 +327,24 @@ class EcVolume:
         (ref LocateEcShardNeedle, ec_volume.go:190-206)."""
         offset_units, size = self.find_needle_from_ecx(needle_id)
         return offset_units, size, self.intervals_for(offset_units, size)
+
+    # --- delete ---
+    def delete_needle_from_ecx(self, needle_id: int) -> None:
+        """Tombstone in .ecx + journal to .ecj
+        (ref DeleteNeedleFromEcx, ec_volume_delete.go:27-49)."""
+        try:
+            search_needle_from_sorted_index(
+                self._ecx, self.ecx_file_size, needle_id, mark_needle_deleted
+            )
+        except NeedleNotFound:
+            return
+        self._ecx_mutations += 1
+        with self._ecj_lock:
+            if self._ecj is None:
+                self._ecj = open(self.file_name() + ".ecj", "a+b")
+            self._ecj.seek(0, 2)
+            self._ecj.write(needle_id_to_bytes(needle_id))
+            self._ecj.flush()
 
     # --- read ---
     def _recover_interval(
@@ -312,6 +407,9 @@ class EcVolume:
     def close(self) -> None:
         for s in self.shards:
             s.close()
+        with self._ecj_lock:
+            if self._ecj is not None:
+                self._ecj.close()
         self._ecx.close()
 
     def __enter__(self) -> "EcVolume":

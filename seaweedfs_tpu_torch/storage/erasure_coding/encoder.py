@@ -517,6 +517,169 @@ def _row_counts(
     return n_large, n_small
 
 
+def _piece_iter(
+    n_large: int,
+    large_block: int,
+    n_small: int,
+    small_block: int,
+    chunk: int,
+    k: int,
+):
+    """Yield (row_start, block_size, done, width) encode pieces in shard
+    stream order; a piece never spans a block boundary."""
+    processed = 0
+    for rows, block in ((n_large, large_block), (n_small, small_block)):
+        for row in range(rows):
+            row_start = processed + row * block * k
+            done = 0
+            while done < block:
+                width = min(chunk, block - done)
+                yield row_start, block, done, width
+                done += width
+        processed += rows * block * k
+
+
+def write_ec_files_multi(
+    base_file_names,
+    codec=None,
+    large_block_size: int = EC_LARGE_BLOCK_SIZE,
+    small_block_size: int = EC_SMALL_BLOCK_SIZE,
+    chunk: int = DEFAULT_CHUNK,
+    workers: Optional[int] = None,
+    mesh=None,
+) -> None:
+    """Encode MANY volumes' .dat files through shared wide encode batches
+    (the JAX package's write_ec_files_multi; VolumeEcShardsGenerateBatch
+    calls it).
+
+    GF(2^8) parity is computed column by column, so pieces of different
+    volumes concatenated along the column axis and encoded in ONE call are
+    byte-identical to per-volume encodes, and one kernel launch serves
+    every volume in a round. Each round takes the next piece of every
+    unfinished volume, groups by width, and pipelines read -> batched
+    encode -> ordered writes. Host codecs encode whole volumes
+    concurrently across cores instead. `mesh` (the multi-device encode of
+    parallel/) is not ported and raises.
+    """
+    import concurrent.futures as cf
+    from collections import deque
+
+    if mesh is not None:
+        raise NotImplementedError(
+            "not ported: the mesh encode (parallel/sharded_ec.py)"
+        )
+    codec = _get_codec(codec)
+    k = codec.data_shards
+
+    if not getattr(codec, "is_device", False):
+        from ...util import available_cpus
+
+        n_workers = max(
+            1, min(len(base_file_names), workers or available_cpus())
+        )
+
+        def one(base: str) -> None:
+            write_ec_files(
+                base, codec=codec,
+                large_block_size=large_block_size,
+                small_block_size=small_block_size,
+                chunk=chunk, pipeline=False,
+            )
+
+        if n_workers == 1:
+            for base in base_file_names:
+                one(base)
+            return
+        with cf.ThreadPoolExecutor(n_workers) as pool:
+            for _ in pool.map(one, base_file_names):
+                pass
+        return
+    width_cap = max(
+        small_block_size, getattr(codec, "preferred_chunk", chunk)
+    )
+
+    vols = []  # (dat_f, outputs, piece_iter)
+    try:
+        for base in base_file_names:
+            dat_size = os.path.getsize(base + ".dat")
+            n_large, n_small = _row_counts(
+                dat_size, k, large_block_size, small_block_size
+            )
+            dat_f = open(base + ".dat", "rb")
+            outputs = [
+                open(base + to_ext(i), "wb")
+                for i in range(codec.total_shards)
+            ]
+            pieces = _piece_iter(
+                n_large, large_block_size, n_small, small_block_size,
+                min(chunk, width_cap), k,
+            )
+            vols.append((dat_f, outputs, pieces))
+
+        def rounds():
+            active = list(vols)
+            while active:
+                produced = []
+                for v in active:
+                    p = next(v[2], None)
+                    if p is not None:
+                        produced.append((v, p))
+                if not produced:
+                    return
+                # same-width pieces share batches, capped at the codec's
+                # preferred transfer size
+                by_width: dict = {}
+                for v, p in produced:
+                    by_width.setdefault(p[3], []).append((v, p))
+                for width, items in sorted(by_width.items()):
+                    per_batch = max(1, width_cap // width)
+                    for s in range(0, len(items), per_batch):
+                        yield width, items[s : s + per_batch]
+                active = [v for v, _ in produced]
+
+        def read_batch(width: int, items: list) -> np.ndarray:
+            buf = np.zeros((k, len(items) * width), dtype=np.uint8)
+            for j, ((dat_f, _outs, _it), (row_start, block, done, w)) in enumerate(
+                items
+            ):
+                c0 = j * width
+                for i in range(k):
+                    _read_into(
+                        dat_f,
+                        buf[i, c0 : c0 + w],
+                        row_start + i * block + done,
+                    )
+            return buf
+
+        def drain(entry) -> None:
+            width, items, buf, fut = entry
+            parity = np.ascontiguousarray(fut.result())
+            for j, ((_f, outputs, _it), _p) in enumerate(items):
+                sl = slice(j * width, (j + 1) * width)
+                for i in range(k):
+                    outputs[i].write(buf[i, sl].data)
+                for p in range(codec.parity_shards):
+                    outputs[k + p].write(parity[p, sl].data)
+
+        depth = max(1, workers or 2)  # device pipeline depth
+        with cf.ThreadPoolExecutor(depth) as pool:
+            pending: deque = deque()
+            for width, items in rounds():
+                buf = read_batch(width, items)
+                pending.append(
+                    (width, items, buf, pool.submit(codec.encode, buf))
+                )
+                while len(pending) > depth:
+                    drain(pending.popleft())
+            while pending:
+                drain(pending.popleft())
+    finally:
+        for dat_f, outputs, _it in vols:
+            dat_f.close()
+            for f in outputs:
+                f.close()
+
+
 def write_sorted_file_from_idx(base_file_name: str, ext: str = ".ecx") -> None:
     """.idx log -> sorted index file (ref WriteSortedFileFromIdx,
     ec_encoder.go:27-54). Vectorized: one sequential read, one numpy

@@ -1,10 +1,12 @@
 """Store: per-server facade over disk locations
 (ref: weed/storage/store.go, store_ec.go).
 
-Ported from the JAX package's storage/store.py without the heartbeat
-collectors and their delta queues (store.py:160-380 there), which wait
-for the master. One `device` is passed down to every location, volume
-and EC volume: the card unless the caller asks for the CPU.
+Ported from the JAX package's storage/store.py with its heartbeat
+collectors and delta queues (`collect_heartbeat`, `collect_ec_heartbeat`,
+`drain_deltas`, `note_ec_shards_changed`); the anti-entropy, lifecycle
+and cold-tier collectors wait with their master planes. One `device` is
+passed down to every location, volume and EC volume: the card unless the
+caller asks for the CPU.
 """
 
 from __future__ import annotations
@@ -13,6 +15,7 @@ import threading
 from typing import Optional
 
 from .disk_location import DiskLocation
+from .erasure_coding.ec_volume import ShardBits
 from .needle import Needle
 from .super_block import ReplicaPlacement
 from .ttl import TTL
@@ -26,7 +29,13 @@ class Store:
         max_volume_counts: list[int],
         needle_map_kind: str = "memory",
         device=None,
+        ip: str = "127.0.0.1",
+        port: int = 0,
+        public_url: str = "",
     ):
+        self.ip = ip
+        self.port = port
+        self.public_url = public_url
         self.needle_map_kind = needle_map_kind
         self.device = device
         self.locations = [
@@ -34,6 +43,11 @@ class Store:
             for d, m in zip(directories, max_volume_counts)
         ]
         self._lock = threading.RLock()
+        # delta queues drained into heartbeats (ref store.go:41-44)
+        self.new_volumes: list[dict] = []
+        self.deleted_volumes: list[dict] = []
+        self.new_ec_shards: list[dict] = []
+        self.deleted_ec_shards: list[dict] = []
 
     # --- lifecycle ---
     def load(self) -> None:
@@ -80,24 +94,40 @@ class Store:
                 device=self.device,
             )
             location.add_volume(v)
+            self.new_volumes.append(self._volume_message(v))
         return v
 
     def delete_volume(self, vid: int, keep_ec_files: bool = False) -> bool:
+        v = self.find_volume(vid)
+        if v is None:
+            return False
+        msg = self._volume_message(v)
         for loc in self.locations:
             if loc.delete_volume(vid, keep_ec_files=keep_ec_files):
+                with self._lock:
+                    self.deleted_volumes.append(msg)
                 return True
         return False
 
     def unmount_volume(self, vid: int) -> bool:
+        v = self.find_volume(vid)
+        if v is None:
+            return False
+        msg = self._volume_message(v)
         for loc in self.locations:
             if loc.unmount_volume(vid):
+                with self._lock:
+                    self.deleted_volumes.append(msg)
                 return True
         return False
 
     def mount_volume(self, vid: int) -> bool:
         for loc in self.locations:
             loc.load_existing_volumes()
-            if loc.find_volume(vid) is not None:
+            v = loc.find_volume(vid)
+            if v is not None:
+                with self._lock:
+                    self.new_volumes.append(self._volume_message(v))
                 return True
         return False
 
@@ -148,6 +178,87 @@ class Store:
             "modified_at_second": int(v.last_modified_ts_seconds),
             "append_at_ns": v.last_append_at_ns,
         }
+
+    # --- heartbeat assembly (ref store.go:194-254) ---
+    def collect_heartbeat(self) -> dict:
+        volume_messages = []
+        max_volume_count = 0
+        max_file_key = 0
+        for loc in self.locations:
+            max_volume_count += loc.max_volume_count
+            for v in list(loc.volumes.values()):
+                if v.max_file_key() > max_file_key:
+                    max_file_key = v.max_file_key()
+                volume_messages.append(self._volume_message(v))
+        return {
+            "ip": self.ip,
+            "port": self.port,
+            "public_url": self.public_url,
+            "max_volume_count": max_volume_count,
+            "max_file_key": max_file_key,
+            "volumes": volume_messages,
+            "has_no_volumes": len(volume_messages) == 0,
+        }
+
+    def collect_ec_heartbeat(self) -> dict:
+        shard_messages = []
+        for loc in self.locations:
+            for vid, ev in list(loc.ec_volumes.items()):
+                bits = ev.shard_bits().bits
+                shard_messages.append(
+                    {
+                        "id": vid,
+                        "collection": ev.collection,
+                        "ec_index_bits": bits,
+                        "ec_local_bits": bits,
+                        "ec_offloaded_bits": 0,
+                    }
+                )
+        return {
+            "ec_shards": shard_messages,
+            "has_no_ec_shards": len(shard_messages) == 0,
+        }
+
+    def drain_deltas(self) -> dict:
+        with self._lock:
+            # collapse same-vid churn within one pulse so the master's
+            # delete-then-add processing can't resurrect ghosts: a volume
+            # no longer held is not new; keep the FIRST deleted message
+            # (the layout the master registered) and the LAST new one
+            held = {vid for loc in self.locations for vid in loc.volumes}
+            new_by_vid: dict = {}
+            for msg in self.new_volumes:
+                if int(msg["id"]) in held:
+                    new_by_vid[int(msg["id"])] = msg
+            deleted_by_vid: dict = {}
+            for msg in self.deleted_volumes:
+                deleted_by_vid.setdefault(int(msg["id"]), msg)
+            out = {
+                "new_volumes": list(new_by_vid.values()),
+                "deleted_volumes": list(deleted_by_vid.values()),
+                "new_ec_shards": self.new_ec_shards,
+                "deleted_ec_shards": self.deleted_ec_shards,
+            }
+            self.new_volumes = []
+            self.deleted_volumes = []
+            self.new_ec_shards = []
+            self.deleted_ec_shards = []
+            return out
+
+    def note_ec_shards_changed(
+        self, vid: int, collection: str, added: ShardBits, removed: ShardBits
+    ) -> None:
+        with self._lock:
+            if added.bits:
+                self.new_ec_shards.append(
+                    {"id": vid, "collection": collection,
+                     "ec_index_bits": added.bits}
+                )
+            if removed.bits:
+                self.deleted_ec_shards.append(
+                    {"id": vid, "collection": collection,
+                     "ec_index_bits": removed.bits}
+                )
 
     # --- EC volume access (ref store_ec.go) ---
     def find_ec_volume(self, vid: int):

@@ -9,9 +9,12 @@ shapes it does not serve answer 501 (see server/volume.py). Kept: the
 protocol (`FastHTTPProtocol`), keep-alive and pipelining, chunked request
 bodies, `render_response`, `parse_multipart` and the `DETACHED` /
 `finish_detached` continuation a batch flush writes its responses from.
-Left out with the fallback: the proxy to the second app and the outbound
-keep-alive client (no request of this slice leaves the server); the
-overload admission, tenancy and fault seams.
+Left out with the fallback: the proxy to the second app; the overload
+admission, tenancy and fault seams. The outbound keep-alive client
+(`FastHTTPClient`) is the JAX one without its circuit breakers,
+Retry-After bookkeeping, retry budget deposits and trace and tenant
+headers: the replication fan-out, the not-local redirect's clients, the
+`client/` operations and `benchmark` ride it.
 
 Design rules:
 - parsing is bytes-only and allocation-light: no multidicts, no URL
@@ -23,8 +26,11 @@ Design rules:
 from __future__ import annotations
 
 import asyncio
+import time
 from collections import deque
 from typing import Awaitable, Callable, Optional
+
+from .backoff import shared_retry_budget
 
 DETACHED = object()  # sentinel: "the handler will write the response itself
 # (via req.transport) from a later callback" — used by batch continuations
@@ -524,6 +530,331 @@ class FastHTTPServer:
                 await asyncio.wait_for(self._server.wait_closed(), 5.0)
             except (asyncio.TimeoutError, Exception):
                 pass
+
+
+# ---------------------------------------------------------------- client --
+
+
+class _ClientConn(asyncio.Protocol):
+    """Raw-protocol client connection: one buffer, inline response parse,
+    exactly ONE await per request (the completion future)."""
+
+    __slots__ = ("transport", "buf", "waiter", "closed", "_loop")
+
+    def __init__(self, loop):
+        self._loop = loop
+        self.transport = None
+        self.buf = bytearray()
+        self.waiter: Optional[asyncio.Future] = None
+        self.closed = False
+
+    def connection_made(self, transport):
+        self.transport = transport
+
+    def data_received(self, data):
+        self.buf += data
+        w = self.waiter
+        if w is not None and not w.done():
+            self._try_complete(False)
+
+    def eof_received(self):
+        self.closed = True
+        w = self.waiter
+        if w is not None and not w.done():
+            self._try_complete(True)
+        return False
+
+    def connection_lost(self, exc):
+        self.closed = True
+        w = self.waiter
+        if w is not None and not w.done():
+            if not self._try_complete(True):
+                w.set_exception(
+                    exc or ConnectionResetError("connection lost")
+                )
+
+    def begin(self) -> asyncio.Future:
+        self.waiter = self._loop.create_future()
+        return self.waiter
+
+    def _try_complete(self, eof: bool) -> bool:
+        """Parse one response out of self.buf; resolve the waiter when
+        complete. -> True when the waiter was resolved (result OR error)."""
+        w = self.waiter
+        buf = self.buf
+        end = buf.find(b"\r\n\r\n")
+        if end < 0:
+            if eof:
+                w.set_exception(
+                    asyncio.IncompleteReadError(bytes(buf), None)
+                )
+                return True
+            return False
+        head = bytes(buf[:end])
+        lower = head.lower()
+        # a header-parse error must resolve the waiter, never escape
+        # data_received (the request would hang)
+        try:
+            line_end = head.find(b"\r\n")
+            if line_end < 0:
+                line_end = len(head)
+            status = int(head[9:line_end].split(b" ", 1)[0] or 500)
+            clen = -1
+            chunked = b"transfer-encoding: chunked" in lower
+            if not chunked:
+                idx = lower.find(b"content-length:")
+                if idx >= 0:
+                    nl = lower.find(b"\r\n", idx)
+                    if nl < 0:
+                        nl = len(head)
+                    clen = int(head[idx + 15: nl].strip())
+        except ValueError:
+            w.set_exception(ConnectionError("bad response head"))
+            return True
+        keep = b"connection: close" not in lower
+        if chunked:
+            done = self._complete_chunked(end, status, keep, eof, head)
+        elif clen >= 0:
+            total = end + 4 + clen
+            if len(buf) < total:
+                if eof:
+                    w.set_exception(
+                        asyncio.IncompleteReadError(bytes(buf), total)
+                    )
+                    return True
+                return False
+            body = bytes(buf[end + 4: total])
+            del buf[:total]
+            w.set_result((status, body, keep, head))
+            done = True
+        else:
+            # length-less: framed by EOF, connection retired
+            if not eof:
+                return False
+            body = bytes(buf[end + 4:])
+            del buf[:]
+            w.set_result((status, body, False, head))
+            done = True
+        if done:
+            self.waiter = None
+        return done
+
+    def _complete_chunked(self, end, status, keep, eof, head) -> bool:
+        buf = self.buf
+        w = self.waiter
+        pos = end + 4
+        out = bytearray()
+        while True:
+            nl = buf.find(b"\r\n", pos)
+            if nl < 0:
+                break
+            try:
+                size = int(bytes(buf[pos:nl]).split(b";")[0].strip(), 16)
+            except ValueError:
+                w.set_exception(ConnectionError("bad chunk size"))
+                return True
+            if size == 0:
+                tpos = nl + 2
+                while True:
+                    tnl = buf.find(b"\r\n", tpos)
+                    if tnl < 0:
+                        if eof:
+                            w.set_exception(
+                                asyncio.IncompleteReadError(bytes(buf), None)
+                            )
+                            return True
+                        return False
+                    if tnl == tpos:
+                        del buf[:tnl + 2]
+                        w.set_result((status, bytes(out), keep, head))
+                        return True
+                    tpos = tnl + 2
+            cstart = nl + 2
+            cend = cstart + size
+            if len(buf) < cend + 2:
+                break
+            out += buf[cstart:cend]
+            pos = cend + 2
+        if eof:
+            w.set_exception(asyncio.IncompleteReadError(bytes(buf), None))
+            return True
+        return False
+
+
+def _fire_timeout(conn: "_ClientConn", deadline_s: float) -> None:
+    """Per-request deadline: fail the in-flight waiter and drop the
+    connection (a half-read response can't be reused)."""
+    w = conn.waiter
+    if w is not None and not w.done():
+        w.set_exception(
+            TimeoutError(f"request exceeded {deadline_s}s deadline")
+        )
+    conn.closed = True
+    if conn.transport is not None:
+        conn.transport.close()
+
+
+def response_header(head: bytes, name: bytes) -> str:
+    """The value of one header of a response head `request_full` returned
+    ("" when absent); `name` is lower-case."""
+    for line in head.split(b"\r\n")[1:]:
+        k, _, v = line.partition(b":")
+        if k.strip().lower() == name:
+            return v.strip().decode("latin1")
+    return ""
+
+
+class FastHTTPClient:
+    """Keep-alive HTTP/1.1 client pool. request() -> (status, body).
+
+    Built for the data plane's shapes: small JSON/payload responses framed
+    by Content-Length. Responses without a Content-Length are read to EOF
+    and the connection retired. Every request carries a deadline (default
+    30 s; timeout=None only for streaming shapes); a stale pooled
+    connection gets one retry on a fresh one within the same deadline."""
+
+    def __init__(self, pool_per_host: int = 32):
+        self._pool: dict = {}
+        self._limit = pool_per_host
+
+    async def _get(
+        self, hostport: str, timeout: Optional[float] = None
+    ) -> _ClientConn:
+        conns = self._pool.setdefault(hostport, [])
+        while conns:
+            c = conns.pop()
+            if not c.closed and not c.transport.is_closing():
+                return c
+        host, _, port = hostport.rpartition(":")
+        loop = asyncio.get_running_loop()
+        connect = loop.create_connection(
+            lambda: _ClientConn(loop), host, int(port)
+        )
+        if timeout is not None:
+            _, proto = await asyncio.wait_for(connect, timeout)
+        else:
+            _, proto = await connect
+        return proto
+
+    def _put(self, hostport: str, conn: _ClientConn):
+        conns = self._pool.setdefault(hostport, [])
+        if (
+            len(conns) < self._limit
+            and not conn.closed
+            and not conn.transport.is_closing()
+        ):
+            conns.append(conn)
+        else:
+            conn.transport.close()
+
+    async def request(
+        self,
+        method: str,
+        hostport: str,
+        target: str,
+        body: bytes = b"",
+        content_type: str = "",
+        headers: Optional[dict] = None,
+        timeout: Optional[float] = 30.0,
+    ) -> tuple[int, bytes]:
+        status, resp_body, _head = await self.request_full(
+            method, hostport, target, body, content_type, headers,
+            timeout=timeout,
+        )
+        return status, resp_body
+
+    async def request_full(
+        self,
+        method: str,
+        hostport: str,
+        target: str,
+        body: bytes = b"",
+        content_type: str = "",
+        headers: Optional[dict] = None,
+        retried: bool = False,
+        timeout: Optional[float] = 30.0,
+    ) -> tuple[int, bytes, bytes]:
+        """(status, body, response head) of one request."""
+        t0 = time.monotonic()
+        left = timeout
+        try:
+            conn = await self._get(hostport, left)
+        except asyncio.TimeoutError as e:
+            raise TimeoutError(
+                f"connect to {hostport} exceeded {timeout}s deadline"
+            ) from e
+        if (
+            not body and not content_type and not headers
+            and method == "GET"
+        ):
+            wire = (
+                f"GET {target} HTTP/1.1\r\nHost: {hostport}\r\n\r\n".encode()
+            )
+        else:
+            parts = [
+                f"{method} {target} HTTP/1.1\r\nHost: {hostport}\r\n".encode()
+            ]
+            if content_type:
+                parts.append(f"Content-Type: {content_type}\r\n".encode())
+            if body or method in ("POST", "PUT"):
+                parts.append(b"Content-Length: %d\r\n" % len(body))
+            if headers:
+                for k, v in headers.items():
+                    parts.append(f"{k}: {v}\r\n".encode())
+            parts.append(b"\r\n")
+            if body:
+                parts.append(body)
+            wire = b"".join(parts)
+        th = None
+        try:
+            fut = conn.begin()
+            conn.transport.write(wire)
+            if timeout is not None:
+                left = max(0.001, timeout - (time.monotonic() - t0))
+                th = conn._loop.call_later(left, _fire_timeout, conn, left)
+            status, resp_body, reusable, head = await fut
+        except asyncio.CancelledError:
+            conn.transport.close()
+            raise
+        except TimeoutError:
+            raise
+        except (ConnectionError, asyncio.IncompleteReadError, OSError):
+            conn.transport.close()
+            if retried:
+                raise
+            # stale pooled connection: one retry on a fresh one, within
+            # the remaining deadline
+            if th is not None:
+                th.cancel()
+                th = None
+            if timeout is not None:
+                left = max(0.001, timeout - (time.monotonic() - t0))
+            return await self.request_full(
+                method, hostport, target, body, content_type, headers,
+                retried=True, timeout=left,
+            )
+        finally:
+            if th is not None:
+                th.cancel()
+        if reusable:
+            self._put(hostport, conn)
+        else:
+            conn.transport.close()
+        # every completed response is successful traffic for the shared
+        # retry budget: successes deposit its ratio and failures withdraw
+        # one, so retries stay capped at a fraction of real throughput
+        # and the budget refills as soon as peers answer again
+        shared_retry_budget().on_success()
+        return status, resp_body, head
+
+    async def close(self):
+        for conns in self._pool.values():
+            for c in conns:
+                try:
+                    c.transport.close()
+                except Exception:
+                    pass
+        self._pool.clear()
 
 
 # ------------------------------------------------------------- multipart --

@@ -143,6 +143,17 @@ EC_RECONSTRUCTIONS = REGISTRY.counter(
     "EC degraded-read interval reconstructions by kind (cold/cache_hit)",
 )
 
+# retries (util/backoff.py): attempts by operation, and the retries the
+# shared RetryBudget withheld
+RETRY_COUNTER = REGISTRY.counter(
+    "seaweedfs_tpu_retries_total", "retry attempts by operation"
+)
+RETRIES_SUPPRESSED = REGISTRY.counter(
+    "seaweedfs_tpu_retries_suppressed_total",
+    "retries/hedges withheld by the shared RetryBudget (token bucket "
+    "refilled by successes — no retry storms), by op",
+)
+
 
 def render() -> str:
     """Every family in the Prometheus text exposition format (the

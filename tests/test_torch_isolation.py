@@ -4,11 +4,12 @@ the JAX package seaweedfs_tpu (exact module names: seaweedfs_tpu_torch
 itself merely starts with the same letters), and a process that refuses
 those imports (and triton, with no nvcc on its PATH) runs an encode, a
 rebuild, a degraded read, a Volume.bulk_lookup, an EcVolume.bulk_locate,
-one gate flush through the arena of the port, and the port's volume
-server on the CPU answering an RPC, a POST and a GET, building no
-kernel. The plain versions of the server's transport: a unary RPC round
-trip through pb/rpc.py, and util/mpack.py against msgpack on the RPC
-messages."""
+one gate flush through the arena of the port, and the port's master
+(with topology, sequence and raft) and a volume server heartbeating to
+it on the CPU answering an assign, a POST and a GET, with the client and
+shell modules imported, building no kernel. The plain versions of the
+server's transport: a unary RPC round trip through pb/rpc.py, and
+util/mpack.py against msgpack on the RPC messages."""
 
 import ast
 import os
@@ -162,34 +163,46 @@ _SCRIPT = textwrap.dedent(
     for v in vols.values():
         v.close()
 
-    # the volume server on the CPU: one RPC, one POST, one GET
-    from seaweedfs_tpu_torch.pb import grpc_address
-    from seaweedfs_tpu_torch.pb.rpc import Stub
+    # the master and a volume server on the CPU: an assign, a POST, a GET
+    import json, time
+    from seaweedfs_tpu_torch import client, sequence, shell, topology
+    from seaweedfs_tpu_torch.server import raft
+    from seaweedfs_tpu_torch.server.master import MasterServer
     from seaweedfs_tpu_torch.server.volume import VolumeServer
-    port = int(sys.argv[2])
+    mport, port = int(sys.argv[2]), int(sys.argv[3])
+    async def http(p, req):
+        r, w = await asyncio.open_connection("127.0.0.1", p)
+        w.write(req)
+        head = await r.readuntil(b"\\r\\n\\r\\n")
+        n = int(head.lower().split(b"content-length:")[1].split(b"\\r\\n")[0])
+        body = await r.readexactly(n)
+        w.close()
+        return head.split(b" ")[1], body
     async def serve():
+        ms = MasterServer(port=mport)
+        await ms.start()
         vs = VolumeServer([os.path.join(d, "srv")], port=port,
                           codec_backend="cpu", batch_lookup="arena",
-                          needle_map_kind="lsm")
+                          needle_map_kind="lsm", pulse_seconds=0.2,
+                          master=ms.address)
         await vs.start()
         try:
-            stub = Stub(grpc_address(vs.address), "volume")
-            assert await stub.call("AllocateVolume", {"volume_id": 4}) == {}
-            async def http(req):
-                r, w = await asyncio.open_connection("127.0.0.1", port)
-                w.write(req)
-                head = await r.readuntil(b"\\r\\n\\r\\n")
-                n = int(head.lower().split(b"content-length:")[1].split(b"\\r\\n")[0])
-                body = await r.readexactly(n)
-                w.close()
-                return head.split(b" ")[1], body
-            st, body = await http(b"POST /4,0163e1b2c3 HTTP/1.1\\r\\n"
+            t0 = time.monotonic()
+            while not ms.topo.data_nodes():
+                assert time.monotonic() - t0 < 10, "no heartbeat"
+                await asyncio.sleep(0.05)
+            st, body = await http(mport, b"GET /dir/assign HTTP/1.1\\r\\n\\r\\n")
+            ar = json.loads(body)
+            assert st == b"200" and ar["url"] == vs.address, (st, body)
+            fid = ar["fid"].encode()
+            st, body = await http(port, b"POST /" + fid + b" HTTP/1.1\\r\\n"
                                   b"Content-Length: 5\\r\\n\\r\\nhello")
             assert st == b"201", (st, body)
-            st, body = await http(b"GET /4,0163e1b2c3 HTTP/1.1\\r\\n\\r\\n")
+            st, body = await http(port, b"GET /" + fid + b" HTTP/1.1\\r\\n\\r\\n")
             assert (st, body) == (b"200", b"hello"), (st, body)
         finally:
             await vs.stop()
+            await ms.stop()
     asyncio.run(asyncio.wait_for(serve(), 30))
     loaded = [m for m in sys.modules
               if any(m == f or m.startswith(f + ".")
@@ -226,7 +239,8 @@ def test_port_runs_with_jax_imports_refused(tmp_path):
     env["PYTHONPATH"] = REPO
     env["PATH"] = "/usr/bin:/bin"  # no nvcc
     proc = subprocess.run(
-        [sys.executable, "-c", _SCRIPT, str(tmp_path), str(_free_port())],
+        [sys.executable, "-c", _SCRIPT, str(tmp_path), str(_free_port()),
+         str(_free_port())],
         cwd=str(tmp_path), env=env, capture_output=True, text=True, timeout=120,
     )
     assert proc.returncode == 0, proc.stdout + proc.stderr

@@ -377,7 +377,8 @@ def test_ec_generate_equals_jax(tmp_path, geometry):
 
 def test_degraded_get_and_rebuild(tmp_path):
     """Generate, mount the shards, delete the normal volume (its EC files
-    kept), lose four shards: every GET decodes the written bytes, then
+    kept), lose four shards: every GET decodes the written bytes, a DELETE
+    tombstones one needle in the .ecx (202, then 404), then
     VolumeEcShardsRebuild restores the shards byte for byte (and the JAX
     package's degraded read of the same shards agrees)."""
     a = tmp_path / "a"
@@ -414,26 +415,36 @@ def test_degraded_get_and_rebuild(tmp_path):
             assert st == 404
             st, _, got = await _http(
                 pvs.port, "DELETE", "/" + str(FileId(5, key, cookie)))
-            assert st == 501 and b"not ported" in got
+            assert st == 202 and b'"size": ' in got
+            st, _, _ = await _http(pvs.port, "GET", "/" + str(FileId(5, key, cookie)))
+            assert st == 404
+            deleted = key
             reply = await stub.call("VolumeEcShardsRebuild", {"volume_id": 5})
             assert reply == {"rebuilt_shard_ids": list(lost)}
-            assert _files(a, 5, EC_FILES) == shards
+            now = _files(a, 5, EC_FILES)
+            assert {e: now[e] for e in EC_FILES if e != ".ecx"} == {
+                e: shards[e] for e in EC_FILES if e != ".ecx"}
+            assert now[".ecx"] != shards[".ecx"]  # the tombstone
+            return deleted
         finally:
             await pvs.stop()
 
+    async def jax_reads(deleted):
         # the JAX server over the rebuilt directory, four shards lost
         for s in lost:
             os.remove(a / f"5.ec{s:02d}")
         jvs = _jax_server(a)
         try:
             ev = jvs.store.find_ec_volume(5)
+            assert await jvs.read_ec_needle(ev, deleted) is None
             for key, (cookie, data) in list(live.items())[:25]:
-                n = await jvs.read_ec_needle(ev, key)
-                assert bytes(n.data) == data
+                if key != deleted:
+                    n = await jvs.read_ec_needle(ev, key)
+                    assert bytes(n.data) == data
         finally:
             jvs.store.close()
 
-    _run(body())
+    _run(jax_reads(_run(body())))
 
 
 def test_not_ported_shapes_answer_501(tmp_path):
@@ -443,22 +454,20 @@ def test_not_ported_shapes_answer_501(tmp_path):
         await pvs.start()
         try:
             stub = Stub(grpc_address(pvs.address), "volume")
-            assert await stub.call("AllocateVolume", {
-                "volume_id": 8, "replication": "001"}) == {}
             assert await stub.call("AllocateVolume", {"volume_id": 9}) == {}
             out = []
             for method, path, data, q in (
-                ("POST", "/" + str(FileId(8, 1, 1)), b"x", ""),
                 ("POST", "/" + str(FileId(9, 1, 1)), b"x", "?cm=true"),
                 ("POST", "/!batch/put", b"", ""),
-                ("GET", "/" + str(FileId(42, 1, 1)), b"", ""),
                 ("GET", "/ui", b"", ""),
                 ("GET", "/debug/pprof/profile", b"", ""),
+                ("GET", "/debug/traces", b"", ""),
+                ("GET", "/debug/overload", b"", ""),
             ):
                 st, _, got = await _http(pvs.port, method, path + q, data)
                 out.append((st, got.startswith(b'{"error": "not ported')))
             with pytest.raises(RpcError) as e:
-                await stub.call("CopyFile", {"volume_id": 9})
+                await stub.call("VolumeCopy", {"volume_id": 9})
             assert e.value.status == 501
             st, _, got = await _http(pvs.port, "GET", "/metrics")
             assert st == 200 and b"seaweedfs_tpu_request_total" in got
@@ -528,7 +537,7 @@ def test_cuda_backend_without_a_card_raises(tmp_path):
                      needle_map_kind="leveldb")
 
 
-@pytest.mark.parametrize("flags", [["-mserver", "localhost:9333"],
+@pytest.mark.parametrize("flags", [["-config", "volume.toml"],
                                    ["-tierConfig", "tier.toml"], ["-pprof"]])
 def test_cli_refuses_flags_not_ported(tmp_path, capsys, flags):
     """Flags of parts still to port are not declared: argparse refuses
