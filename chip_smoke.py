@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
 """Chip smoke test of the PyTorch/CUDA port (seaweedfs_tpu_torch) on one GPU.
 
-Drives the port's two paths through the entry points a volume server
-calls, at full width, then through the port's volume server itself, and
-holds each CUDA kernel against its plain PyTorch version: warm-storage
-erasure coding (gf_matmul) and the needle-index lookup (index_search,
+Drives the port's paths through the entry points a volume server
+calls, at full width, then through the port's volume server, its cluster
+and its mesh plane, and holds each CUDA kernel against its plain PyTorch
+version: warm-storage erasure coding (gf_matmul, and gf_verify for the
+mesh's parity check) and the needle-index lookup (index_search,
 ragged_lookup):
 
   0  identity: nvidia-smi name and power limit, torch and CUDA versions
@@ -13,7 +14,8 @@ ragged_lookup):
   2  gf_matmul against plain on the card, at the main path's shapes, and
      its median time beside the plain version's and the card's bound
   3  encode: write an 11 GiB version-3 volume (superblock, needles, .idx),
-     then write_ec_files on the card, write_sorted_file_from_idx and .vif
+     then write_ec_files on the card, write_sorted_file_from_idx and .vif;
+     the .dat's first find_dat_file_size bytes hashed for the decode
   4  rebuild: delete shards 0, 7, 10, 13 and rebuild them on the card;
      the 14 shard files must hash as before
   5  parity at the first chunk, the large-to-small block boundary and the
@@ -23,6 +25,14 @@ ragged_lookup):
      EcVolume.read_needle; payloads and checksums must be the written ones;
      then EcVolume.bulk_locate of every needle plus 10 % absent ids, equal
      to find_needle_from_ecx entry by entry
+ 6b  mesh rebuild and decode (the phase-3 volume, still on disk):
+     rebuild_ec_files_multi on a 1x1 mesh of cuda:0 brings back phase 6's
+     lost shards, then on a 2x2 grid of cuda:0 (one card in four blocks,
+     one stream each) shards 0, 7, 10, 13 removed again; every shard
+     hashes as phase 4's; then the decode in place of the original .dat:
+     find_dat_file_size, write_dat_file (10 large blocks of 1 GiB, then
+     small ones), write_idx_file_from_ec_index; the .dat hashes as the
+     original's prefix and the .idx equals the .ecx
   7  volume_lookup (`weed benchmark` scale): 1,048,576 needles of 1 KiB
      through Volume, 1 % deleted and 1 % overwritten, reloaded; bulk_lookup
      of every key plus 10 % absent in batches of 64 .. all, equal to the
@@ -72,7 +82,29 @@ ragged_lookup):
      then a 4-shard server stopped and 2,000 degraded GETs through the
      other three (each must decode on the card), `ec.rebuild` (the lost
      shards come back identical), 100 EC deletes answering 404 from every
-     live server, and every server stopped within 10 s.
+     live server, and every server stopped within 10 s. The servers sit
+     on racks r0, r1, r2, r3; the stopped server holds shards of A and of
+     the batched pair, so `ec.rebuild` sends ONE
+     VolumeEcShardsRebuildBatch for the three volumes (its gf_matmul
+     launches reported beside the per-volume rounds; 0 retries), rebuilt
+     shards equal to the lost ones and to the plain version's; then
+     `ec.balance` evens A over the three live racks (at most 5 a rack;
+     every shard still
+     the plain version's) and `ec.decode -volumeId A` makes A a normal
+     volume on one server: no shard left on a live server, no EC
+     location at the master, the .dat equal to A's pre-encode .dat up to
+     its size, 2,000 GETs through the normal read path equal to what was
+     written and the 100 needles deleted while A was EC answering 404.
+ 12  mesh (at full width): 5 volumes of 10 x 16 MiB (an uneven V) on a
+     1x1 mesh of cuda:0 and on a 2x2 grid of cuda:0 repeated (one card
+     split into four blocks, not four cards): sharded_encode,
+     sharded_verify (0, then the word count after seeded flips, through
+     the gf_verify kernel), sharded_reconstruct_step for the loss of
+     shards 2 and 12, sharded_reconstruct_padded at a ragged width,
+     sharded_bulk_lookup of phase 8's index with 10,000,003 probes (equal
+     to the single-device index_search answer), entry.entry() and
+     entry.dryrun(); each against the plain version; gf_verify's time
+     beside its plain version's and its bound.
 
 Each phase prints one JSON line; any mismatch or exception exits non-zero
 without the final line. The line before last but one is the kernels
@@ -574,7 +606,9 @@ def edge_tables(np):
     }
 
 
-def phase_index_kernel(torch, seed: int) -> dict:
+def phase_index_kernel(torch, seed: int, keep: dict) -> dict:
+    """K1 against its plain version and torch.searchsorted on one full
+    volume's index; `keep` gets the index and probes for phase 12."""
     import numpy as np
 
     from seaweedfs_tpu_torch.ops import index_kernel as K
@@ -715,6 +749,7 @@ def phase_index_kernel(torch, seed: int) -> dict:
         "probes_per_s": INDEX_PROBES / (ms * 1e-3),
     }
     emit(res)
+    keep.update(keys=keys, offs=offs, sizes=sizes, probes=probes)
     return res
 
 
@@ -1527,6 +1562,12 @@ def phase_volume_server(torch, work: str, seed: int, needle_mod, crc_mod,
 
 # --- phase 11 ----------------------------------------------------------------
 CLUSTER_VOLUME_SERVERS = 3  # `volume -mserver` beside the `server`
+# -rack of the server, then each volume: one rack each, so once a server
+# is lost and its shards rebuilt on one of the three left, that server's
+# rack holds at least 6 of A's 14 shards, above ceil(14 / 3) = 5, and
+# ec.balance always has a move to make
+CLUSTER_RACKS = ("r0", "r1", "r2", "r3")
+DECODED_GETS = 2_000  # A's GETs through the normal read path after ec.decode
 CLUSTER_SIZE_LIMIT_MB = 1024  # volume A (1,127 MB) is full, as ec.encode wants
 BENCH_N = 1 << 16  # weed benchmark -n: cut from 1,048,576 for time
 BENCH_C = 16
@@ -1550,7 +1591,7 @@ def _port_cli(args: list, timeout: float = CHILD_S) -> tuple:
                           cwd=HERE, env=env)
     wall = time.perf_counter() - t0
     if proc.returncode != 0:
-        fail(f"{args[:2]} exited {proc.returncode}: {proc.stderr[-2000:]}")
+        fail(f"{args} exited {proc.returncode}: {proc.stderr[-2000:]}")
     return proc.stdout, wall
 
 
@@ -1669,11 +1710,13 @@ def phase_cluster(torch, work: str, seed: int, keep: dict) -> dict:
     urls = [f"127.0.0.1:{p}" for p in vports]
     server_argv = ["-ip", "127.0.0.1", "-port", str(mport), "-volumePort", str(vports[0]),
                    "-dir", dirs[0], "-index", "lsm", "-batchLookup", "arena",
-                   "-storageBackend", "cuda",
+                   "-storageBackend", "cuda", "-rack", CLUSTER_RACKS[0],
                    "-volumeSizeLimitMB", str(CLUSTER_SIZE_LIMIT_MB)]
     volume_argv = [["-ip", "127.0.0.1", "-port", str(vports[i]), "-dir", dirs[i],
-                    "-mserver", maddr, "-storageBackend", "cuda"]
+                    "-mserver", maddr, "-storageBackend", "cuda",
+                    "-rack", CLUSTER_RACKS[i]]
                    for i in range(1, len(dirs))]
+    rack_of = dict(zip(urls, CLUSTER_RACKS))
     fid = lambda vid, k, c: "/" + str(FileId(vid, int(k), int(c)))  # noqa: E731
     base_plan = {"blobs": pool, "etags": [f"{c:08x}" for c in pool_crc]}
     steps = {}  # window -> {driven url: {kernel: launches in the window}}
@@ -1763,6 +1806,12 @@ def phase_cluster(torch, work: str, seed: int, keep: dict) -> dict:
         assign = _assign_rate(maddr, ASSIGNS, BENCH_C)
         g_now = gate_window("benchmark", g_now)
 
+        # A's pre-encode .dat, kept through a hard link for ec.decode's
+        # check, and each live needle's end in it from A's .idx
+        a_orig = os.path.join(work, "a_pre_encode.dat")
+        os.link(base_a + ".dat", a_orig)
+        a_keys, a_ends = _live_ends(base_a)
+
         # ec.encode of A through the shell, held to the plain version
         c0 = counts()
         out, encode_wall = _port_cli(["shell", "-master", maddr, "lock; ec.encode -volumeId 1"])
@@ -1831,6 +1880,7 @@ def phase_cluster(torch, work: str, seed: int, keep: dict) -> dict:
                         fail(f"batched encode of volume {v}: {e} differs from the plain version's")
         if steps["encode_pair"][src]["gf_matmul"] <= 0:
             fail("the batched encode launched gf_matmul no time")
+        pair_holders = {v: _ec_holders(maddr, v, 14, 60) for v in pair}
 
         # remote-shard GETs of A over all four servers, 10 % absent
         n_each = REMOTE_GETS // len(urls)
@@ -1855,11 +1905,17 @@ def phase_cluster(torch, work: str, seed: int, keep: dict) -> dict:
         remote_wall = sum(r["wall_s"] for r in remote)
         g_now = gate_window("remote_gets", g_now)
 
-        # the outage: stop a server (not the master's) that holds 4 of A's shards
-        victim = sorted(u for u, s in holders.items() if len(s) == 4 and u != urls[0])[0]
+        # the outage: stop a server (not the master's) that holds shards of
+        # A and of both batched volumes, 4 of A's where one does
+        cands = sorted((-len(holders.get(u, [])), u) for u in urls[1:]
+                       if u in holders and all(u in pair_holders[v] for v in pair))
+        if not cands:
+            fail(f"no volume server holds shards of A and of {pair}: {holders}, {pair_holders}")
+        victim = cands[0][1]
         vi = urls.index(victim)
         lost = sorted(holders[victim])
         lost_sums = sha1_files([os.path.join(dirs[vi], f"1.ec{i:02d}") for i in lost])
+        pair_lost = {v: sorted(pair_holders[v][victim]) for v in pair}
         outage_stop_s = _stop_served(served[vi], SERVER_STOP_S)
         t1 = time.perf_counter()
         while True:
@@ -1886,25 +1942,90 @@ def phase_cluster(torch, work: str, seed: int, keep: dict) -> dict:
                 fail(f"degraded GETs on {url} decoded nothing on the card")
         degraded_wall = sum(r["wall_s"] for r in degraded.values())
 
-        # ec.rebuild through the shell: the lost shards come back identical
+        # ec.rebuild through the shell: ONE VolumeEcShardsRebuildBatch to the
+        # rebuilder for A and the pair, each RPC's launches counted inside
+        # it (the other servers are idle meanwhile); the lost shards come
+        # back identical
+        batch_calls, single_calls = [], []
+
+        def counted_rpc(url, method, calls):
+            vs = vs_of[url]
+            key = f"/volume/{method}"
+            kind, real = vs._rpc_server._routes[key]
+
+            async def wrapper(req, context):
+                n0 = G.KERNEL_LAUNCHES
+                try:
+                    return await real(req, context)
+                finally:
+                    calls.append({"on": url, "volume_ids": sorted(
+                        int(v) for v in req.get("volume_ids", [req.get("volume_id")])),
+                        "gf_matmul": G.KERNEL_LAUNCHES - n0})
+
+            vs._rpc_server._routes[key] = (kind, wrapper)
+            return key, (kind, real)
+
+        restore = []
+        for url in readers:
+            restore.append((url, *counted_rpc(url, "VolumeEcShardsRebuildBatch", batch_calls)))
+            restore.append((url, *counted_rpc(url, "VolumeEcShardsRebuild", single_calls)))
         c0 = counts()
-        out, rebuild_wall = _port_cli(["shell", "-master", maddr, "lock; ec.rebuild"])
-        rebuilt_on = None
+        try:
+            out, rebuild_wall = _port_cli(["shell", "-master", maddr, "lock; ec.rebuild"])
+        finally:
+            for url, key, route in restore:
+                vs_of[url]._rpc_server._routes[key] = route
+        rebuilt_on = {}
         for line in out.splitlines():
-            if line.startswith("volume 1: rebuilt shards"):
-                rebuilt_on = line.rsplit(" on ", 1)[1].strip()
-        if rebuilt_on not in readers:
+            m = re.match(r"volume (\d+): rebuilt shards \[([0-9, ]*)\] on (\S+)", line)
+            if m:
+                rebuilt_on[int(m.group(1))] = m.group(3)
+        if sorted(rebuilt_on) != sorted([1, *pair]) or len(set(rebuilt_on.values())) != 1:
             fail(f"ec.rebuild: {out!r}")
-        steps["rebuild"] = {rebuilt_on: since(c0)}
-        if steps["rebuild"][rebuilt_on]["gf_matmul"] <= 0:
+        rebuilder = rebuilt_on[1]
+        if rebuilder not in readers:
+            fail(f"ec.rebuild rebuilt on {rebuilder}, not a live server")
+        steps["rebuild"] = {rebuilder: since(c0)}
+        if len(batch_calls) != 1 or batch_calls[0]["volume_ids"] != sorted([1, *pair]) \
+                or single_calls:
+            fail(f"ec.rebuild sent {batch_calls} batch and {single_calls} single RPCs")
+        if steps["rebuild"][rebuilder]["gf_matmul"] <= 0:
             fail("ec.rebuild launched gf_matmul no time")
-        rd = dirs[urls.index(rebuilt_on)]
+        if vs_of[rebuilder].device_errors.get("ec_rebuild_batch"):
+            fail(f"the batch rebuild was retried volume by volume: "
+                 f"{vs_of[rebuilder].device_errors}")
+        rd = dirs[urls.index(rebuilder)]
         got = sha1_files([os.path.join(rd, f"1.ec{i:02d}") for i in lost])
         for i in lost:
             if got[os.path.join(rd, f"1.ec{i:02d}")] != lost_sums[
                     os.path.join(dirs[vi], f"1.ec{i:02d}")]:
                 fail(f"rebuilt .ec{i:02d} differs from the lost one")
-        _ec_holders(maddr, 1, 14, 60)
+        for v in pair:
+            for i in pair_lost[v]:
+                path = os.path.join(rd, f"{v}.ec{i:02d}")
+                if sha1_files([path])[path] != pair_sums[v][f".ec{i:02d}"]:
+                    fail(f"rebuilt {v}.ec{i:02d} differs from the plain version's")
+        # the launches one RPC per volume would have made: each volume's
+        # rounds of DEFAULT_CHUNK, one launch per 8 rebuilt rows; volumes
+        # that lost the same shards at the same round width share launches
+        per_volume = {}
+        shapes = {}
+        for v, miss in [(1, lost)] + [(v, pair_lost[v]) for v in pair]:
+            size = os.path.getsize(os.path.join(rd, f"{v}.ec{miss[0]:02d}"))
+            rounds = -(-size // enc.DEFAULT_CHUNK)
+            per_volume[v] = rounds * -(-len(miss) // 8)
+            widths = {min(enc.DEFAULT_CHUNK, size - r * enc.DEFAULT_CHUNK)
+                      for r in range(rounds)}
+            shapes[v] = (tuple(miss), widths)
+        shared = any(shapes[a][0] == shapes[b][0] and shapes[a][1] & shapes[b][1]
+                     for a in shapes for b in shapes if a < b)
+        batch_launches = batch_calls[0]["gf_matmul"]
+        if batch_launches > sum(per_volume.values()) or (
+                shared and batch_launches >= sum(per_volume.values())):
+            fail(f"the batch rebuild launched {batch_launches} times against "
+                 f"{per_volume} per volume (shared matrix and width: {shared})")
+        for v in (1, *pair):
+            _ec_holders(maddr, v, 14, 60)
 
         # EC deletes: each then answers 404 from every live server
         doomed = rng.choice(np.nonzero(live)[0], EC_DELETES, replace=False)
@@ -1916,6 +2037,84 @@ def phase_cluster(torch, work: str, seed: int, keep: dict) -> dict:
         for j, url in enumerate(readers):
             _drive(work, f"deleted{j}", vports[urls.index(url)], dict(
                 base_plan, requests=[("GET", p, -1, 404) for p in paths]), BENCH_C, 600)
+
+        # ec.balance over the live servers: A's shards even out over their
+        # three racks
+        c0 = counts()
+        out, balance_wall = _port_cli(["shell", "-master", maddr, "lock; ec.balance"])
+        moves = [ln for ln in out.splitlines() if "moved shard" in ln]
+        dropped = [ln for ln in out.splitlines() if "dropped duplicate" in ln]
+        if not moves:
+            fail(f"ec.balance moved nothing: {out!r}")
+        steps["balance"] = {readers[0]: since(c0)}
+        # the master learns of each move's copy and delete a pulse apart:
+        # wait until what it lists is what the live servers' disks hold
+        t1 = time.perf_counter()
+        while True:
+            holders = _ec_holders(maddr, 1, 14, 60)
+            on_disk = {u: sorted(int(f[4:6]) for f in os.listdir(dirs[urls.index(u)])
+                                 if re.fullmatch(r"1\.ec\d\d", f)) for u in readers}
+            per_rack = {}
+            for u, sids in holders.items():
+                per_rack[rack_of[u]] = per_rack.get(rack_of[u], 0) + len(sids)
+            if max(per_rack.values()) <= -(-14 // len(readers)) and all(
+                    sorted(holders.get(u, [])) == on_disk[u] for u in readers):
+                break
+            if time.perf_counter() - t1 > 30:
+                fail(f"A's shards per rack after ec.balance: {per_rack} ({holders}; "
+                     f"on disk {on_disk})")
+            time.sleep(0.1)
+        for url, shard_ids in holders.items():
+            d = dirs[urls.index(url)]
+            got = sha1_files([os.path.join(d, f"1.ec{i:02d}") for i in shard_ids])
+            for path, h in got.items():
+                if h != shard_sums[path[len(os.path.join(d, "1")):]]:
+                    fail(f"{path} differs from the plain version's encode after ec.balance")
+
+        # ec.decode of A: a normal volume again, on one server
+        c0 = counts()
+        out, decode_wall = _port_cli(["shell", "-master", maddr,
+                                      "lock; ec.decode -volumeId 1"])
+        m = re.search(r"ec volume 1 decoded back to a normal volume on (\S+)", out)
+        if not m or m.group(1) not in readers:
+            fail(f"ec.decode -volumeId 1: {out!r}")
+        decoded_on = m.group(1)
+        steps["decode"] = {decoded_on: since(c0)}
+        t1 = time.perf_counter()
+        while True:
+            look = _http_json(mport, "/dir/lookup?volumeId=1")
+            ec_left = asyncio.run(Stub(grpc_address(maddr), "master").call(
+                "LookupEcVolume", {"volume_id": 1}))
+            locs = [loc["url"] for loc in look.get("locations", [])]
+            if locs == [decoded_on] and not ec_left.get("shard_id_locations"):
+                break
+            if time.perf_counter() - t1 > 30:
+                fail(f"after ec.decode the master has {look} and EC {ec_left}")
+            time.sleep(0.1)
+        for url in readers:
+            d = dirs[urls.index(url)]
+            left = [f for f in os.listdir(d) if f.startswith("1.ec")]
+            if left:
+                fail(f"{url} keeps {left} after ec.decode")
+        dd = dirs[urls.index(decoded_on)]
+        # find_dat_file_size over the pre-encode index less the needles
+        # deleted while A was EC: the decoded .dat has exactly that many bytes
+        dat_size = int(a_ends[~np.isin(a_keys, ids[doomed])].max())
+        got_size = os.path.getsize(os.path.join(dd, "1.dat"))
+        if got_size != dat_size:
+            fail(f"A's decoded .dat has {got_size} bytes, its pre-encode index "
+                 f"less the deletions gives {dat_size}")
+        if _hash_prefix(os.path.join(dd, "1.dat"), dat_size) != _hash_prefix(a_orig, dat_size):
+            fail("A's decoded .dat differs from its pre-encode .dat")
+        os.remove(a_orig)
+        deleted_now = set(doomed.tolist())
+        pick = rng.choice(np.array([i for i in np.nonzero(live)[0] if i not in deleted_now]),
+                          DECODED_GETS, replace=False)
+        decoded_reads = _drive(work, "decoded", vports[urls.index(decoded_on)], dict(
+            base_plan, requests=[("GET", fid(1, ids[i], cookies[i]), int(blob_of[i]), 200)
+                                 for i in pick.tolist()]
+            + [("GET", p, -1, 404) for p in paths]), BENCH_C, 600)
+
         device_errors = {u: dict(vs_of[u].device_errors) for u in readers}
         if any(device_errors.values()):
             fail(f"device errors in the cluster: {device_errors}")
@@ -1968,8 +2167,26 @@ def phase_cluster(torch, work: str, seed: int, keep: dict) -> dict:
                           "wall_s": degraded_wall,
                           "per_s": CLUSTER_DEGRADED_GETS / degraded_wall,
                           "p99_ms": max(r["p99_ms"] for r in degraded.values())},
-        "ec_rebuild": {"shell_wall_s": rebuild_wall, "on": rebuilt_on,
-                       "rebuilt_identical": True},
+        "ec_rebuild": {"shell_wall_s": rebuild_wall, "on": rebuilder,
+                       "volumes": sorted(rebuilt_on), "rebuilt_identical": True,
+                       "rebuild_batch_rpcs": batch_calls,
+                       "rebuild_single_rpcs": len(single_calls),
+                       "batch_gf_matmul_launches": batch_launches,
+                       "per_volume_rpc_launches": per_volume,
+                       "lost": {"1": lost, **{str(v): pair_lost[v] for v in pair}},
+                       "shared_matrix_and_width": shared,
+                       "batch_retries": vs_of[rebuilder].device_errors.get(
+                           "ec_rebuild_batch", 0)},
+        "ec_balance": {"shell_wall_s": balance_wall, "racks": rack_of,
+                       "moves": len(moves), "dropped_duplicates": len(dropped),
+                       "a_per_rack": per_rack, "shards_equal_to_plain": True},
+        "ec_decode_a": {"shell_wall_s": decode_wall, "on": decoded_on,
+                        "dat_bytes": dat_size, "dat_equal_to_pre_encode": True,
+                        "master_ec_locations": 0,
+                        "shards_left_on_live_servers": 0,
+                        "gets": DECODED_GETS, "gets_wall_s": decoded_reads["wall_s"],
+                        "gets_per_s": (DECODED_GETS + EC_DELETES) / decoded_reads["wall_s"],
+                        "deleted_while_ec_404": EC_DELETES},
         "ec_deletes": {"needles": EC_DELETES, "404_on": readers},
         "stop_s": stop_s,
         "launches_by_window": steps,
@@ -1977,6 +2194,338 @@ def phase_cluster(torch, work: str, seed: int, keep: dict) -> dict:
         "launches_note": "windows of the process-wide counters, each while "
                          "the script drove the server named",
         "kernel_launches": launches,
+        "phase_s": time.perf_counter() - t_phase,
+    }
+    emit(res)
+    return res
+
+
+# --- after phase 6: the mesh rebuild and the decode of the phase-3 volume ---
+def _live_ends(base: str):
+    """A volume's live needles from its .idx (each key's newest entry
+    wins, tombstones drop out): their keys and the end of each record in
+    the .dat, the ends find_dat_file_size takes the largest of."""
+    import numpy as np
+
+    from seaweedfs_tpu_torch.storage import idx as idx_mod
+    from seaweedfs_tpu_torch.storage.needle import get_actual_size
+    from seaweedfs_tpu_torch.types import to_actual_offset
+
+    with open(base + ".idx", "rb") as f:
+        data = f.read()
+    with open(base + ".dat", "rb") as f:
+        version = f.read(1)[0]
+    usable = len(data) - len(data) % idx_mod.NEEDLE_MAP_ENTRY_SIZE
+    keys, offs, sizes = idx_mod.fold_live_columns(*idx_mod.parse_index_bytes(data[:usable]))
+    ends = np.array([to_actual_offset(o) + get_actual_size(z, version)
+                     for o, z in zip(offs.tolist(), sizes.tolist())], dtype=np.int64)
+    return keys, ends
+
+
+def _hash_prefix(path: str, n: int) -> str:
+    """A digest of the first n bytes of a file (fails when it is
+    shorter): the sha1 of the sha1s of its 1 GiB pieces, hashed on 8
+    threads."""
+    import concurrent.futures as cf
+
+    def piece(start: int) -> bytes:
+        h = hashlib.sha1()
+        with open(path, "rb") as f:
+            f.seek(start)
+            left = min(GIB, n - start)
+            while left:
+                b = f.read(min(16 * MIB, left))
+                if not b:
+                    fail(f"{path} ends before {n} bytes")
+                h.update(b)
+                left -= len(b)
+        return h.digest()
+
+    with cf.ThreadPoolExecutor(8) as pool:
+        return hashlib.sha1(b"".join(pool.map(piece, range(0, n, GIB)))).hexdigest()
+
+
+def phase_mesh_rebuild_and_decode(torch, base: str, codec, want: dict,
+                                  original: dict) -> dict:
+    """The phase-3 volume (shards 1, 5, 11, 12 gone after phase 6) through
+    rebuild_ec_files_multi on a 1x1 mesh of cuda:0, then with shards 0, 7,
+    10, 13 removed again on a 2x2 grid of cuda:0 (one card split into four
+    blocks, one stream each); every shard must hash as phase 4's. Then the
+    decode back to a volume: find_dat_file_size, write_dat_file (10 large
+    blocks of 1 GiB, then small ones), write_idx_file_from_ec_index; the
+    .dat must hash as the original's first dat_size bytes (`original`,
+    hashed in phase 3; the original is removed first, so the decode needs
+    no more disk than the encode did) and the .idx equal the .ecx (no
+    .ecj: nothing was deleted)."""
+    from seaweedfs_tpu_torch.ops import gf256 as G
+    from seaweedfs_tpu_torch.parallel import make_mesh
+    from seaweedfs_tpu_torch.storage.erasure_coding import encoder as enc
+    from seaweedfs_tpu_torch.storage.erasure_coding import to_ext
+
+    cuda0 = torch.device("cuda", 0)
+    meshes = {"1x1": make_mesh(devices=[cuda0]),
+              "2x2": make_mesh(devices=[cuda0] * 4)}
+    lost_by = {"1x1": list(DEGRADED_LOST), "2x2": list(REBUILD_LOST)}
+    launches = {}
+    walls = {}
+    for name, mesh in meshes.items():
+        for i in lost_by[name]:
+            if os.path.exists(base + to_ext(i)):
+                os.remove(base + to_ext(i))
+        G.KERNEL_LAUNCHES = 0
+        t0 = time.perf_counter()
+        res = enc.rebuild_ec_files_multi([base], codec=codec, mesh=mesh)
+        walls[name] = time.perf_counter() - t0
+        launches[name] = G.KERNEL_LAUNCHES
+        if res != {base: lost_by[name]}:
+            fail(f"mesh rebuild ({name}) made {res}, expected {lost_by[name]}")
+        paths = [base + to_ext(i) for i in lost_by[name]]
+        got = sha1_files(paths)
+        for path in paths:
+            if got[path] != want[path]:
+                fail(f"mesh rebuild ({name}): {path} differs from the encoded shard")
+        if launches[name] <= 0:
+            fail(f"mesh rebuild ({name}) launched gf_matmul no time")
+    shard_bytes = os.path.getsize(base + to_ext(0))
+
+    os.remove(base + ".dat")
+    os.remove(base + ".idx")
+    G.KERNEL_LAUNCHES = 0
+    t0 = time.perf_counter()
+    dat_size = enc.find_dat_file_size(base)
+    size_s = time.perf_counter() - t0
+    enc.write_dat_file(base, dat_size)
+    dat_s = time.perf_counter() - t0 - size_s
+    enc.write_idx_file_from_ec_index(base)
+    decode_s = time.perf_counter() - t0
+    decode_launches = G.KERNEL_LAUNCHES
+    if (os.path.getsize(base + ".dat"), dat_size) != (dat_size, original["dat_size"]):
+        fail(f"the decoded .dat has {os.path.getsize(base + '.dat')} bytes, "
+             f"find_dat_file_size {dat_size}, in phase 3 {original['dat_size']}")
+    t0 = time.perf_counter()
+    h_new = _hash_prefix(base + ".dat", dat_size)
+    hash_s = time.perf_counter() - t0
+    if h_new != original["sha1"]:
+        fail("the decoded .dat differs from the original's first dat_size bytes")
+    with open(base + ".idx", "rb") as f1, open(base + ".ecx", "rb") as f2:
+        if f1.read() != f2.read():
+            fail("the decoded .idx differs from the .ecx (no .ecj to append)")
+    res = {
+        "phase": "mesh_rebuild_and_decode",
+        "mesh_rebuild": {
+            name: {"mesh": repr(meshes[name]), "lost": lost_by[name],
+                   "wall_s": walls[name],
+                   "GBps": 10 * shard_bytes / walls[name] / 1e9,
+                   "gf_matmul_launches": launches[name], "identical": True}
+            for name in meshes},
+        "mesh_note": "one card: the 2x2 grid repeats cuda:0, four blocks on four streams",
+        "decode": {"dat_bytes": dat_size,
+                   "original_bytes": original["bytes"],
+                   "large_rows": dat_size // (10 * GIB),
+                   "find_dat_file_size_s": size_s, "write_dat_file_s": dat_s,
+                   "write_dat_file_GBps": dat_size / dat_s / 1e9,
+                   "total_s": decode_s, "hash_s": hash_s,
+                   "dat_equal_to_original_prefix": True, "idx_equal_to_ecx": True,
+                   "gf_matmul_launches": decode_launches},
+    }
+    emit(res)
+    return res
+
+
+# --- phase 12 ----------------------------------------------------------------
+MESH_VOLUMES = 5  # an uneven V over the 2x2 grid's vol axis of 2
+MESH_SHARD_BYTES = 16 * MIB  # each of the 10 data rows of a volume
+MESH_RAGGED = MIB + 13  # sharded_reconstruct_padded's ragged byte width
+MESH_LOST = [2, 12]  # one data and one parity shard, as the JAX dryrun
+MESH_EXTRA_PROBES = 3  # 10,000,003 probes: uneven over 4 places
+
+
+def phase_mesh(torch, seed: int, index: dict, ires: dict, sm_clock_hz: float) -> dict:
+    """The mesh plane on the card at full width: sharded_encode, verify,
+    reconstruct_step and reconstruct_padded of 5 volumes of 10 x 16 MiB,
+    on a 1x1 mesh of cuda:0 and on a 2x2 grid of cuda:0 repeated (one
+    card split into four blocks, one stream each; not four cards); the
+    sharded bulk lookup of phase 8's index with 10,000,003 probes;
+    entry.entry() and entry.dryrun() on both meshes. Launch counts are
+    read after the path and before the comparisons with the plain
+    versions, which follow; then gf_verify's time beside its plain
+    version's and its bound."""
+    import numpy as np
+
+    from seaweedfs_tpu_torch import entry
+    from seaweedfs_tpu_torch.ops import gf256 as G
+    from seaweedfs_tpu_torch.ops import index_kernel as IK
+    from seaweedfs_tpu_torch.parallel import (
+        make_mesh,
+        sharded_bulk_lookup,
+        sharded_encode,
+        sharded_reconstruct_padded,
+        sharded_reconstruct_step,
+        sharded_verify,
+    )
+    from seaweedfs_tpu_torch.parallel.sharded_lookup import replicate_index, search_blocks
+    from seaweedfs_tpu_torch.storage.erasure_coding import galois
+
+    t_phase = time.perf_counter()
+    cuda0 = torch.device("cuda", 0)
+    meshes = {"1x1": make_mesh(devices=[cuda0]),
+              "2x2": make_mesh(devices=[cuda0] * 4)}
+    full = galois.build_matrix(10, 14)
+    pm = full[10:]
+    survivors = [i for i in range(14) if i not in MESH_LOST][:10]
+    dec_rows = galois.mat_mul(full[np.asarray(MESH_LOST)],
+                              galois.reconstruction_matrix(full, survivors))
+    gen = torch.Generator(device=cuda0)
+    gen.manual_seed(seed + 12)
+    data = torch.randint(0, 256, (MESH_VOLUMES, 10, MESH_SHARD_BYTES), dtype=torch.uint8,
+                         device=cuda0, generator=gen)
+    # seeded flips: two bytes of one parity word, a parity byte, a data byte
+    flips = [(3, 12, 76, 0xFF), (3, 12, 77, 0x0F), (0, 13, MESH_SHARD_BYTES - 1, 0x01),
+             (4, 2, 1000, 0x80)]
+    keys, offs, sizes = index["keys"], index["offs"], index["sizes"]
+    rng = np.random.default_rng(seed + 12)
+    absent = rng.integers(int(keys[-1]) + 1, 1 << 62, size=MESH_EXTRA_PROBES, dtype=np.uint64)
+    probes = np.concatenate([index["probes"], absent])
+
+    G.KERNEL_LAUNCHES = G.VERIFY_LAUNCHES = IK.KERNEL_LAUNCHES = 0
+    t_path = time.perf_counter()
+    out = {}
+    for name, mesh in meshes.items():
+        o = out[name] = {}
+        o["parity"] = sharded_encode(pm, data, mesh)
+        shards = torch.cat([data, o["parity"]], dim=1)
+        o["verify_clean"] = sharded_verify(pm, shards, mesh)
+        for v, r, b, x in flips:
+            shards[v, r, b] ^= x
+        o["verify_flipped"] = sharded_verify(pm, shards, mesh)
+        o["shards_flipped"] = shards
+        clean = torch.cat([data, o["parity"]], dim=1)
+        o["rec"] = sharded_reconstruct_step(dec_rows, clean[:, survivors], mesh)
+        host = clean[:, survivors, :MESH_RAGGED].cpu().numpy()
+        o["padded"] = sharded_reconstruct_padded(dec_rows, host, mesh)
+        o["lookup"] = sharded_bulk_lookup(keys, offs, sizes, probes, mesh)
+        fn, args = entry.entry()
+        o["entry"] = (fn(*args), args[0])
+        entry.dryrun(list(mesh.devices.flat))
+        del shards, clean
+    torch.cuda.synchronize()
+    path_s = time.perf_counter() - t_path
+    launches = {"gf_matmul": G.KERNEL_LAUNCHES, "gf_verify": G.VERIFY_LAUNCHES,
+                "index_search": IK.KERNEL_LAUNCHES}
+
+    # the comparisons: the plain versions on the card, then single-device K1
+    plain_parity = torch.stack([
+        G._gf_matmul_torch_packed(pm, data[v].view(torch.int32)).view(torch.uint8)
+        for v in range(MESH_VOLUMES)])
+    snap = IK.IndexSnapshot(keys, offs, sizes)
+    single = snap.lookup(probes)
+    del snap
+    clean_plain = torch.cat([data, plain_parity], 1)
+    plain_rec = torch.stack([G._gf_matmul_torch_packed(
+        dec_rows, clean_plain[v, survivors].view(torch.int32)).view(torch.uint8)
+        for v in range(MESH_VOLUMES)])
+    del clean_plain
+    worst = 0
+    verify_err = 0
+    for name, o in out.items():
+        if not torch.equal(o["parity"], plain_parity):
+            fail(f"sharded_encode ({name}) != the plain version")
+        want_flipped = sum(int(G._gf_verify_torch(
+            pm, o["shards_flipped"][v, :10].view(torch.int32),
+            o["shards_flipped"][v, 10:].view(torch.int32))) for v in range(MESH_VOLUMES))
+        verify_err = max(verify_err, o["verify_clean"], abs(o["verify_flipped"] - want_flipped))
+        if o["verify_clean"] != 0 or o["verify_flipped"] != want_flipped or want_flipped != 6:
+            fail(f"sharded_verify ({name}): {o['verify_clean']}, {o['verify_flipped']} "
+                 f"(plain {want_flipped}, expected 6 words)")
+        if not (torch.equal(o["rec"], plain_rec) and torch.equal(o["rec"][:, 0], data[:, 2])
+                and torch.equal(o["rec"][:, 1], plain_parity[:, 2])):
+            fail(f"sharded_reconstruct_step ({name}) != the plain version or the lost shards")
+        if not (np.array_equal(o["padded"], plain_rec[:, :, :MESH_RAGGED].cpu().numpy())):
+            fail(f"sharded_reconstruct_padded ({name}) != the plain version")
+        for a, b in zip(o["lookup"], single):
+            if not np.array_equal(a, b):
+                fail(f"sharded_bulk_lookup ({name}) != single-device index_search")
+        got, ex = o["entry"]
+        if not torch.equal(got.view(torch.int32), torch.stack([G._gf_matmul_torch_packed(
+                pm, ex[v].view(torch.int32)) for v in range(ex.shape[0])])):
+            fail(f"entry() ({name}) != the plain version")
+        worst = max(worst, max_abs_diff(torch, [(o["parity"].view(torch.int32),
+                                                 plain_parity.view(torch.int32))]))
+    found = int(single[2].sum())
+
+    # gf_verify alone: one volume's block at the 1x1 shape, events
+    d_words = data[0].view(torch.int32)
+    p_words = plain_parity[0].view(torch.int32)
+    count = torch.zeros(1, dtype=torch.int64, device=cuda0)
+
+    def verify_kernel():
+        count.zero_()
+        G._gf_verify_cuda(pm, d_words, p_words, count=count)
+
+    def verify_kernel_only():
+        G._gf_verify_cuda(pm, d_words, p_words, count=count)
+
+    verify_ms = cuda_median_ms(torch, verify_kernel_only, 50)
+    verify_clear_ms = cuda_median_ms(torch, verify_kernel, 20)
+    verify_plain_ms = cuda_median_ms(torch, lambda: G._gf_verify_torch(pm, d_words, p_words),
+                                     5, warm=1)
+    words = MESH_SHARD_BYTES // 4
+    props = torch.cuda.get_device_properties(0)
+    v_bytes = (10 + 4) * MESH_SHARD_BYTES + 8
+    v_ops = G.count_expr_ops(pm, "mul") * words
+    int_rate = props.multi_processor_count * INT32_LANES_PER_SM * sm_clock_hz
+    v_bytes_ms = v_bytes / HBM_BYTES_PER_S * 1e3
+    v_ops_ms = v_ops / int_rate * 1e3
+
+    # the sharded lookup's device time on each mesh, replicas built once
+    k1_ms = {}
+    pad = (-len(probes)) % 4
+    pk = torch.from_numpy(np.concatenate([probes, np.zeros(pad, np.uint64)]).view(np.int64)
+                          ).to(cuda0)
+    for name, mesh in meshes.items():
+        reps = replicate_index(keys, offs, sizes, mesh)
+        k1_ms[name] = cuda_median_ms(torch, lambda: search_blocks(reps, pk, mesh), 10)
+        del reps
+    mesh_ms = {}
+    for name, mesh in meshes.items():
+        sh = torch.cat([data, plain_parity], dim=1)
+        mesh_ms[name] = {
+            "sharded_encode": cuda_median_ms(torch, lambda: sharded_encode(pm, data, mesh), 5),
+            "sharded_verify": cuda_median_ms(torch, lambda: sharded_verify(pm, sh, mesh), 5),
+        }
+        del sh
+    res = {
+        "phase": "mesh",
+        "device": {"nvidia_smi": nvidia_smi("name,power.limit")},
+        "meshes": {k: repr(m) for k, m in meshes.items()},
+        "mesh_note": "one card: the 2x2 grid repeats cuda:0 (four blocks on four "
+                     "streams), not four cards",
+        "volumes": MESH_VOLUMES, "shard_bytes": MESH_SHARD_BYTES,
+        "ragged_width": MESH_RAGGED, "lost": MESH_LOST, "flips": len(flips),
+        "verify_words": out["1x1"]["verify_flipped"],
+        "equal_to_plain": True, "max_abs_err": worst, "tolerance": "exact",
+        "lookup": {"entries": len(keys), "probes": len(probes), "found": found,
+                   "equal_to_single_device_index_search": True,
+                   "ms": k1_ms,
+                   "ms_note": "CUDA events around search_blocks: every block's K1 "
+                              "launch, replicas built before",
+                   "bound_ms_unbucketed": ires["bound_ms_unbucketed"],
+                   "plain_ms_unbucketed": ires["plain_ms_unbucketed"],
+                   "library_ms": ires["library_ms"]},
+        "mesh_ms": mesh_ms,
+        "path_s": path_s,
+        "kernel_launches": launches,
+        "gf_verify": {
+            "max_abs_err": verify_err,
+            "shape": f"[10, {words}] data and [4, {words}] parity int32 words",
+            "ms": verify_ms, "ms_from": "events",
+            "ms_with_counter_zeroing": verify_clear_ms,
+            "plain_ms": verify_plain_ms,
+            "bytes": v_bytes, "int32_ops": v_ops,
+            "bytes_bound_ms": v_bytes_ms, "ops_bound_ms": v_ops_ms,
+            "bound_ms": max(v_bytes_ms, v_ops_ms),
+            "bound_by": "operations" if v_ops_ms >= v_bytes_ms else "bytes",
+        },
         "phase_s": time.perf_counter() - t_phase,
     }
     emit(res)
@@ -2125,6 +2674,11 @@ def main() -> int:
         enc.write_sorted_file_from_idx(base)
         save_volume_info(base + ".vif", VolumeInfo(version=3))
         ecx_s = time.perf_counter() - t1
+        # the original .dat's first find_dat_file_size bytes, for the decode
+        t1 = time.perf_counter()
+        original = {"bytes": dat_size, "dat_size": enc.find_dat_file_size(base)}
+        original["sha1"] = _hash_prefix(base + ".dat", original["dat_size"])
+        original_hash_s = time.perf_counter() - t1
         if enc.LAST_ROUTE.get("kernel") != "device":
             fail(f"encode did not run on the device: {enc.LAST_ROUTE}")
         if launches["encode"] <= 0:
@@ -2148,6 +2702,7 @@ def main() -> int:
             "encode_s": encode_s,
             "GBps": dat_size / encode_s / 1e9,
             "ecx_vif_s": ecx_s,
+            "original_hash_s": original_hash_s,
             "stages": enc.LAST_STAGES,
             "kernel_launches": launches["encode"],
         })
@@ -2296,12 +2851,19 @@ def main() -> int:
             },
         })
 
+        # --- after phase 6: the mesh rebuild and the decode ---
+        dres = phase_mesh_rebuild_and_decode(torch, base, codec, want, original)
+        launches["mesh_rebuild"] = sum(
+            r["gf_matmul_launches"] for r in dres["mesh_rebuild"].values())
+        launches["decode"] = dres["decode"]["gf_matmul_launches"]
+
         # --- phases 7-9 ---
         for fn in os.listdir(work):  # free the EC volume's disk
             os.remove(os.path.join(work, fn))
         vres = phase_volume_lookup(torch, work, args.seed, needle_mod, crc_mod)
         ik_launches["volume_lookup"] = vres["kernel_launches"]
-        ires = phase_index_kernel(torch, args.seed)
+        index: dict = {}
+        ires = phase_index_kernel(torch, args.seed, index)
         ares = phase_arena_gate(torch, work, args.seed)
 
         # --- phase 10 ---
@@ -2321,7 +2883,19 @@ def main() -> int:
         shutil.rmtree(os.path.join(work, "server"))  # phase 10's disk
         cres = phase_cluster(torch, work, args.seed, keep)
         launches["cluster"] = cres["kernel_launches"]["gf_matmul"]
+        launches["cluster_rebuild_batch"] = cres["ec_rebuild"]["batch_gf_matmul_launches"]
         ik_launches["cluster"] = cres["kernel_launches"]["index_search"]
+
+        # --- phase 12 ---
+        mres = phase_mesh(torch, args.seed, index, ires, clock_mhz * 1e6)
+        del index
+        launches["mesh"] = mres["kernel_launches"]["gf_matmul"]
+        ik_launches["mesh"] = mres["kernel_launches"]["index_search"]
+        for path, n in (("gf_matmul", launches["mesh"]),
+                        ("gf_verify", mres["kernel_launches"]["gf_verify"]),
+                        ("index_search", ik_launches["mesh"])):
+            if n <= 0:
+                fail(f"phase 12 launched {path} no time")
     finally:
         shutil.rmtree(work, ignore_errors=True)
         try:
@@ -2331,14 +2905,17 @@ def main() -> int:
     emit({"phase": "done", "total_s": time.perf_counter() - t_start})
 
     k2 = ares["ragged_lookup"]["65536"]
+    gv = mres["gf_verify"]
     emit({
         "kernels": [{
             "name": "gf_matmul",
             "route": "cuda",
             "source": "seaweedfs_tpu_torch/ops/csrc/gf256.cu",
             "replaces": "seaweedfs_tpu/ops/gf256.py:149",
-            "launches": sum(launches.values()),
+            "launches": sum(n for k, n in launches.items() if k != "cluster_rebuild_batch"),
             "launches_by_path": launches,
+            "launches_note": "cluster_rebuild_batch is the part of cluster inside the "
+                             "one VolumeEcShardsRebuildBatch",
             "equal_to_plain": True,
             "max_abs_err": kres["max_abs_err"],
             "ms": kres["ms"],
@@ -2346,6 +2923,23 @@ def main() -> int:
             "plain_ms": kres["plain_ms"],
             "bound_ms": kres["bound_ms"],
             "bound_by": kres["bound_by"],
+            "library_ms": None,
+        }, {
+            "name": "gf_verify",
+            "route": "cuda",
+            "source": "seaweedfs_tpu_torch/ops/csrc/gf256.cu",
+            "replaces": "seaweedfs_tpu/parallel/sharded_ec.py:114 (sharded_verify's "
+                        "shard_map body, :121-131)",
+            "launches": mres["kernel_launches"]["gf_verify"],
+            "launches_by_path": {"mesh": mres["kernel_launches"]["gf_verify"]},
+            "equal_to_plain": True,
+            "max_abs_err": gv["max_abs_err"],
+            "shape": gv["shape"],
+            "ms": gv["ms"],
+            "ms_from": gv["ms_from"],
+            "plain_ms": gv["plain_ms"],
+            "bound_ms": gv["bound_ms"],
+            "bound_by": gv["bound_by"],
             "library_ms": None,
         }, {
             "name": "index_search",

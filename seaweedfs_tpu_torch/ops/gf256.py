@@ -20,6 +20,13 @@ Two implementations of the same function live here:
   int32 tensors, taken only for a tensor that lies on the CPU. The tests
   run it, and chip_smoke.py holds the kernel against it on the card.
 
+gf_verify_count is the parity check of parallel/sharded_ec.py's
+sharded_verify: the same product compared with stored parity, counting
+the 32-bit words that differ. Its kernel is gf256.cu's second entry
+(_gf_verify_cuda, launches in VERIFY_LAUNCHES), which keeps the
+recomputed parity in registers; its plain version (_gf_verify_torch) is
+the plain product, `!=` on int32 words and a sum.
+
 Torch's int32 `>>` is arithmetic and uint32 shifts are not implemented on
 the CPU, so packed words are viewed as int32 and every right shift is
 masked: 0x80808080 >> 7 gives 0xff010101 before the 0x01010101 mask.
@@ -41,6 +48,7 @@ _POLY = 0x1D
 # launches of the CUDA kernel since the process started (or the caller
 # last reset it); the plain version never touches it
 KERNEL_LAUNCHES = 0
+VERIFY_LAUNCHES = 0  # the same for the gf_verify kernel
 _LAUNCH_LOCK = threading.Lock()
 
 
@@ -151,6 +159,13 @@ def _kernel_lib():
                 ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
                 ctypes.c_char_p, ctypes.c_void_p,
             ]
+            lib.gf256_verify.restype = ctypes.c_int
+            lib.gf256_verify.argtypes = [
+                ctypes.c_void_p, ctypes.c_longlong,
+                ctypes.c_void_p, ctypes.c_longlong,
+                ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+                ctypes.c_char_p, ctypes.c_void_p, ctypes.c_void_p,
+            ]
             for fn in ("gf256_max_rows", "gf256_max_cols",
                        "gf256_rows_per_launch"):
                 getattr(lib, fn).restype = ctypes.c_int
@@ -227,6 +242,106 @@ def _gf_matmul_cuda(
     with _LAUNCH_LOCK:
         KERNEL_LAUNCHES += -(-r_cnt // per_launch)
     return out
+
+
+def _gf_verify_torch(
+    matrix: np.ndarray, data: torch.Tensor, parity: torch.Tensor
+) -> torch.Tensor:
+    """The plain version of gf_verify: int32[C, W] data, int32[R, W]
+    stored parity -> the int64 count of words where the recomputed
+    parity differs."""
+    recomputed = _gf_matmul_torch_packed(matrix, data)
+    return (recomputed != parity).sum(dtype=torch.int64)
+
+
+def _check_rows(name: str, t: torch.Tensor, rows: int) -> None:
+    if t.dim() != 2 or t.shape[0] != rows or t.stride(1) != 1:
+        raise ValueError(
+            f"{name} must be [{rows}, W] with unit stride inside a row, got "
+            f"shape {tuple(t.shape)} strides {t.stride()}"
+        )
+
+
+def _gf_verify_cuda(
+    matrix: np.ndarray,
+    data: torch.Tensor,
+    parity: torch.Tensor,
+    count: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Launch the gf_verify kernel on the current stream: int32/uint32
+    data [C, W] and stored parity [R, W] on one CUDA device (row-strided
+    views with unit stride inside a row) -> a 0-dim int64 count of the
+    differing words, on the device. With `count` (an int64 [1] tensor on
+    the device) the kernel adds into it, and the result is a view of it.
+    Not synchronised."""
+    global VERIFY_LAUNCHES
+    matrix = np.ascontiguousarray(matrix, dtype=np.uint8)
+    dev = data.device
+    if dev.type != "cuda":
+        raise ValueError(f"the kernel takes CUDA tensors, got {dev}")
+    if data.dtype not in (torch.int32, torch.uint32) or parity.dtype != data.dtype:
+        raise TypeError(f"words must be int32/uint32, got {data.dtype}, {parity.dtype}")
+    if parity.device != dev:
+        raise ValueError(f"parity on {parity.device}, data on {dev}")
+    r_cnt, c_cnt = matrix.shape
+    max_rows, max_cols, per_launch = kernel_limits()
+    if not (1 <= r_cnt <= max_rows and 1 <= c_cnt <= max_cols):
+        raise ValueError(
+            f"matrix {r_cnt}x{c_cnt} exceeds the kernel's {max_rows}x{max_cols}"
+        )
+    _check_rows("data", data, c_cnt)
+    _check_rows("parity", parity, r_cnt)
+    w = data.shape[1]
+    if parity.shape[1] != w:
+        raise ValueError(f"parity width {parity.shape[1]} != data width {w}")
+    if count is None:
+        count = torch.zeros(1, dtype=torch.int64, device=dev)
+    elif count.device != dev or count.dtype != torch.int64 or count.numel() != 1:
+        raise ValueError("count must be one int64 on the data's device")
+    if w == 0:
+        return count.view(())
+    lib = _kernel_lib()
+    lone = (w + 3) // 4 * 4
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.gf256_verify(
+            data.data_ptr(), data.stride(0) if c_cnt > 1 else lone,
+            parity.data_ptr(), parity.stride(0) if r_cnt > 1 else lone,
+            w, r_cnt, c_cnt, matrix.tobytes(), count.data_ptr(), stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"gf_verify kernel launch failed: CUDA error {rc}")
+    with _LAUNCH_LOCK:
+        VERIFY_LAUNCHES += -(-r_cnt // per_launch)
+    return count.view(())
+
+
+def gf_verify_count(matrix: np.ndarray, data, parity, device=None):
+    """Words of `parity` [R, W] that differ from matrix (x) data [C, W]
+    over GF(2^8), both packed 4 bytes a word.
+
+    CUDA tensors launch the kernel (or raise) and give a 0-dim int64
+    tensor on the card; CPU tensors run the plain version. Numpy input
+    (uint32 words) goes to `device` (the card unless the caller asks for
+    the CPU) and gives a Python int."""
+    matrix = np.asarray(matrix, dtype=np.uint8)
+    if isinstance(data, np.ndarray):
+        dev = resolve_device(device)
+        ts = [
+            torch.from_numpy(
+                np.ascontiguousarray(a, dtype=np.uint32).view(np.int32).copy()
+            ).to(dev)
+            for a in (data, parity)
+        ]
+        return int(gf_verify_count(matrix, *ts))
+    if data.device.type == "cuda":
+        return _gf_verify_cuda(matrix, data, parity)
+    if data.device.type != "cpu":
+        raise ValueError(f"unsupported device {data.device}")
+    as_int = [
+        t.view(torch.int32) if t.dtype == torch.uint32 else t for t in (data, parity)
+    ]
+    return _gf_verify_torch(matrix, *as_int)
 
 
 # --- host packing ---

@@ -43,12 +43,27 @@ from ..storage.super_block import ReplicaPlacement
 from ..storage.ttl import TTL
 from ..topology import GrowOption, Topology, VolumeGrowth
 from ..topology.volume_growth import NoFreeSpaceError, grow_count_for_copy_level
-from ..util.fasthttp import render_response
+from ..util.fasthttp import (
+    JSON_FULL,
+    fast_tier_json,
+    render_http_exception,
+    render_response,
+)
 from .serving_core import ServingCore, json_body, not_ported
 
+# /dir/assign parameters the JAX master's fast tier serves itself
+_FAST_ASSIGN_PARAMS = frozenset(
+    ("count", "collection", "replication", "ttl", "dataCenter")
+)
 
-def _json(status: int, obj, head_only: bool = False) -> bytes:
-    return render_response(status, json_body(obj), head_only=head_only)
+
+def _json(
+    status: int, obj, head_only: bool = False, content_type: bytes = JSON_FULL
+) -> bytes:
+    """A JSON answer, by default with the Content-Type of the JAX master's
+    aiohttp application, which serves every route but its fast tier's."""
+    return render_response(status, json_body(obj), head_only=head_only,
+                           content_type=content_type)
 
 
 def _params(req) -> dict:
@@ -168,10 +183,17 @@ class MasterServer:
         path = req.path
         head_only = req.method == "HEAD"
         if path == "/dir/assign":
-            return _json(200, await self._do_assign(_params(req)))
+            # a form body goes to the JAX master's aiohttp application
+            ctype = (JSON_FULL if req.body
+                     else fast_tier_json(req.query, _FAST_ASSIGN_PARAMS))
+            return _json(200, await self._do_assign(_params(req)),
+                         content_type=ctype)
         if path == "/dir/lookup":
             return self._dir_lookup(req)
-        if path == "/dir/status" and req.method in ("GET", "HEAD"):
+        if path in ("/dir/status", "/cluster/status", "/", "/ui") and \
+                req.method not in ("GET", "HEAD"):
+            return render_http_exception(405)
+        if path == "/dir/status":
             return _json(200, {"Topology": self.topo.to_info(),
                                "Version": "seaweedfs-tpu 0.1"}, head_only)
         if path == "/vol/grow":
@@ -180,17 +202,17 @@ class MasterServer:
             return not_ported("/vol/vacuum (the vacuum plane)")
         if path == "/col/delete":
             return await self._col_delete(req)
-        if path == "/cluster/status" and req.method in ("GET", "HEAD"):
+        if path == "/cluster/status":
             return _json(200, {"IsLeader": self.is_leader,
                                "Leader": self.leader,
                                "Peers": self.raft.others()}, head_only)
-        if path in ("/", "/ui") and req.method in ("GET", "HEAD"):
+        if path in ("/", "/ui"):
             return not_ported("the /ui status page", head_only)
         fid = path.lstrip("/")
         head, sep, tail = fid.partition(",")
         if req.method in ("GET", "HEAD") and sep and head.isdigit() and tail:
             return self._redirect(req, fid)
-        return _json(404, {"error": "not found"}, head_only)
+        return render_http_exception(404, head_only=head_only)
 
     def _leader_gate_http(self, req) -> Optional[bytes]:
         """None when this master may serve the request; otherwise a 503
@@ -201,9 +223,8 @@ class MasterServer:
         leader = self.raft.leader_address
         if not leader or leader == self.address:
             return _json(503, {"error": "no leader elected yet"})
-        return render_response(
-            307, b"", content_type=b"text/plain",
-            extra=f"Location: http://{leader}{req.target}\r\n".encode(),
+        return render_http_exception(
+            307, extra=f"Location: http://{leader}{req.target}\r\n".encode(),
         )
 
     def _dir_lookup(self, req) -> bytes:
@@ -212,7 +233,8 @@ class MasterServer:
             return gate
         params = _params(req)
         return _json(200, self._do_lookup(params.get("volumeId", ""),
-                                          params.get("collection", "")))
+                                          params.get("collection", "")),
+                     content_type=fast_tier_json(req.query))
 
     async def _vol_grow(self, req) -> bytes:
         gate = self._leader_gate_http(req)
@@ -249,9 +271,8 @@ class MasterServer:
         if "error" in result:
             return _json(404, result)
         url = result["locations"][0]["publicUrl"]
-        return render_response(
-            301, b"", content_type=b"text/plain",
-            extra=f"Location: http://{url}/{file_id}\r\n".encode(),
+        return render_http_exception(
+            301, extra=f"Location: http://{url}/{file_id}\r\n".encode(),
         )
 
     # ---------------- assignment core ----------------

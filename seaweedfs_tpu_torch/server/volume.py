@@ -63,8 +63,10 @@ from ..storage.volume import AlreadyDeleted, CookieMismatch, NotFound
 from ..util import metrics
 from ..util.fasthttp import (
     DETACHED,
+    JSON_FULL,
     FastHTTPClient,
     build_multipart,
+    fast_tier_json,
     finish_detached,
     parse_multipart,
     render_response,
@@ -226,8 +228,15 @@ def _header(req, name: bytes) -> str:
     return req.headers.get(name, b"").decode("latin1")
 
 
-def _json(status: int, obj, head_only: bool = False) -> bytes:
-    return render_response(status, json_body(obj), head_only=head_only)
+def _json(
+    status: int, obj, head_only: bool = False, content_type: bytes = JSON_FULL
+) -> bytes:
+    """A JSON answer, by default with the Content-Type of the JAX server's
+    aiohttp application, which serves every request shape its fast tier
+    hands on (a query, a Range, a bad file id, DELETE, the errors); the
+    fast tier's own answers pass JSON_FAST."""
+    return render_response(status, json_body(obj), head_only=head_only,
+                           content_type=content_type)
 
 
 def _make_needle_map_debug(store, arena=None, gate=None, errors=None):
@@ -840,7 +849,7 @@ class VolumeServer(EcHandlers):
         span = parse_range(_header(req, b"range"), len(body))
         if span == "invalid-range":
             return render_response(
-                416, b"", content_type=b"application/octet-stream",
+                416, b"", content_type=None,
                 extra=b"Content-Range: bytes */%d\r\n" % len(body),
             )
         if span is not None:
@@ -852,7 +861,9 @@ class VolumeServer(EcHandlers):
         return respond(200, body, extra)
 
     # ---------------- write (ref volume_server_handlers_write.go) ----------------
-    async def _check_write_auth(self, req, fid: FileId, q: dict):
+    async def _check_write_auth(
+        self, req, fid: FileId, q: dict, ctype: bytes = JSON_FULL
+    ):
         """Whitelist + JWT gate shared by writes and deletes; replicate
         traffic from registered cluster peers bypasses the whitelist but
         never the JWT check (the primary forwards the client's token)."""
@@ -863,19 +874,24 @@ class VolumeServer(EcHandlers):
         if self.jwt_signing_key and not self.guard.check_jwt(
             _header(req, b"authorization"), str(fid)
         ):
-            return _json(401, {"error": "unauthorized"})
+            return _json(401, {"error": "unauthorized"}, content_type=ctype)
         return None
 
     async def _write(self, req):
         fid, _, _ = self._parse_fid_path(req.path)
         q = _query(req)
-        denied = await self._check_write_auth(req, fid, q)
-        if denied is not None:
-            return denied
         vid = fid.volume_id
         v = self.store.find_volume(vid)
+        # the JAX server's fast tier hands a replicated write to its aiohttp
+        # application (server/volume.py::_fast_write there)
+        replicated = v is not None and v.super_block.replica_placement.copy_count() > 1
+        ctype = JSON_FULL if replicated else fast_tier_json(req.query, frozenset())
+        denied = await self._check_write_auth(req, fid, q, ctype)
+        if denied is not None:
+            return denied
         if v is None:
-            return _json(404, {"error": f"volume {vid} not found"})
+            return _json(404, {"error": f"volume {vid} not found"},
+                         content_type=ctype)
         if q.get("cm") == "true":
             return not_ported("chunk manifest uploads")
         ct = req.headers.get(b"content-type", b"")
@@ -926,7 +942,7 @@ class VolumeServer(EcHandlers):
             # the append may or may not have landed: report, never retry
             if rep_task is not None:
                 rep_task.cancel()
-            return _json(500, {"error": str(e)})
+            return _json(500, {"error": str(e)}, content_type=ctype)
         self.read_cache.invalidate_key(vid, fid.key)
         if rep_task is not None:
             err = await rep_task
@@ -942,7 +958,7 @@ class VolumeServer(EcHandlers):
                 '{"name": "%s", "size": %d, "eTag": "%s"}'
                 % (filename, size, n.etag())
             ).encode()
-        return render_response(201, body)
+        return render_response(201, body, content_type=ctype)
 
     async def _delete(self, req):
         fid, _, _ = self._parse_fid_path(req.path)

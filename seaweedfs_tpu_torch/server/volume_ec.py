@@ -3,12 +3,15 @@
 Ported from the JAX package's server/volume_ec.py (ref: weed/server/
 volume_grpc_erasure_coding.go:39-391, weed/storage/store_ec.go:119-373).
 RPCs: VolumeEcShardsGenerate, VolumeEcShardsGenerateBatch,
-VolumeEcShardsRebuild, VolumeEcShardsCopy, VolumeEcShardsMount,
-VolumeEcShardsUnmount, VolumeEcShardsDelete, VolumeEcShardRead (a server
-stream), VolumeEcBlobDelete and VolumeEcShardsInfo. The codec is the
-server's (`make_codec`: CudaRSCodec on the card, kernel gf256.cu, for the
-volume's geometry); encode, rebuild and every decode run on the server's
-executor, off the event loop.
+VolumeEcShardsRebuild, VolumeEcShardsRebuildBatch (many volumes through
+rebuild_ec_files_multi's shared decode batches), VolumeEcShardsCopy,
+VolumeEcShardsMount, VolumeEcShardsUnmount, VolumeEcShardsDelete,
+VolumeEcShardRead (a server stream), VolumeEcBlobDelete,
+VolumeEcShardsInfo and VolumeEcShardsToVolume (decoding the data shards
+back into a normal volume's .dat and .idx). The codec is the server's
+(`make_codec`: CudaRSCodec on the card, kernel gf256.cu, for the volume's
+geometry); encode, rebuild and every decode run on the server's executor,
+off the event loop.
 
 Read path (ref store_ec.go:119-373): locate the needle in the local
 sorted .ecx, map it to shard intervals, read each interval from its local
@@ -18,9 +21,10 @@ else reconstruct it on the card from any k survivors, local and remote
 (missing row only), keeping the readahead-widened span in the
 `DegradedIntervalCache`. A decode that raises reaches the reader as a
 counted 500 (server/volume.py); no host stand-in decodes in its place.
-Not ported yet: VolumeEcShardsRebuildBatch, VolumeEcShardsToVolume
-(decoding back to a volume), the cold tier's offload and recall, and
-the maintenance budget of the `plane` requests.
+A batched rebuild group that raises is counted in `device_errors`
+("ec_rebuild_batch") and retried volume by volume on the same codec.
+Not ported yet: the cold tier's offload and recall, and the maintenance
+budget of the `plane` requests (answered `not ported: plane`).
 """
 
 from __future__ import annotations
@@ -36,10 +40,14 @@ from ..pb.rpc import Stub
 from ..storage.erasure_coding import (
     DATA_SHARDS_COUNT,
     TOTAL_SHARDS_COUNT,
+    find_dat_file_size,
     rebuild_ec_files,
+    rebuild_ec_files_multi,
     to_ext,
+    write_dat_file,
     write_ec_files,
     write_ec_files_multi,
+    write_idx_file_from_ec_index,
     write_sorted_file_from_idx,
 )
 from ..storage.erasure_coding.ec_volume import (
@@ -154,6 +162,8 @@ class EcHandlers:
         svc.unary("VolumeEcShardsGenerate")(self._grpc_ec_generate)
         svc.unary("VolumeEcShardsGenerateBatch")(self._grpc_ec_generate_batch)
         svc.unary("VolumeEcShardsRebuild")(self._grpc_ec_rebuild)
+        svc.unary("VolumeEcShardsRebuildBatch")(self._grpc_ec_rebuild_batch)
+        svc.unary("VolumeEcShardsToVolume")(self._grpc_ec_shards_to_volume)
         svc.unary("VolumeEcShardsCopy")(self._grpc_ec_copy)
         svc.unary("VolumeEcShardsDelete")(self._grpc_ec_delete)
         svc.unary("VolumeEcShardsMount")(self._grpc_ec_mount)
@@ -296,6 +306,100 @@ class EcHandlers:
             return {"error": str(e)}
         rebuilt = [i for i in pre_missing if os.path.exists(base + to_ext(i))]
         return {"rebuilt_shard_ids": rebuilt}
+
+    async def _grpc_ec_rebuild_batch(self, req, context) -> dict:
+        """Rebuild the missing shards of MANY local EC volumes in one call:
+        volumes of one RS geometry stream through rebuild_ec_files_multi,
+        whose device codec decodes same-matrix chunks of every volume in
+        one launch. Returns {"results": {vid: {"rebuilt_shard_ids"}},
+        "errors": {vid: message}}. A group that raises is counted in
+        device_errors and retried volume by volume on the same codec, so
+        one broken survivor set cannot sink its neighbours."""
+        vids = [int(v) for v in req.get("volume_ids", [])]
+        collection = req.get("collection", "")
+        results: dict = {}
+        errors: dict = {}
+        by_codec: dict = {}
+        for vid in vids:
+            base = self._base_name(collection, vid)
+            if base is None:
+                errors[str(vid)] = f"volume {vid} not found"
+                continue
+            try:
+                codec = self._codec_from_vif(base)
+            except Exception as e:
+                errors[str(vid)] = str(e)
+                continue
+            by_codec.setdefault(id(codec), (codec, []))[1].append((vid, base))
+        for codec, group in by_codec.values():
+            # survey BEFORE rebuilding: a retried volume the batch already
+            # committed would otherwise report [] and never get mounted
+            pre_missing = {
+                vid: [
+                    i for i in range(codec.total_shards)
+                    if not os.path.exists(base + to_ext(i))
+                ]
+                for vid, base in group
+            }
+            try:
+                await self.run_blocking(
+                    lambda c=codec, g=group: rebuild_ec_files_multi(
+                        [b for _vid, b in g], codec=c
+                    )
+                )
+                for vid, _base in group:
+                    results[str(vid)] = {"rebuilt_shard_ids": pre_missing[vid]}
+            except Exception as e:
+                self.note_device_error("ec_rebuild_batch", e)
+                for vid, base in group:
+                    try:
+                        await self.run_blocking(
+                            lambda b=base, c=codec: rebuild_ec_files(b, codec=c)
+                        )
+                        results[str(vid)] = {
+                            "rebuilt_shard_ids": pre_missing[vid]
+                        }
+                    except Exception as e2:
+                        self.note_device_error("ec_rebuild", e2)
+                        errors[str(vid)] = str(e2)
+        return {"results": results, "errors": errors}
+
+    async def _grpc_ec_shards_to_volume(self, req, context) -> dict:
+        """Decode the local data shards back into a normal volume (ref
+        volume_grpc_erasure_coding.go:354-391): .dat from the data shards
+        up to the original size the live .ecx entries give, .idx from the
+        .ecx plus a tombstone per .ecj entry. Refuses unless all k data
+        shards are local."""
+        if req.get("plane"):
+            return {"error": "not ported: plane"}
+        vid = int(req["volume_id"])
+        collection = req.get("collection", "")
+        base = self._base_name(collection, vid)
+        if base is None or not os.path.exists(base + ".ecx"):
+            return {"error": f"ec volume {vid} not found"}
+        # the vid returns to (and may later leave again) the normal-volume
+        # world: its cached spans must not outlive this generation
+        self._ec_degraded_cache().invalidate(vid)
+        try:
+            codec = self._codec_from_vif(base)
+        except Exception as e:
+            return {"error": str(e)}
+        missing = [
+            i for i in range(codec.data_shards)
+            if not os.path.exists(base + to_ext(i))
+        ]
+        if missing:
+            return {
+                "error": f"need all data shards locally to decode, missing {missing}"
+            }
+        try:
+            dat_size = await self.run_blocking(find_dat_file_size, base)
+            await self.run_blocking(write_dat_file, base, dat_size,
+                                    codec.data_shards)
+            await self.run_blocking(write_idx_file_from_ec_index, base)
+            return {}
+        except Exception as e:
+            return {"error": str(e)}
 
     async def _grpc_ec_info(self, req, context) -> dict:
         """RS geometry of a local EC volume from its .vif."""

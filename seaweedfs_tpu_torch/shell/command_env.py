@@ -1,7 +1,10 @@
 """CommandEnv: master connection + cluster-wide exclusive admin lock
 (ref: weed/shell/commands.go:28-78, wdclient/exclusive_locks/).
 
-Copied from the JAX package's shell/command_env.py."""
+Copied from the JAX package's shell/command_env.py, with one repair: a
+release waits for a lease renewal in flight, which the JAX copy cancels;
+the master may have granted that renewal a new token, and a release of
+the old one then left the lock held for a whole lease."""
 
 from __future__ import annotations
 
@@ -25,6 +28,7 @@ class CommandEnv:
         self.renew_interval = renew_interval
         self._admin_token: Optional[int] = None
         self._renew_task: Optional[asyncio.Task] = None
+        self._renewal: Optional[asyncio.Future] = None
 
     def volume_stub(self, url: str) -> Stub:
         return Stub(grpc_address(url), "volume")
@@ -42,19 +46,29 @@ class CommandEnv:
     async def _renew_loop(self) -> None:
         while self._admin_token is not None:
             await asyncio.sleep(self.renew_interval)
-            try:
-                resp = await self.master_stub.call(
-                    "LeaseAdminToken", {"previous_token": self._admin_token}
-                )
-                if not resp.get("error"):
-                    self._admin_token = int(resp["token"])
-            except Exception:
-                pass
+            # shielded: a release that cancels this loop mid-renewal waits
+            # for the renewal instead, because the master may already have
+            # granted a new token that only its answer carries
+            self._renewal = asyncio.ensure_future(self._renew_once())
+            await asyncio.shield(self._renewal)
+
+    async def _renew_once(self) -> None:
+        try:
+            resp = await self.master_stub.call(
+                "LeaseAdminToken", {"previous_token": self._admin_token}
+            )
+            if not resp.get("error"):
+                self._admin_token = int(resp["token"])
+        except Exception:
+            pass
 
     async def release_lock(self) -> None:
         if self._renew_task is not None:
             self._renew_task.cancel()
             self._renew_task = None
+        if self._renewal is not None:
+            await self._renewal  # never raises: _renew_once catches
+            self._renewal = None
         if self._admin_token is not None:
             try:
                 await self.master_stub.call(

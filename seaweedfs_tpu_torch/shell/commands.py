@@ -3,10 +3,11 @@
 Each command: async fn(env, argv) -> output string. Ported from the JAX
 package's shell/commands.py: help, lock, unlock, volume.list,
 volume.mark.readonly, volume.delete, volume.mount, volume.unmount,
-ec.encode (with VolumeEcShardsGenerateBatch for co-located volumes) and
-ec.rebuild. ec.rebuild asks each rebuilder for one VolumeEcShardsRebuild
-per volume: the batched rebuild RPC is not ported. Every other command
-of the JAX shell (ec.decode, ec.balance, volume.move/copy/vacuum,
+ec.encode (with VolumeEcShardsGenerateBatch for co-located volumes),
+ec.rebuild (one VolumeEcShardsRebuildBatch per rebuilder node, with a
+per-volume fallback), ec.decode (back to a normal volume through
+VolumeEcShardsToVolume) and ec.balance (dedupe and rack-aware moves).
+Every other command of the JAX shell (volume.move/copy/vacuum,
 volume.tier.*, the fs.* and operator commands) answers "not ported".
 """
 
@@ -18,7 +19,14 @@ from collections import defaultdict
 from ..storage.erasure_coding import DATA_SHARDS_COUNT, TOTAL_SHARDS_COUNT
 from ..storage.erasure_coding.ec_volume import ShardBits
 from .command_env import CommandEnv
-from .ec_common import EcNode, nodes_from_topology, plan_balanced_spread
+from .ec_common import (
+    EcNode,
+    execute_shard_move,
+    nodes_from_topology,
+    plan_balanced_spread,
+    plan_dedupe,
+    plan_rack_balance,
+)
 
 COMMANDS: dict[str, callable] = {}
 
@@ -28,9 +36,9 @@ NOT_PORTED = (
     "volume.configure.replication", "volume.tier.upload",
     "volume.tier.download", "volume.vacuum", "volume.lifecycle",
     "volume.tier.sweep", "volume.fix.replication", "volume.balance",
-    "volume.fsck", "volume.scrub", "ec.decode", "ec.balance",
-    "ec.repair.status", "geo.status", "geo.resync", "meta.fleet.status",
-    "trace.status", "trace.dump", "overload.status",
+    "volume.fsck", "volume.scrub", "ec.repair.status", "geo.status",
+    "geo.resync", "meta.fleet.status", "trace.status", "trace.dump",
+    "overload.status",
 )
 
 
@@ -380,13 +388,83 @@ async def _ec_spread(
     )
 
 
+@command("ec.decode")
+async def cmd_ec_decode(env, argv) -> str:
+    """Collect all data shards on one node and turn the EC volume back
+    into a normal volume (ref command_ec_decode.go:75-148)."""
+    env.confirm_is_locked()
+    flags = _parse_flags(argv)
+    vid = int(flags["volumeId"])
+    collection = flags.get("collection", "")
+    ec_nodes = [n for n in await _collect_ec_nodes(env) if vid in n.shards]
+    if not ec_nodes:
+        return f"ec volume {vid} not found"
+    k, m = await _ec_geometry(env, vid, collection, [n.url for n in ec_nodes])
+    target = max(ec_nodes, key=lambda n: n.shards[vid].count())
+    have = set(target.shards[vid].shard_ids())
+    tstub = env.volume_stub(target.url)
+    for n in ec_nodes:
+        if n.url == target.url:
+            continue
+        missing_here = [s for s in n.shards[vid].shard_ids() if s not in have]
+        if not missing_here:
+            continue
+        r = await tstub.call(
+            "VolumeEcShardsCopy",
+            {
+                "volume_id": vid,
+                "collection": collection,
+                "shard_ids": missing_here,
+                "copy_ecx_file": False,
+                "source_data_node": n.url,
+            },
+            timeout=3600,
+        )
+        if r.get("error"):
+            return f"copy shards {missing_here} from {n.url}: {r['error']}"
+        have.update(missing_here)
+    if len([s for s in have if s < k]) < k:
+        # rebuild the missing data shards locally from parity
+        r = await tstub.call(
+            "VolumeEcShardsRebuild",
+            {"volume_id": vid, "collection": collection},
+            timeout=3600,
+        )
+        if r.get("error"):
+            return f"rebuild for decode failed: {r['error']}"
+    r = await tstub.call(
+        "VolumeEcShardsToVolume",
+        {"volume_id": vid, "collection": collection},
+        timeout=3600,
+    )
+    if r.get("error"):
+        return f"decode failed: {r['error']}"
+    # unmount the shards everywhere and delete them, then mount the volume
+    for n in ec_nodes:
+        nstub = env.volume_stub(n.url)
+        await nstub.call(
+            "VolumeEcShardsUnmount",
+            {"volume_id": vid, "shard_ids": n.shards[vid].shard_ids()},
+        )
+        await nstub.call(
+            "VolumeEcShardsDelete",
+            {"volume_id": vid, "collection": collection,
+             "shard_ids": list(range(k + m))},
+        )
+    await tstub.call("VolumeMount", {"volume_id": vid})
+    return f"ec volume {vid} decoded back to a normal volume on {target.url}"
+
+
 @command("ec.rebuild")
 async def cmd_ec_rebuild(env, argv) -> str:
     """Rebuild missing shards of damaged EC volumes
     (ref command_ec_rebuild.go:97-244): the rebuilder (the node with the
-    most free slots) pulls every survivor it lacks, rebuilds the missing
-    shards on its codec, mounts them and drops the extra survivor
-    copies."""
+    most free slots) pulls every survivor it lacks, per volume as in the
+    reference; then each rebuilder gets ONE VolumeEcShardsRebuildBatch
+    for all its volumes, so volumes that lost the same shards decode in
+    shared wide batches (the JAX package's extension; a server without
+    the batch RPC gets one VolumeEcShardsRebuild per volume). It mounts
+    the rebuilt shards and drops the extra survivor copies."""
     env.confirm_is_locked()
     flags = _parse_flags(argv)
     collection = flags.get("collection", "")
@@ -443,37 +521,94 @@ async def cmd_ec_rebuild(env, argv) -> str:
             continue
         plans.append((vid, rebuilder, local))
 
-    for vid, rebuilder, local in plans:
-        rstub = env.volume_stub(rebuilder.url)
-        rr = await rstub.call(
-            "VolumeEcShardsRebuild",
-            {"volume_id": vid, "collection": collection},
-            timeout=3600,
-        )
-        if rr.get("error"):
-            results.append(f"volume {vid}: rebuild failed: {rr['error']}")
-            continue
-        rebuilt = rr.get("rebuilt_shard_ids", [])
-        await rstub.call(
-            "VolumeEcShardsMount",
-            {"volume_id": vid, "collection": collection,
-             "shard_ids": rebuilt},
-        )
-        # drop the extra survivor copies the rebuilder pulled
-        extra = [
-            s for s in local.shard_ids()
-            if s not in rebuilt
-            and not rebuilder.shards.get(vid, ShardBits()).has(s)
-        ]
-        if extra:
+    # one batched rebuild RPC per rebuilder node
+    by_rebuilder: dict[str, list] = defaultdict(list)
+    for plan in plans:
+        by_rebuilder[plan[1].url].append(plan)
+    for url, group in by_rebuilder.items():
+        rstub = env.volume_stub(url)
+        vids = [vid for vid, _n, _l in group]
+        per_vid: dict[int, dict] = {}
+        try:
+            r = await rstub.call(
+                "VolumeEcShardsRebuildBatch",
+                {"volume_ids": vids, "collection": collection},
+                timeout=3600,
+            )
+        except Exception as e:  # a server without the batch RPC
+            r = {"error": str(e)}
+        if r.get("error"):
+            for vid, _n, _l in group:
+                per_vid[vid] = await rstub.call(
+                    "VolumeEcShardsRebuild",
+                    {"volume_id": vid, "collection": collection},
+                    timeout=3600,
+                )
+        else:
+            for vid in vids:
+                res = r.get("results", {}).get(str(vid))
+                err = r.get("errors", {}).get(str(vid))
+                per_vid[vid] = res if res is not None else {
+                    "error": err or "missing batch result"
+                }
+        for vid, rebuilder, local in group:
+            rr = per_vid[vid]
+            if rr.get("error"):
+                results.append(f"volume {vid}: rebuild failed: {rr['error']}")
+                continue
+            rebuilt = rr.get("rebuilt_shard_ids", [])
             await rstub.call(
+                "VolumeEcShardsMount",
+                {"volume_id": vid, "collection": collection,
+                 "shard_ids": rebuilt},
+            )
+            # drop the extra survivor copies the rebuilder pulled
+            extra = [
+                s for s in local.shard_ids()
+                if s not in rebuilt
+                and not rebuilder.shards.get(vid, ShardBits()).has(s)
+            ]
+            if extra:
+                await rstub.call(
+                    "VolumeEcShardsDelete",
+                    {"volume_id": vid, "collection": collection,
+                     "shard_ids": extra},
+                )
+            results.append(
+                f"volume {vid}: rebuilt shards {rebuilt} on {rebuilder.url}"
+            )
+    return "\n".join(results) or "no damaged ec volumes"
+
+
+@command("ec.balance")
+async def cmd_ec_balance(env, argv) -> str:
+    """Drop duplicate shard copies, then even every EC volume's shards
+    out across racks and across the nodes of each rack
+    (ref command_ec_balance.go:29-95)."""
+    env.confirm_is_locked()
+    flags = _parse_flags(argv)
+    collection = flags.get("collection", "")
+    ec_nodes = await _collect_ec_nodes(env)
+    vids = sorted({vid for n in ec_nodes for vid in n.shards})
+    log = []
+    for vid in vids:
+        for shard_id, url in plan_dedupe(ec_nodes, vid):
+            stub = env.volume_stub(url)
+            await stub.call(
+                "VolumeEcShardsUnmount", {"volume_id": vid, "shard_ids": [shard_id]}
+            )
+            await stub.call(
                 "VolumeEcShardsDelete",
                 {"volume_id": vid, "collection": collection,
-                 "shard_ids": extra},
+                 "shard_ids": [shard_id]},
             )
-        results.append(
-            f"volume {vid}: rebuilt shards {rebuilt} on {rebuilder.url}"
-        )
-    return "\n".join(results) or "no damaged ec volumes"
+            log.append(f"volume {vid}: dropped duplicate shard {shard_id} on {url}")
+        for move in plan_rack_balance(ec_nodes, vid):
+            await execute_shard_move(env, move, collection)
+            log.append(
+                f"volume {vid}: moved shard {move.shard_id} "
+                f"{move.source} -> {move.target}"
+            )
+    return "\n".join(log) or "balanced: no moves needed"
 
 

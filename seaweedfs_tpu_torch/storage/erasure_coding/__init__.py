@@ -26,9 +26,13 @@ def to_ext(ec_index: int) -> str:
 from .locate import Interval, locate_data  # noqa: E402
 from .coder_cpu import CpuRSCodec  # noqa: E402
 from .encoder import (  # noqa: E402
+    find_dat_file_size,
     rebuild_ec_files,
+    rebuild_ec_files_multi,
+    write_dat_file,
     write_ec_files,
     write_ec_files_multi,
+    write_idx_file_from_ec_index,
     write_sorted_file_from_idx,
 )
 from .ec_volume import (  # noqa: E402
@@ -51,7 +55,11 @@ __all__ = [
     "write_ec_files",
     "write_ec_files_multi",
     "rebuild_ec_files",
+    "rebuild_ec_files_multi",
     "write_sorted_file_from_idx",
+    "write_dat_file",
+    "write_idx_file_from_ec_index",
+    "find_dat_file_size",
     "EcVolume",
     "EcVolumeShard",
     "NeedleNotFound",

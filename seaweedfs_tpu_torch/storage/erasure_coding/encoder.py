@@ -7,12 +7,20 @@ ec_encoder.go):
   bytes for a row starting at P come from dat[P + i*block : P + (i+1)*block],
   zero-filled past EOF (ec_encoder.go:162-192) — and appends one block per
   shard per row, so every shard file is large_rows*1GB + small_rows*1MB;
-- rebuild reconstructs the missing shard files from >=10 survivors.
+- rebuild reconstructs the missing shard files from >=10 survivors, one
+  volume (rebuild_ec_files) or many through shared wide decode batches
+  (rebuild_ec_files_multi);
+- decode turns the data shards back into a .dat (write_dat_file) and the
+  .ecx plus the .ecj journal back into an .idx
+  (write_idx_file_from_ec_index; ref weed/storage/erasure_coding/
+  ec_decoder.go).
 
 The codec is pluggable (the CUDA kernel or numpy on the host). The device
 codec takes the streamed route (_encode_streamed): chunked reads of the .dat
 overlap a pool of workers that each stage, upload, launch and download one
-chunk, and a writer thread that appends the shards in order.
+chunk, and a writer thread that appends the shards in order. A `mesh`
+(parallel/sharded_ec.py) takes the multi-volume encode's and rebuild's
+batches over a (vol, blk) grid of devices instead.
 """
 
 from __future__ import annotations
@@ -31,6 +39,10 @@ from . import (
     PARITY_SHARDS_COUNT,
     to_ext,
 )
+from ...types import TOMBSTONE_FILE_SIZE, to_actual_offset
+from ..idx import entry_to_bytes, iter_index
+from ..needle import get_actual_size
+from ..super_block import SuperBlock
 
 DEFAULT_CHUNK = 4 * 1024 * 1024  # per-shard streaming chunk
 
@@ -539,6 +551,25 @@ def _piece_iter(
         processed += rows * block * k
 
 
+def _mesh_encode(codec, mesh, buf: np.ndarray) -> np.ndarray:
+    """Encode one wide batch through parallel/sharded_ec's mesh: columns
+    pad to the mesh's 4*blk packing unit (zero columns encode to zero
+    parity and are stripped), and the batch rides as one [1, k, N] volume
+    sharded over (vol, blk). Byte-identical to codec.encode by GF
+    linearity."""
+    from ...parallel.sharded_ec import sharded_encode
+
+    n = buf.shape[1]
+    unit = 4 * mesh.shape["blk"]
+    pad = (-n) % unit
+    if pad:
+        buf = np.concatenate(
+            [buf, np.zeros((buf.shape[0], pad), dtype=np.uint8)], axis=1
+        )
+    out = np.asarray(sharded_encode(codec.parity_matrix, buf[None], mesh))[0]
+    return out[:, :n] if pad else out
+
+
 def write_ec_files_multi(
     base_file_names,
     codec=None,
@@ -558,16 +589,12 @@ def write_ec_files_multi(
     every volume in a round. Each round takes the next piece of every
     unfinished volume, groups by width, and pipelines read -> batched
     encode -> ordered writes. Host codecs encode whole volumes
-    concurrently across cores instead. `mesh` (the multi-device encode of
-    parallel/) is not ported and raises.
+    concurrently across cores instead. With a device codec, `mesh` sends
+    each batch through the (vol, blk) device mesh (_mesh_encode).
     """
     import concurrent.futures as cf
     from collections import deque
 
-    if mesh is not None:
-        raise NotImplementedError(
-            "not ported: the mesh encode (parallel/sharded_ec.py)"
-        )
     codec = _get_codec(codec)
     k = codec.data_shards
 
@@ -661,13 +688,19 @@ def write_ec_files_multi(
                 for p in range(codec.parity_shards):
                     outputs[k + p].write(parity[p, sl].data)
 
+        if mesh is not None:
+            def encode_batch(buf: np.ndarray) -> np.ndarray:
+                return _mesh_encode(codec, mesh, buf)
+        else:
+            encode_batch = codec.encode
+
         depth = max(1, workers or 2)  # device pipeline depth
         with cf.ThreadPoolExecutor(depth) as pool:
             pending: deque = deque()
             for width, items in rounds():
                 buf = read_batch(width, items)
                 pending.append(
-                    (width, items, buf, pool.submit(codec.encode, buf))
+                    (width, items, buf, pool.submit(encode_batch, buf))
                 )
                 while len(pending) > depth:
                     drain(pending.popleft())
@@ -987,3 +1020,278 @@ def _rebuild_pipelined(
         shard_size, chunk, max(2, getattr(codec, "pipeline_workers", 2)),
         allocate, stage, decode, write_outs,
     )
+
+
+def rebuild_ec_files_multi(
+    base_file_names,
+    codec=None,
+    chunk: int = DEFAULT_CHUNK,
+    workers: Optional[int] = None,
+    mesh=None,
+) -> dict:
+    """Rebuild MANY volumes' missing shards; returns {base: rebuilt ids}.
+
+    The repair-plane mirror of write_ec_files_multi. Host codecs rebuild
+    whole volumes concurrently across cores. Device codecs concatenate
+    same-decode-matrix chunks of different volumes along the column axis
+    into ONE wide dispatch, capped at max(chunk, codec.preferred_chunk):
+    after a node dies every volume that lost the same shard ids shares one
+    matrix, so one kernel launch serves the whole round. `mesh` sends those
+    batches through the (vol, blk) device mesh
+    (parallel.sharded_ec.sharded_reconstruct_padded). Outputs stream to
+    .ecNN.tmp files, renamed into place only when every volume succeeded
+    and removed otherwise; the per-base locks are taken in sorted order.
+    """
+    import concurrent.futures as cf
+    import contextlib
+    from collections import deque
+
+    from .galois import DECODE_ROWS_CACHE
+
+    codec = _get_codec(codec)
+    k = codec.data_shards
+    results: dict = {}
+    if mesh is None and not getattr(codec, "is_device", False):
+        from ...util import available_cpus
+
+        n_workers = max(
+            1, min(len(base_file_names), workers or available_cpus())
+        )
+        # several volumes: one single-thread rebuild per core; a lone
+        # volume keeps the per-volume pipelined path
+        per_vol_pipeline = None if len(base_file_names) == 1 else False
+
+        def one(base: str):
+            return base, rebuild_ec_files(
+                base, codec=codec, chunk=chunk, pipeline=per_vol_pipeline
+            )
+
+        if n_workers == 1:
+            for base in base_file_names:
+                results[base] = one(base)[1]
+            return results
+        with cf.ThreadPoolExecutor(n_workers) as pool:
+            for base, ids in pool.map(one, base_file_names):
+                results[base] = ids
+        return results
+
+    width_cap = max(chunk, getattr(codec, "preferred_chunk", chunk))
+    vols = []  # per-volume state dicts
+    ok = False
+    locks = contextlib.ExitStack()
+    # sorted acquisition: two concurrent multi-rebuilds over overlapping
+    # volume sets take the per-base locks in the same order
+    for base in sorted(set(base_file_names)):
+        locks.enter_context(_base_rebuild_lock(base))
+    try:
+        for base in base_file_names:
+            missing, present = _rebuild_survey(base, codec)
+            if not missing:
+                results[base] = []
+                continue
+            survivors = present[:k]
+            vols.append({
+                "base": base,
+                "missing": missing,
+                "survivors": survivors,
+                "shard_size": os.path.getsize(base + to_ext(survivors[0])),
+                "offset": 0,
+                "inputs": {i: open(base + to_ext(i), "rb") for i in survivors},
+                "outputs": {
+                    i: open(base + to_ext(i) + ".tmp", "wb") for i in missing
+                },
+            })
+
+        def rounds():
+            active = list(vols)
+            while active:
+                produced = []
+                for v in active:
+                    if v["offset"] < v["shard_size"]:
+                        width = min(chunk, v["shard_size"] - v["offset"])
+                        produced.append((v, v["offset"], width))
+                        v["offset"] += width
+                if not produced:
+                    return
+                # one decode matrix per (survivor set, missing set): only
+                # same-matrix same-width pieces share a dispatch
+                groups: dict = {}
+                for v, off, width in produced:
+                    key = (tuple(v["survivors"]), tuple(v["missing"]), width)
+                    groups.setdefault(key, []).append((v, off))
+                for (surv, miss, width), items in sorted(
+                    groups.items(), key=lambda kv: kv[0]
+                ):
+                    per_batch = max(1, width_cap // width)
+                    for s in range(0, len(items), per_batch):
+                        yield surv, miss, width, items[s : s + per_batch]
+                active = [v for v, _off, _w in produced]
+
+        def read_batch(surv, width, items) -> np.ndarray:
+            buf = np.empty((k, len(items) * width), dtype=np.uint8)
+            for j, (v, off) in enumerate(items):
+                c0 = j * width
+                for row, i in enumerate(surv):
+                    _read_exact(v["inputs"][i], buf[row, c0 : c0 + width], off)
+            return buf
+
+        def decode_batch(rows: np.ndarray, buf: np.ndarray, width: int):
+            if mesh is not None:
+                from ...parallel.sharded_ec import sharded_reconstruct_padded
+
+                g = buf.shape[1] // width
+                stacked = np.ascontiguousarray(
+                    buf.reshape(k, g, width).transpose(1, 0, 2)
+                )
+                out = sharded_reconstruct_padded(rows, stacked, mesh)
+                # back to the [R, G*width] column layout the writer takes
+                return np.ascontiguousarray(
+                    out.transpose(1, 0, 2).reshape(rows.shape[0], -1)
+                )
+            return np.ascontiguousarray(codec.apply_matrix(rows, buf))
+
+        depth = max(1, workers or 2)  # device pipeline depth
+        with cf.ThreadPoolExecutor(depth) as pool:
+            pending: deque = deque()
+
+            def drain() -> None:
+                miss, width, items, fut = pending.popleft()
+                out = fut.result()
+                for j, (v, _off) in enumerate(items):
+                    sl = slice(j * width, (j + 1) * width)
+                    for r, i in enumerate(miss):
+                        v["outputs"][i].write(out[r, sl].data)
+
+            for surv, miss, width, items in rounds():
+                rows = DECODE_ROWS_CACHE.rows_for(
+                    codec.matrix, list(surv), list(miss)
+                )
+                buf = read_batch(surv, width, items)
+                pending.append(
+                    (miss, width, items,
+                     pool.submit(decode_batch, rows, buf, width))
+                )
+                while len(pending) > depth:
+                    drain()
+            while pending:
+                drain()
+        ok = True
+    finally:
+        for v in vols:
+            for f in v["inputs"].values():
+                f.close()
+            for f in v["outputs"].values():
+                f.close()
+            for i in v["missing"]:
+                tmp = v["base"] + to_ext(i) + ".tmp"
+                if ok:
+                    os.replace(tmp, v["base"] + to_ext(i))
+                else:
+                    try:
+                        os.remove(tmp)
+                    except OSError:
+                        pass
+        locks.close()
+    for v in vols:
+        results[v["base"]] = v["missing"]
+    return results
+
+
+# --- decode: EC shards back to a volume (ref ec_decoder.go) ---
+def write_dat_file(
+    base_file_name: str, dat_file_size: int, data_shards: int = DATA_SHARDS_COUNT
+) -> None:
+    """Interleave-copy the data shards into the .dat (ref WriteDatFile,
+    ec_decoder.go:157-195): whole 1 GiB large rows while at least a full
+    row remains, then 1 MiB small blocks, skipping the zero padding of
+    the last, short small block of each shard."""
+    inputs = [open(base_file_name + to_ext(i), "rb") for i in range(data_shards)]
+    # one reused copy buffer for the whole decode
+    buf = memoryview(bytearray(4 * 1024 * 1024))
+    try:
+        with open(base_file_name + ".dat", "wb") as dat:
+            remaining = dat_file_size
+            while remaining >= data_shards * EC_LARGE_BLOCK_SIZE:
+                for i in range(data_shards):
+                    _copy_n(inputs[i], dat, EC_LARGE_BLOCK_SIZE, buf=buf)
+                    remaining -= EC_LARGE_BLOCK_SIZE
+            while remaining > 0:
+                for i in range(data_shards):
+                    to_read = min(remaining, EC_SMALL_BLOCK_SIZE)
+                    if to_read <= 0:
+                        break
+                    _copy_n(inputs[i], dat, to_read, buf=buf)
+                    remaining -= to_read
+                    if to_read < EC_SMALL_BLOCK_SIZE:
+                        inputs[i].seek(EC_SMALL_BLOCK_SIZE - to_read, 1)
+    finally:
+        for f in inputs:
+            f.close()
+
+
+def _copy_n(src, dst, n: int, bufsize: int = 4 * 1024 * 1024, buf=None) -> None:
+    """Copy exactly n bytes src -> dst through `buf` (a reusable
+    memoryview; allocated here when the caller passes none)."""
+    if buf is None:
+        buf = memoryview(bytearray(min(bufsize, n)))
+    while n > 0:
+        want = min(len(buf), n)
+        got = src.readinto(buf[:want])
+        if not got:
+            raise IOError("short read during ec decode copy")
+        dst.write(buf[:got])
+        n -= got
+
+
+def iterate_ecj_file(base_file_name: str):
+    """Yield the deleted needle ids of the .ecj journal (ref
+    iterateEcjFile, ec_decoder.go:123-150)."""
+    path = base_file_name + ".ecj"
+    if not os.path.exists(path):
+        return
+    from ...types import NEEDLE_ID_SIZE, bytes_to_u64
+
+    with open(path, "rb") as f:
+        while True:
+            b = f.read(NEEDLE_ID_SIZE)
+            if len(b) != NEEDLE_ID_SIZE:
+                return
+            yield bytes_to_u64(b)
+
+
+def write_idx_file_from_ec_index(base_file_name: str) -> None:
+    """.ecx, then a tombstone per .ecj id -> .idx (ref
+    WriteIdxFileFromEcIndex, ec_decoder.go:18-43)."""
+    with open(base_file_name + ".ecx", "rb") as src, open(
+        base_file_name + ".idx", "wb"
+    ) as dst:
+        while True:
+            b = src.read(1 << 20)
+            if not b:
+                break
+            dst.write(b)
+        for key in iterate_ecj_file(base_file_name):
+            dst.write(entry_to_bytes(key, 0, TOMBSTONE_FILE_SIZE))
+
+
+def read_ec_volume_version(base_file_name: str) -> int:
+    """Volume version from the .ec00 super block (ref readEcVolumeVersion)."""
+    with open(base_file_name + ".ec00", "rb") as f:
+        return SuperBlock.parse(f.read(8)).version
+
+
+def find_dat_file_size(base_file_name: str) -> int:
+    """The original .dat's size: the largest end offset over the live
+    .ecx entries (ref FindDatFileSize, ec_decoder.go:48-70). A decoded
+    .dat is that many bytes of the original, shorter than it when the
+    last needles were deleted."""
+    version = read_ec_volume_version(base_file_name)
+    dat_size = 0
+    with open(base_file_name + ".ecx", "rb") as f:
+        for _key, offset_units, size in iter_index(f):
+            if size == TOMBSTONE_FILE_SIZE:
+                continue
+            stop = to_actual_offset(offset_units) + get_actual_size(size, version)
+            if stop > dat_size:
+                dat_size = stop
+    return dat_size

@@ -45,6 +45,8 @@ _STATUS_LINES = {
     202: b"HTTP/1.1 202 Accepted\r\n",
     204: b"HTTP/1.1 204 No Content\r\n",
     206: b"HTTP/1.1 206 Partial Content\r\n",
+    301: b"HTTP/1.1 301 Moved Permanently\r\n",
+    307: b"HTTP/1.1 307 Temporary Redirect\r\n",
     304: b"HTTP/1.1 304 Not Modified\r\n",
     400: b"HTTP/1.1 400 Bad Request\r\n",
     401: b"HTTP/1.1 401 Unauthorized\r\n",
@@ -96,22 +98,36 @@ def finish_detached(req: FastRequest, response: bytes) -> None:
         d.set_result(None)
 
 
+# Content-Types of the JAX servers' two tiers: the byte-level fast tier
+# renders plain `application/json`; what it hands to the aiohttp
+# application comes back with aiohttp's charset (`web.json_response`, and
+# `text/plain` on an HTTPException such as a 404 for an unknown route).
+# The port's handlers pick per route the one the JAX server answers with.
+JSON_FAST = b"application/json"
+JSON_FULL = b"application/json; charset=utf-8"
+TEXT_FULL = b"text/plain; charset=utf-8"
+
+_REASONS = {301: "Moved Permanently", 307: "Temporary Redirect",
+            404: "Not Found", 405: "Method Not Allowed"}
+
+
 def render_response(
     status: int,
     body: bytes = b"",
-    content_type: bytes = b"application/json",
+    content_type: Optional[bytes] = JSON_FAST,
     extra: bytes = b"",
     keep_alive: bool = True,
     head_only: bool = False,
 ) -> bytes:
     """One response byte string. `extra` is pre-rendered \r\n-terminated
-    header lines."""
+    header lines; `content_type` None sends no Content-Type."""
     return b"".join(
         (
             _STATUS_LINES.get(status) or (
                 b"HTTP/1.1 %d X\r\n" % status
             ),
-            b"Content-Type: ", content_type, b"\r\n",
+            b"" if content_type is None
+            else b"Content-Type: " + content_type + b"\r\n",
             b"Content-Length: %d\r\n" % len(body),
             extra,
             b"Connection: keep-alive\r\n\r\n"
@@ -120,6 +136,33 @@ def render_response(
             b"" if head_only else body,
         )
     )
+
+
+def fast_tier_json(query: str, allowed: Optional[frozenset] = None) -> bytes:
+    """The JSON Content-Type a JAX server answers with on a route its
+    byte-level tier serves (server/master.py::_fast_dispatch for
+    /dir/assign and /dir/lookup, server/volume.py::_fast_write for a
+    write): JSON_FAST, unless the query makes that tier hand the request to
+    the aiohttp application (JSON_FULL): a %- or +-encoded value, or a
+    parameter outside `allowed` (None allows every name, the empty set no
+    query at all)."""
+    if "%" in query or "+" in query:
+        return JSON_FULL
+    if query and allowed is not None and not {
+        pair.partition("=")[0] for pair in query.split("&")
+    } <= allowed:
+        return JSON_FULL
+    return JSON_FAST
+
+
+def render_http_exception(
+    status: int, extra: bytes = b"", head_only: bool = False
+) -> bytes:
+    """An aiohttp HTTPException's answer as the JAX servers' application
+    sends it: `text/plain; charset=utf-8` and the body "404: Not Found"."""
+    body = f"{status}: {_REASONS[status]}".encode()
+    return render_response(status, body, content_type=TEXT_FULL, extra=extra,
+                           head_only=head_only)
 
 
 Handler = Callable[[FastRequest], Awaitable[object]]

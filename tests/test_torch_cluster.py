@@ -203,12 +203,19 @@ def test_cluster_master_http_endpoints(tmp_path):
 
 def test_cluster_replicated_write(tmp_path):
     """Mirror of test_cluster.py::test_cluster_replicated_write: a
-    -replication 001 write lands on both servers; a delete reaches both."""
+    -replication 001 write lands on both servers; a delete reaches both.
+    The write answers the Content-Type of the JAX server's aiohttp
+    application, which its fast tier hands a replicated write to."""
+    from seaweedfs_tpu_torch.util.fasthttp import response_header
+
     async def body(cluster, http):
         master = cluster.master.address
         ar = await assign_retry(master, replication="001")
         data = random.Random(5).randbytes(5000)
-        await upload_data(http, ar.url, ar.fid, data)
+        st, _, head = await http.request_full("POST", ar.url, "/" + ar.fid, data,
+                                              "application/octet-stream")
+        assert (st, response_header(head, b"content-type")) == (
+            201, "application/json; charset=utf-8")
         vid = int(ar.fid.split(",")[0])
         locs = await lookup(master, vid)
         assert len(locs) == 2, locs
@@ -546,10 +553,13 @@ def test_cli_server_volume_shell_and_benchmark(tmp_path):
         assert bench.returncode == 0, bench.stderr[-2000:]
         assert bench.stdout.count("Failed requests:        0") == 2, bench.stdout
         shell = subprocess.run(cmd + ["shell", "-master", maddr,
-                                      "lock; volume.list; ec.decode -volumeId 1; unlock"],
+                                      "lock; volume.list; ec.decode -volumeId 1; "
+                                      "volume.vacuum; unlock"],
                                env=env, capture_output=True, text=True, timeout=30)
         assert shell.returncode == 0
-        assert "locked" in shell.stdout and "not ported: ec.decode" in shell.stdout
+        assert "locked" in shell.stdout and "not ported: volume.vacuum" in shell.stdout
+        # ec.decode is served: volume 1 is a normal volume, not an EC one
+        assert "ec volume 1 not found" in shell.stdout
     finally:
         for p in procs:
             if p.poll() is None:

@@ -372,6 +372,44 @@ def _http_get(hostport: str, target: str):
         conn.close()
 
 
+def _http_view(hostport: str, method: str, target: str, body=None, headers=None):
+    """(status, Content-Type, body) of one request."""
+    import http.client
+
+    host, _, port = hostport.rpartition(":")
+    conn = http.client.HTTPConnection(host, int(port), timeout=10)
+    try:
+        conn.request(method, target, body=body, headers=headers or {})
+        resp = conn.getresponse()
+        return resp.status, resp.getheader("Content-Type"), resp.read()
+    finally:
+        conn.close()
+
+
+# requests whose Content-Type (and, but for a 200, body) both masters
+# answer alike: the JAX master's fast tier and its aiohttp application
+_TYPED_REQUESTS = (
+    ("GET", "/dir/assign", None, {}),
+    ("POST", "/dir/assign", b"count=2",
+     {"Content-Type": "application/x-www-form-urlencoded"}),
+    ("GET", "/dir/assign?count=2", None, {}),
+    ("GET", "/dir/assign?foo=1", None, {}),
+    ("GET", "/dir/lookup?volumeId=2", None, {}),
+    ("GET", "/dir/lookup?volumeId=9", None, {}),
+    ("GET", "/dir/lookup?volumeId=%32", None, {}),
+    ("GET", "/dir/status", None, {}),
+    ("POST", "/dir/status", None, {}),
+    ("GET", "/vol/grow?replication=9x", None, {}),
+    ("GET", "/cluster/status", None, {}),
+    ("GET", "/col/delete?collection=x", None, {}),
+    ("GET", "/nosuch", None, {}),
+    ("HEAD", "/nosuch", None, {}),
+    ("GET", "/2", None, {}),
+    ("GET", "/2,500000077", None, {}),
+    ("GET", "/9,500000077", None, {}),
+)
+
+
 def test_master_answers_equal_jax(tmp_path):
     import json
 
@@ -438,6 +476,11 @@ def test_master_answers_equal_jax(tmp_path):
                     for layout in c.layouts() for v in layout.writables)
                 st_r, _, location = await asyncio.to_thread(
                     _http_get, maddr, "/2," + "%x" % 5 + "00000077")
+                typed = []
+                for method, target, data, headers in _TYPED_REQUESTS:
+                    st, ctype, raw = await asyncio.to_thread(
+                        _http_view, maddr, method, target, data, headers)
+                    typed.append((method, target, st, ctype, raw if st != 200 else None))
 
                 def shape(info):
                     """Keys and volume sets of a topology, nodes by index."""
@@ -461,6 +504,7 @@ def test_master_answers_equal_jax(tmp_path):
                     "assign": (st_a, sorted(assigned), vid in writable,
                                pair.index(assigned["url"]) >= 0),
                     "redirect": (st_r, location.replace(pair.vs[1].address, "vs1")),
+                    "typed": typed,
                 }
             finally:
                 await pair.stop()
@@ -470,6 +514,10 @@ def test_master_answers_equal_jax(tmp_path):
     assert out["port"] == out["jax"]
     assert out["port"]["assign"] == (200, ["count", "fid", "publicUrl", "url"], True, True)
     assert out["port"]["ec"] == {i: [0 if i < 7 else 1] for i in range(14)}
+    typed = {(m, t): (st, ct, raw) for m, t, st, ct, raw in out["port"]["typed"]}
+    assert typed[("GET", "/nosuch")] == (404, "text/plain; charset=utf-8", b"404: Not Found")
+    assert typed[("GET", "/2,500000077")] == (
+        301, "text/plain; charset=utf-8", b"301: Moved Permanently")
 
 
 def test_raft_elects_one_leader_among_three_masters():
@@ -572,9 +620,43 @@ def test_write_ec_files_multi_equals_jax(tmp_path, route):
                 assert f1.read() == f2.read(), (mine, ext)
 
 
-def test_mesh_encode_is_not_ported(tmp_path):
-    from seaweedfs_tpu_torch.storage.erasure_coding import write_ec_files_multi
-    from seaweedfs_tpu_torch.storage.erasure_coding.coder_cpu import CpuRSCodec
+def test_mesh_encode_equals_jax(tmp_path):
+    """write_ec_files_multi(mesh=...) over a port mesh of 4 repeated CPU
+    devices and the JAX package's over 4 of its virtual CPU devices, on
+    the same seeded .dat files (large and small rows, a ragged tail), write
+    byte-identical .ec00-.ec13, and both equal the port's encode without a
+    mesh."""
+    import jax
+    import torch
 
-    with pytest.raises(NotImplementedError, match="not ported"):
-        write_ec_files_multi([str(tmp_path / "1")], codec=CpuRSCodec(), mesh=object())
+    from seaweedfs_tpu.ops.rs_kernel import TpuRSCodec
+    from seaweedfs_tpu.parallel.sharded_ec import make_mesh as jax_make_mesh
+    from seaweedfs_tpu.storage.erasure_coding import write_ec_files_multi as jax_multi
+    from seaweedfs_tpu_torch.ops.rs_kernel import CudaRSCodec
+    from seaweedfs_tpu_torch.parallel import make_mesh
+    from seaweedfs_tpu_torch.storage.erasure_coding import write_ec_files_multi
+
+    bases = {"mesh": [], "plain": [], "jax": []}
+    for j, size in enumerate((LARGE * 10 + 12_345, SMALL * 3 + 7)):
+        for kind in bases:
+            d = tmp_path / f"{kind}{j}"
+            d.mkdir()
+            _mk_dat(str(d / "1.dat"), size)
+            bases[kind].append(str(d / "1"))
+    codec = CudaRSCodec(device="cpu")
+    mesh = make_mesh(devices=[torch.device("cpu")] * 4)
+    write_ec_files_multi(bases["mesh"], codec=codec, large_block_size=LARGE,
+                         small_block_size=SMALL, mesh=mesh)
+    write_ec_files_multi(bases["plain"], codec=codec, large_block_size=LARGE,
+                         small_block_size=SMALL)
+    jax_multi(bases["jax"], codec=TpuRSCodec(), large_block_size=LARGE,
+              small_block_size=SMALL,
+              mesh=jax_make_mesh(devices=jax.devices("cpu")[:4]))
+    for mine, plain, ref in zip(bases["mesh"], bases["plain"], bases["jax"]):
+        for i in range(14):
+            ext = f".ec{i:02d}"
+            with open(mine + ext, "rb") as f1, open(ref + ext, "rb") as f2, \
+                    open(plain + ext, "rb") as f3:
+                got = f1.read()
+                assert got == f2.read(), (mine, i)
+                assert got == f3.read(), (mine, i)

@@ -1,7 +1,7 @@
 """The port's volume server against the JAX package's (server/volume.py,
 server/volume_ec.py), on the plain versions (device="cpu", the numpy
-codec): the same HTTP requests give equal status codes, bodies, Etags and
-Content-Range under every `-batchLookup` mode; directories written by
+codec): the same HTTP requests give equal status codes, bodies, Etags,
+Content-Range and Content-Type under every `-batchLookup` mode; directories written by
 either package read back equal in the other; BulkLookup answers equal the
 JAX handler's; VolumeEcShardsGenerate writes byte-identical shards, .ecx
 and .vif; degraded GETs return the written bytes and VolumeEcShardsRebuild
@@ -96,7 +96,8 @@ def _png(rng) -> bytes:
 
 def _view(resp):
     status, hd, body = resp
-    return status, body, hd.get("etag"), hd.get("content-range")
+    return (status, body, hd.get("etag"), hd.get("content-range"),
+            hd.get("content-type"))
 
 
 def _requests(vid, rng):
