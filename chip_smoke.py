@@ -53,7 +53,7 @@ ragged_lookup):
      --client): AllocateVolume, 65,536 POSTs at concurrency 16, 10,000
      warm-up GETs at concurrency 512 through which the server uploads its
      own arena (its host fallbacks reported; any after the warm-up fail),
-     200,000 GETs at concurrency 256 over both volumes (10 % absent, 1 %
+     100,000 GETs at concurrency 256 over both volumes (10 % absent, 1 %
      wrong cookie) with the gate's identity check on (as in the warm-up),
      then off; BulkLookup of
      every key of volume 1 plus 10 % absent against the host map; EC
@@ -70,7 +70,7 @@ ragged_lookup):
      uploads its own arena, then 50,000 GETs of A at concurrency 256 with
      the gate's identity check on (ragged_lookup must launch); from the
      warm-up's end on, any host fallback, identity mismatch or device
-     error on the `server`'s gate fails; `benchmark -n 65536 -c 16` (cut
+     error on the `server`'s gate fails; `benchmark -n 32768 -c 16` (cut
      from -n 1048576 for time) and `shell` as child processes: benchmark
      writes and reads (every body checked), 5,000 /dir/assign, `ec.encode
      -volumeId A` (generate and spread timed by the shell) spread 4/4/3/3
@@ -105,6 +105,31 @@ ragged_lookup):
      to the single-device index_search answer), entry.entry() and
      entry.dryrun(); each against the plain version; gf_verify's time
      beside its plain version's and its bound.
+ 13  vacuum (`weed benchmark` scale, the master's default -garbageThreshold
+     0.3): phase 7's volume (kept through hard links) with a seeded 35 %
+     of its needles deleted (garbage level >= 0.3). 13a: compact2 and
+     commit on clones of it: the memory map on each copy route (pread,
+     mmap) and through `python -m seaweedfs_tpu_torch compact`, lsm and
+     leveldb; each new .dat and .idx held to the script's own plain
+     reference (the old .idx folded with numpy, the live records read at
+     their old offsets: the super block with revision + 1, then the
+     padded live records in offset order; the .idx in key order);
+     bulk_lookup of every key plus 10 % absent before the commit, and
+     after it in batches of 64 .. all on every kind and on a read-only
+     sorted load, equal to the reference, and to the host map (every
+     probe on the memory map, the first 16,384 on the others); 65,536
+     probes through index_search against its plain version on the card.
+     13b: `server -index lsm -batchLookup arena -storageBackend cuda
+     -garbageThreshold 0.3` on a copy of the volume before the deletes,
+     10,000 warm-up GETs at concurrency 512, the same deletes through
+     BatchDelete RPCs of 10,000 fids, then `shell "lock; volume.vacuum
+     -garbageThreshold 0.3; unlock"` while a child client keeps GETs at
+     concurrency 256 running over live, deleted and absent keys (0 wrong
+     bodies, 0 5xx); after the commit a re-warm and 50,000 GETs with the
+     identity check on (ragged_lookup must launch in them; no host
+     fallback, mismatch or device error after the re-warm), BulkLookup
+     equal to the reference and the
+     host map, a second /vol/vacuum with no candidate, stop within 10 s.
 
 Each phase prints one JSON line; any mismatch or exception exits non-zero
 without the final line. The line before last but one is the kernels
@@ -429,9 +454,12 @@ LOOKUP_BATCHES = (64, 512, 4096, 65536)
 READ_BACK = 1000
 
 
-def phase_volume_lookup(torch, work: str, seed: int, needle_mod, crc_mod) -> dict:
+def phase_volume_lookup(torch, work: str, seed: int, needle_mod, crc_mod,
+                        keep: dict) -> dict:
     """weed benchmark's volume through the port's Volume (memory map) and
-    bulk_lookup on the card, every answer held to the host map."""
+    bulk_lookup on the card, every answer held to the host map. `keep`
+    gets the volume's files (hard links in a directory of their own) and
+    its table for phase 13."""
     import numpy as np
 
     from seaweedfs_tpu_torch.ops import index_kernel as K
@@ -553,6 +581,14 @@ def phase_volume_lookup(torch, work: str, seed: int, needle_mod, crc_mod) -> dic
                 fail(f"needle {n.id:x}: payload or checksum mismatch")
         read_s = time.perf_counter() - t0
         v.close()
+        stash = os.path.join(work, VACUUM_STASH)
+        os.makedirs(stash)
+        for ext in (".dat", ".idx"):
+            os.link(os.path.join(work, f"{vid}{ext}"), os.path.join(stash, f"{vid}{ext}"))
+        live = np.ones(VOLUME_NEEDLES, dtype=bool)
+        live[deleted] = False
+        keep.update(dir=stash, vid=vid, pool=pool, pool_crc=pool_crc, ids=ids,
+                    cookies=cookies, blob_of=blob_of, live=live)
     finally:
         needle_mod.masked_crc = real_crc
     res = {
@@ -988,7 +1024,9 @@ def phase_arena_gate(torch, work: str, seed: int) -> dict:
 SERVER_NEEDLES = 1 << 20  # weed benchmark -n 1048576 -size 1024 -c 16
 SERVER_WRITES = 1 << 16
 WRITE_CONCURRENCY = 16
-SERVER_READS = 200_000
+# GETs of each read pass (identity check on, then off): cut from 200,000
+# to keep the whole script inside its time limit on a slow host
+SERVER_READS = 100_000
 READ_CONCURRENCY = 256
 WARMUP_READS = 10_000
 # the warm-up's concurrency: at 256 a wakeup holds 65-128 GETs, which the
@@ -1073,18 +1111,34 @@ def client_main(argv: list) -> int:
     ap.add_argument("--port", type=int, required=True)
     ap.add_argument("--concurrency", type=int, required=True)
     ap.add_argument("--out", required=True)
+    ap.add_argument("--until", default="",
+                    help="cycle through the plan until this file exists")
     a = ap.parse_args(argv)
     with open(a.client, "rb") as f:
         plan = pickle.load(f)
     blobs = plan["blobs"]
     reqs = plan["requests"]  # (method, path, blob index | -1, status)
-    lat = [0.0] * len(reqs)
+    # a GET that wants 200 may answer 404 (counted apart, not wrong)
+    allow_404 = plan.get("allow_404", False)
+    lat = []
     bad = []
+    live_404 = [0]
+
+    def order(k: int):
+        n = 0
+        while True:
+            for i in range(k, len(reqs), a.concurrency):
+                yield i
+                n += 1
+                if a.until and n % 32 == 0 and os.path.exists(a.until):
+                    return
+            if not a.until or os.path.exists(a.until):
+                return
 
     async def one_client(k: int) -> None:
         r, w = await asyncio.open_connection("127.0.0.1", a.port)
         try:
-            for i in range(k, len(reqs), a.concurrency):
+            for i in order(k):
                 method, path, blob, want_status = reqs[i]
                 body = blobs[blob] if method == "POST" else b""
                 t0 = time.perf_counter()
@@ -1096,8 +1150,10 @@ def client_main(argv: list) -> int:
                 j = low.find(b"content-length:")
                 n = int(low[j + 15: low.index(b"\r\n", j)]) if j >= 0 else 0
                 got = await r.readexactly(n) if n else b""
-                lat[i] = time.perf_counter() - t0
-                if status != want_status:
+                lat.append(time.perf_counter() - t0)
+                if allow_404 and status == 404 and want_status == 200:
+                    live_404[0] += 1
+                elif status != want_status:
                     bad.append((i, path, status, want_status, got[:80].decode("latin1")))
                 elif method == "GET" and status == 200 and got != blobs[blob]:
                     bad.append((i, path, "body differs"))
@@ -1121,9 +1177,10 @@ def client_main(argv: list) -> int:
     srt = sorted(lat)
     with open(a.out, "w") as f:
         json.dump({
-            "requests": len(reqs),
+            "requests": len(lat),
             "wall_s": wall,
-            "per_s": len(reqs) / wall,
+            "per_s": len(lat) / wall,
+            "live_answered_404": live_404[0],
             "p50_ms": srt[len(srt) // 2] * 1e3,
             "p99_ms": srt[min(len(srt) - 1, int(len(srt) * 0.99))] * 1e3,
             "client_cpu_s": cpu,
@@ -1569,7 +1626,7 @@ CLUSTER_VOLUME_SERVERS = 3  # `volume -mserver` beside the `server`
 CLUSTER_RACKS = ("r0", "r1", "r2", "r3")
 DECODED_GETS = 2_000  # A's GETs through the normal read path after ec.decode
 CLUSTER_SIZE_LIMIT_MB = 1024  # volume A (1,127 MB) is full, as ec.encode wants
-BENCH_N = 1 << 16  # weed benchmark -n: cut from 1,048,576 for time
+BENCH_N = 1 << 15  # weed benchmark -n: cut from 1,048,576 for time
 BENCH_C = 16
 ASSIGNS = 5_000
 REMOTE_GETS = 2_000
@@ -2531,6 +2588,497 @@ def phase_mesh(torch, seed: int, index: dict, ires: dict, sm_clock_hz: float) ->
     emit(res)
     return res
 
+# --- phase 13 ----------------------------------------------------------------
+VACUUM_STASH = "vacuum-src"  # phase 7's volume, kept for phase 13
+# the master's default -garbageThreshold (seaweedfs_tpu/command/cli.py:20,
+# upstream `weed master`'s): a seeded 35 % of the needles deleted puts the
+# volume just past it
+VACUUM_THRESHOLD = 0.3
+VACUUM_DELETE_SHARE = 0.35
+BATCH_DELETE_FIDS = 10_000
+VACUUM_RACE_CONCURRENCY = 256
+VACUUM_AFTER_READS = 50_000
+VACUUM_PLAIN_PROBES = 65_536
+# the host maps of the other kinds answer a probe in 10-60 µs (the LSM
+# runs, a sqlite query, a binary search of the .sdx on disk): they are
+# held to the first 16,384 probes, the memory map to all; every kind's K1
+# answers are held to all of them and to the plain reference
+HOST_MAP_SAMPLE = 16_384
+VACUUM_READ_BACK = 1_000
+# (clone, needle map kind, copy route): "cli" is `python -m
+# seaweedfs_tpu_torch compact`, None the calibrated route
+VACUUM_CLONES = (("memory_pread", "memory", "pread"), ("memory_mmap", "memory", "mmap"),
+                 ("memory_cli", "memory", "cli"), ("lsm", "lsm", None),
+                 ("leveldb", "leveldb", None))
+
+
+def _idx_live(path: str):
+    """The plain reference's reading of a .idx, numpy alone: 16-byte
+    big-endian rows (key u64, offset units u32, size u32), each key's
+    newest row wins, tombstones (size 0xFFFFFFFF) and zero offsets drop
+    out -> key-sorted (keys, offset units, sizes) as int64/uint64."""
+    import numpy as np
+
+    raw = np.fromfile(path, dtype=np.uint8).reshape(-1, 16)
+    keys = raw[:, :8].copy().view(">u8").ravel().astype(np.uint64)
+    offs = raw[:, 8:12].copy().view(">u4").ravel().astype(np.int64)
+    sizes = raw[:, 12:].copy().view(">u4").ravel().astype(np.int64)
+    uk, rev_first = np.unique(keys[::-1], return_index=True)
+    last = len(keys) - 1 - rev_first
+    off, size = offs[last], sizes[last]
+    alive = (off != 0) & (size != 0xFFFFFFFF)
+    return uk[alive], off[alive], size[alive]
+
+
+def _expected_compaction(base: str) -> dict:
+    """What a compaction of `base` must write, from its .dat and .idx with
+    numpy alone: the super block with its compaction revision + 1, then
+    every live record (version 3: 16-byte header, body, CRC, timestamp,
+    padded with 1-8 bytes to a multiple of 8) in old-offset order; the
+    .idx the live keys in key order at their new offsets."""
+    import numpy as np
+
+    keys, old_units, sizes = _idx_live(base + ".idx")
+    with open(base + ".dat", "rb") as f:
+        head = f.read(8)
+        if head[0] != 3:
+            fail(f"{base}.dat is version {head[0]}, the reference reads version 3")
+        sb = bytearray(head + f.read(int.from_bytes(head[6:8], "big")))
+    sb[4:6] = (int.from_bytes(sb[4:6], "big") + 1).to_bytes(2, "big")
+    rec = 16 + sizes + 4 + 8
+    rec += 8 - rec % 8
+    order = np.argsort(old_units, kind="stable")
+    starts = old_units[order] * 8
+    ends = starts + rec[order]
+    new_off = len(sb) + np.concatenate(([0], np.cumsum(rec[order])[:-1]))
+    new_units = np.empty_like(old_units)
+    new_units[order] = new_off // 8
+    h = hashlib.sha1(sb)
+    mm = np.memmap(base + ".dat", dtype=np.uint8, mode="r")
+    cut = np.nonzero(starts[1:] != ends[:-1])[0] + 1  # contiguous runs
+    for a, b in zip(starts[np.concatenate(([0], cut))].tolist(),
+                    ends[np.concatenate((cut - 1, [len(ends) - 1]))].tolist()):
+        h.update(mm[a:b])
+    del mm
+    idx = np.empty((len(keys), 16), dtype=np.uint8)
+    idx[:, :8] = keys.astype(">u8").view(np.uint8).reshape(-1, 8)
+    idx[:, 8:12] = new_units.astype(">u4").view(np.uint8).reshape(-1, 4)
+    idx[:, 12:] = sizes.astype(">u4").view(np.uint8).reshape(-1, 4)
+    return {"keys": keys, "old_units": old_units, "new_units": new_units, "sizes": sizes,
+            "dat_size": len(sb) + int(rec.sum()), "dat_sha1": h.hexdigest(),
+            "idx_bytes": idx.tobytes(), "live_bytes": int(rec.sum())}
+
+
+def _expect_lookup(exp: dict, units_key: str, probes):
+    """(offset units, sizes, found) the lookup of `probes` must answer."""
+    import numpy as np
+
+    keys = exp["keys"]
+    i = np.minimum(np.searchsorted(keys, probes), len(keys) - 1)
+    found = keys[i] == probes
+    return (np.where(found, exp[units_key][i], 0).astype(np.uint32),
+            np.where(found, exp["sizes"][i], 0).astype(np.uint32), found)
+
+
+def _check_lookup(got, want, what: str) -> None:
+    import numpy as np
+
+    for j, name in enumerate(("offset", "size", "found")):
+        if not np.array_equal(np.asarray(got[j]), want[j]):
+            bad = int(np.count_nonzero(np.asarray(got[j]) != want[j]))
+            fail(f"{what}: {name} differs at {bad} of {len(want[j])} probes")
+
+
+def _batched_lookup(v, probes, batch: int):
+    import numpy as np
+
+    parts = [v.bulk_lookup(probes[c0:c0 + batch]) for c0 in range(0, len(probes), batch)]
+    return tuple(np.concatenate([p[j] for p in parts]) for j in range(3))
+
+
+def _k1_against_plain(torch, v, probes) -> int:
+    """K1 and its plain version on the card over `v`'s snapshot, one batch
+    of probes; -> the largest difference (0). Not counted on the path."""
+    import numpy as np
+
+    from seaweedfs_tpu_torch.ops import index_kernel as K
+
+    counted = K.KERNEL_LAUNCHES
+    try:
+        snap = K.IndexSnapshot(*v.nm.snapshot())
+        pk = torch.from_numpy(probes.view(np.int64)).to(snap.rows.device)
+        cols = (snap.keys, snap.offsets, snap.sizes)
+        if snap.starts is not None:
+            got = K._index_search_cuda(snap.rows, snap.starts, snap.kmin, snap.bstep,
+                                       snap.nb, pk)
+            bucket = torch.from_numpy(snap._bucket_of(probes).astype(np.int64)).to(pk.device)
+            want = K._bulk_lookup_bucketed_torch(snap.bsteps, *cols, snap.starts, pk, bucket)
+        else:
+            got = K._index_search_cuda(snap.rows, None, 0, 1, 0, pk)
+            want = K._bulk_lookup_torch(snap.steps, *cols, pk)
+        torch.cuda.synchronize()
+        if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+                and torch.equal(got[2].bool(), want[2])):
+            fail("index_search != its plain version over a compacted volume's snapshot")
+        return max_abs_diff(torch, zip(got[:2], want[:2]))
+    finally:
+        K.KERNEL_LAUNCHES = counted
+
+
+def phase_vacuum(torch, work: str, seed: int, keep: dict, needle_mod) -> dict:
+    """The vacuum plane at `weed benchmark` scale on phase 7's volume. 13a,
+    the volume layer: a seeded 35 % deleted, the garbage level checked,
+    then compact2 and commit on clones (memory on each copy route and
+    through `python -m seaweedfs_tpu_torch compact`, lsm, leveldb), every
+    clone's .dat and .idx held to the script's own plain reference and
+    bulk_lookup before and after the commit (and on a read-only sorted
+    load) held to it and to the host map. 13b, the server: `server -index
+    lsm -batchLookup arena -storageBackend cuda -garbageThreshold 0.3` on
+    a copy of the volume before the deletes, the same deletes through
+    BatchDelete, `shell volume.vacuum` under GETs at concurrency 256, the
+    gate re-warmed and checked after the commit, BulkLookup, a second
+    /vol/vacuum with no candidate."""
+    import asyncio
+    import pickle
+
+    import numpy as np
+
+    from seaweedfs_tpu_torch.command import cli
+    from seaweedfs_tpu_torch.ops import index_kernel as IK
+    from seaweedfs_tpu_torch.ops import ragged_lookup as RL
+    from seaweedfs_tpu_torch.pb import grpc_address
+    from seaweedfs_tpu_torch.pb.rpc import Stub
+    from seaweedfs_tpu_torch.storage import vacuum
+    from seaweedfs_tpu_torch.storage.file_id import FileId
+    from seaweedfs_tpu_torch.storage.volume import Volume
+
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(seed + 13)
+    root = os.path.join(work, "vacuum")
+    os.makedirs(root)
+    vid = keep["vid"]
+    src = os.path.join(root, "src")
+    os.rename(keep["dir"], src)
+    srv = os.path.join(root, "server")
+    os.makedirs(srv)
+    for ext in (".dat", ".idx"):  # 13b's volume: a copy before the deletes
+        shutil.copyfile(os.path.join(src, f"{vid}{ext}"), os.path.join(srv, f"{vid}{ext}"))
+    pool, pool_crc = keep["pool"], keep["pool_crc"]
+    ids, cookies, blob_of, live0 = (keep[k] for k in ("ids", "cookies", "blob_of", "live"))
+    doomed = rng.choice(np.nonzero(live0)[0], int(VACUUM_DELETE_SHARE * len(ids)),
+                        replace=False)
+    live = live0.copy()
+    live[doomed] = False
+    absent = rng.integers(1 << 49, 1 << 50, size=len(ids) // 10, dtype=np.uint64)
+    probes = rng.permutation(np.concatenate([ids, absent]))
+    fid = lambda k, c: "/" + str(FileId(vid, int(k), int(c)))  # noqa: E731
+
+    # the path: every count at 0 now, read at the phase's end
+    IK.KERNEL_LAUNCHES = RL.KERNEL_LAUNCHES = 0
+
+    # --- 13a: the volume layer ---
+    base = os.path.join(src, str(vid))
+    t0 = time.perf_counter()
+    v = Volume(src, "", vid)
+    for i in doomed.tolist():
+        if v.delete_needle(needle_mod.Needle(cookie=int(cookies[i]), id=int(ids[i]))) <= 0:
+            fail(f"needle {int(ids[i]):x} was not live")
+    delete_s = time.perf_counter() - t0
+    garbage = v.garbage_level()
+    v.close()
+    if garbage < VACUUM_THRESHOLD:
+        fail(f"garbage level {garbage} after the deletes, under {VACUUM_THRESHOLD}")
+    t0 = time.perf_counter()
+    exp = _expected_compaction(base)
+    reference_s = time.perf_counter() - t0
+    if len(exp["keys"]) != int(live.sum()):
+        fail(f"the .idx holds {len(exp['keys'])} live needles, expected {int(live.sum())}")
+    want_old = _expect_lookup(exp, "old_units", probes)
+    want_new = _expect_lookup(exp, "new_units", probes)
+    live_idx = np.nonzero(live)[0]
+    sample = rng.choice(live_idx, VACUUM_READ_BACK, replace=False)
+
+    def read_back(v, what):
+        for i in sample.tolist():
+            n = v.read_needle_by_key(int(ids[i]))
+            data = pool[int(blob_of[i])]
+            if n.cookie != int(cookies[i]) or bytes(n.data) != data \
+                    or n.checksum != pool_crc[data]:
+                fail(f"{what}: needle {int(ids[i]):x} reads back wrong")
+
+    kinds = {}
+    plain_err = 0
+    dat_sums = {}
+    for name, kind, route in VACUUM_CLONES:
+        t_clone = time.perf_counter()
+        d = os.path.join(root, name)
+        os.makedirs(d)
+        for ext in (".dat", ".idx"):  # compaction only reads them
+            os.link(base + ext, os.path.join(d, f"{vid}{ext}"))
+        row = {"map": kind}
+        if route == "cli":
+            out, row["cli_s"] = _port_cli(["compact", "-dir", d, "-volumeId", str(vid)])
+            if f"compacted volume {vid}: {exp['dat_size']} bytes" not in out:
+                fail(f"compact: {out!r}")
+        else:
+            t0 = time.perf_counter()
+            v = Volume(d, "", vid, needle_map_kind=kind)
+            row["load_s"] = time.perf_counter() - t0
+            check = route in ("pread", None)  # the lookups, once per kind
+            host_n = len(probes) if kind == "memory" else HOST_MAP_SAMPLE
+            if check:
+                t0 = time.perf_counter()
+                _check_lookup(v.bulk_lookup(probes), want_old, f"{name}: bulk_lookup before")
+                row["lookup_before_s"] = time.perf_counter() - t0
+                t0 = time.perf_counter()
+                _check_lookup(v.bulk_lookup(probes[:host_n], use_device=False),
+                              [w[:host_n] for w in want_old], f"{name}: host map before")
+                row["host_map_probes"] = host_n
+                row["host_map_before_s"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            report = vacuum.compact2(v, route=route)
+            row["compact_s"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            v = vacuum.commit_compact(v)
+            row["commit_s"] = time.perf_counter() - t0
+            row.update(route=report["route"], records=report["records"],
+                       extents=report["extents"], live_bytes=report["live_bytes"],
+                       live_gb_per_s=report["live_bytes"] / row["compact_s"] / 1e9,
+                       stages=report["stages"])
+            if report["records"] != len(exp["keys"]) or report["live_bytes"] != exp["live_bytes"]:
+                fail(f"{name}: compacted {report['records']} records, "
+                     f"{report['live_bytes']} bytes; expected {len(exp['keys'])}, "
+                     f"{exp['live_bytes']}")
+            if check:
+                walls = {}
+                for batch in (64, VACUUM_PLAIN_PROBES, len(probes)):
+                    t0 = time.perf_counter()
+                    got = _batched_lookup(v, probes, batch)
+                    walls[str(batch) if batch != len(probes) else "all"] = \
+                        time.perf_counter() - t0
+                    _check_lookup(got, want_new, f"{name}: bulk_lookup after, batch {batch}")
+                row["lookup_after_s"] = walls
+                t0 = time.perf_counter()
+                _check_lookup(v.bulk_lookup(probes[:host_n], use_device=False),
+                              [w[:host_n] for w in want_new], f"{name}: host map after")
+                row["host_map_after_s"] = time.perf_counter() - t0
+                plain_err = max(plain_err, _k1_against_plain(
+                    torch, v, probes[:VACUUM_PLAIN_PROBES]))
+                read_back(v, name)
+            v.close()
+        paths = [os.path.join(d, f"{vid}{e}") for e in (".dat", ".idx")]
+        if os.path.getsize(paths[0]) != exp["dat_size"]:
+            fail(f"{name}: the new .dat has {os.path.getsize(paths[0])} bytes, "
+                 f"expected {exp['dat_size']}")
+        with open(paths[1], "rb") as f:
+            if f.read() != exp["idx_bytes"]:
+                fail(f"{name}: the new .idx differs from the plain reference's")
+        dat_sums[name] = paths[0]
+        row["s"] = time.perf_counter() - t_clone
+        kinds[name] = row
+    sums = sha1_files(list(dat_sums.values()))
+    for name, path in dat_sums.items():
+        if sums[path] != exp["dat_sha1"]:
+            fail(f"{name}: the new .dat differs from the plain reference's")
+    # a read-only sorted load of the compacted volume
+    d = os.path.join(root, "memory_pread")
+    t0 = time.perf_counter()
+    v = Volume(d, "", vid, create=False, needle_map_kind="sorted")
+    sorted_row = {"load_s": time.perf_counter() - t0, "read_only": v.is_read_only()}
+    if not v.is_read_only():
+        fail("a sorted load is writable")
+    for batch in (64, len(probes)):
+        _check_lookup(_batched_lookup(v, probes, batch), want_new,
+                      f"sorted: bulk_lookup, batch {batch}")
+    _check_lookup(v.bulk_lookup(probes[:HOST_MAP_SAMPLE], use_device=False),
+                  [w[:HOST_MAP_SAMPLE] for w in want_new], "sorted: host map")
+    read_back(v, "sorted")
+    v.close()
+    sorted_row["s"] = time.perf_counter() - t0
+    ik_13a = IK.KERNEL_LAUNCHES
+    t13a = time.perf_counter() - t_phase
+    for name in list(dat_sums) + ["src"]:
+        shutil.rmtree(os.path.join(root, name))
+
+    # --- 13b: through the server ---
+    taken: set = set()
+    mport, vport = _port_pair(taken), _port_pair(taken)
+    argv = ["-ip", "127.0.0.1", "-port", str(mport), "-volumePort", str(vport),
+            "-dir", srv, "-index", "lsm", "-batchLookup", "arena",
+            "-storageBackend", "cuda", "-garbageThreshold", str(VACUUM_THRESHOLD)]
+    t0 = time.perf_counter()
+    held = _serve_in_thread(cli.cmd_server, argv, "vacuum-server")
+    if not held["ready"].wait(SERVER_START_S) or "error" in held:
+        fail(f"server did not start in {SERVER_START_S} s: {held.get('error')!r}")
+    stop_file = os.path.join(root, "race.stop")
+    race = None
+    try:
+        ms, vs = held["servers"]
+        while not ms.topo.lookup("", vid):
+            if time.perf_counter() - t0 > SERVER_START_S:
+                fail(f"the master does not know volume {vid}")
+            time.sleep(0.1)
+        start_s = time.perf_counter() - t0
+        stub = Stub(grpc_address(f"127.0.0.1:{vport}"), "volume")
+        base_plan = {"blobs": pool, "etags": [f"{pool_crc[b]:08x}" for b in pool]}
+
+        def gets(n, alive):
+            pick = rng.integers(0, len(ids), size=n)
+            miss = rng.random(n) < ABSENT_SHARE
+            out = []
+            for k, i in enumerate(pick.tolist()):
+                if miss[k]:
+                    out.append(("GET", fid(absent[k % len(absent)], 7), -1, 404))
+                elif alive[i]:
+                    out.append(("GET", fid(ids[i], cookies[i]), int(blob_of[i]), 200))
+                else:
+                    out.append(("GET", fid(ids[i], cookies[i]), -1, 404))
+            return out
+
+        def gate_now():
+            return _http_json(vport, "/debug/needle_map")
+
+        vs.lookup_gate.identity_check = True
+        warm = _drive(root, "vacuum_warmup", vport,
+                      dict(base_plan, requests=gets(WARMUP_READS, live0)),
+                      WARMUP_CONCURRENCY, 600)
+        # the deletes: BatchDelete RPCs of BATCH_DELETE_FIDS fids each
+        t0 = time.perf_counter()
+        for c0 in range(0, len(doomed), BATCH_DELETE_FIDS):
+            part = doomed[c0:c0 + BATCH_DELETE_FIDS].tolist()
+            reply = asyncio.run(stub.call("BatchDelete", {"file_ids": [
+                fid(ids[i], cookies[i])[1:] for i in part]}, timeout=600))
+            bad = [r for r in reply["results"] if r["status"] != 202 or r["size"] <= 0]
+            if bad:
+                fail(f"BatchDelete: {len(bad)} failed, e.g. {bad[:3]}")
+        batch_delete_s = time.perf_counter() - t0
+        ratio = vs.store.find_volume(vid).garbage_level()
+        if ratio < VACUUM_THRESHOLD:
+            fail(f"the server's garbage level {ratio} is under {VACUUM_THRESHOLD}")
+
+        # GETs at concurrency 256 in a child client while the shell vacuums
+        plan_path = os.path.join(root, "race.plan")
+        with open(plan_path, "wb") as f:
+            pickle.dump(dict(base_plan, requests=gets(40_000, live), allow_404=True), f,
+                        protocol=pickle.HIGHEST_PROTOCOL)
+        race_out = os.path.join(root, "race.json")
+        race = subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--client", plan_path,
+             "--port", str(vport), "--concurrency", str(VACUUM_RACE_CONCURRENCY),
+             "--out", race_out, "--until", stop_file],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        time.sleep(3)  # the client is up and reading
+        g_race = gate_now()
+        old_volume = vs.store.find_volume(vid)
+        out, vacuum_wall = _port_cli(
+            ["shell", "-master", f"127.0.0.1:{mport}",
+             f"lock; volume.vacuum -garbageThreshold {VACUUM_THRESHOLD}; unlock"])
+        with open(stop_file, "w"):
+            pass
+        _stdout, err = race.communicate(timeout=600)
+        if race.returncode != 0:
+            fail(f"the race client exited {race.returncode}: {err[-2000:]}")
+        race = None
+        with open(race_out) as f:
+            during = json.load(f)
+        if during["bad"]:
+            fail(f"GETs during the vacuum: {during['bad']} wrong bodies or 5xx, "
+                 f"e.g. {during['bad_examples']}")
+        if f"vacuum: {{'Result': [{{'volume_id': {vid}, 'compacted': True}}]}}" not in out:
+            fail(f"volume.vacuum: {out!r}")
+        new_volume = vs.store.find_volume(vid)
+        if new_volume is old_volume or new_volume.garbage_level() != 0:
+            fail("the vacuum did not swap a compacted volume in")
+        server_route = dict(vacuum.LAST_VACUUM_ROUTE)
+        server_stages = dict(vacuum.LAST_VACUUM_STAGES)
+        g_after_race = gate_now()
+
+        # after the commit: a re-warm, then GETs with the identity check on
+        rl0 = RL.KERNEL_LAUNCHES
+        rewarm = _drive(root, "vacuum_rewarm", vport,
+                        dict(base_plan, requests=gets(WARMUP_READS, live)),
+                        WARMUP_CONCURRENCY, 600)
+        g0 = gate_now()
+        rl1 = RL.KERNEL_LAUNCHES
+        after = _drive(root, "vacuum_after", vport,
+                       dict(base_plan, requests=gets(VACUUM_AFTER_READS, live)),
+                       VACUUM_RACE_CONCURRENCY, 600)
+        g1 = gate_now()
+        window = {k: g1["gate"][k] - g0["gate"][k] for k in g1["gate"]}
+        after_launches = RL.KERNEL_LAUNCHES - rl1
+        # at concurrency 256 most wakeups stay under the arena's 128-probe
+        # cut: as in phase 11, the re-warm at 512 and the reads together
+        # must launch it
+        if RL.KERNEL_LAUNCHES - rl0 <= 0:
+            fail("GETs after the commit (re-warm and reads) launched "
+                 "ragged_lookup no time")
+        if window["host_fallbacks"] or window["identity_mismatches"] \
+                or g1["device"]["errors"] or any(g1["device_errors"].values()):
+            fail(f"the gate after the re-warm: {window}, arena errors "
+                 f"{g1['device']['errors']}, device errors {g1['device_errors']}")
+        vs.lookup_gate.identity_check = False
+
+        # BulkLookup of every key plus 10 % absent
+        t0 = time.perf_counter()
+        reply = asyncio.run(stub.call("BulkLookup", {
+            "volume_id": vid, "keys": probes.astype("<u8").tobytes()}, timeout=300))
+        bulk_s = time.perf_counter() - t0
+        got = (np.frombuffer(reply["offsets"], dtype=reply["offset_dtype"]),
+               np.frombuffer(reply["sizes"], dtype="<u4"),
+               np.frombuffer(reply["found"], dtype=np.uint8).astype(bool))
+        _check_lookup(got, want_new, "BulkLookup after the vacuum")
+        _check_lookup(got, new_volume.bulk_lookup(probes, use_device=False),
+                      "BulkLookup against the host map")
+        again = _http_json(mport, "/vol/vacuum")
+        if again != {"Result": []}:
+            fail(f"a second /vol/vacuum found {again}")
+        launches = {"index_search": IK.KERNEL_LAUNCHES,
+                    "ragged_lookup": RL.KERNEL_LAUNCHES}
+    finally:
+        if race is not None:
+            with open(stop_file, "w"):
+                pass
+            race.kill()
+            race.wait()
+        stop_s = _stop_served(held, SERVER_STOP_S)
+    if launches["index_search"] <= ik_13a:
+        fail("BulkLookup through the server launched index_search no time")
+    res = {
+        "phase": "vacuum",
+        "needles": len(ids),
+        "deleted": len(doomed),
+        "deleted_before": int((~live0).sum()),
+        "garbage_level": garbage,
+        "threshold": VACUUM_THRESHOLD,
+        "delete_s": delete_s,
+        "reference_s": reference_s,
+        "13a_s": t13a,
+        "live_needles": len(exp["keys"]),
+        "live_bytes": exp["live_bytes"],
+        "new_dat_bytes": exp["dat_size"],
+        "kinds": kinds,
+        "sorted_load": sorted_row,
+        "equal_to_plain_reference": True,
+        "k1_plain_probes": VACUUM_PLAIN_PROBES,
+        "k1_max_abs_err": plain_err,
+        "server": {
+            "argv": argv, "start_s": start_s, "warmup": warm,
+            "batch_delete_s": batch_delete_s, "garbage_level": ratio,
+            "vacuum_wall_s": vacuum_wall, "route": server_route, "stages": server_stages,
+            "during": during,
+            "gate_during": {k: g_after_race["gate"][k] - g_race["gate"][k]
+                            for k in g_race["gate"]},
+            "rewarm": rewarm, "after": after, "gate_after": window,
+            "ragged_lookup_launches": {"rewarm": rl1 - rl0, "after": after_launches},
+            "bulk_lookup_s": bulk_s, "second_vacuum": again, "stop_s": stop_s,
+        },
+        "kernel_launches": launches,
+        "phase_s": time.perf_counter() - t_phase,
+    }
+    emit(res)
+    return res
+
+
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -2860,7 +3408,8 @@ def main() -> int:
         # --- phases 7-9 ---
         for fn in os.listdir(work):  # free the EC volume's disk
             os.remove(os.path.join(work, fn))
-        vres = phase_volume_lookup(torch, work, args.seed, needle_mod, crc_mod)
+        vkeep: dict = {}
+        vres = phase_volume_lookup(torch, work, args.seed, needle_mod, crc_mod, vkeep)
         ik_launches["volume_lookup"] = vres["kernel_launches"]
         index: dict = {}
         ires = phase_index_kernel(torch, args.seed, index)
@@ -2868,6 +3417,8 @@ def main() -> int:
 
         # --- phase 10 ---
         for fn in os.listdir(work):  # free the earlier phases' disk
+            if fn == VACUUM_STASH:
+                continue
             path = os.path.join(work, fn)
             if os.path.isdir(path):
                 shutil.rmtree(path)
@@ -2896,6 +3447,18 @@ def main() -> int:
                         ("index_search", ik_launches["mesh"])):
             if n <= 0:
                 fail(f"phase 12 launched {path} no time")
+
+        # --- phase 13 ---
+        for fn in os.listdir(work):  # free the earlier phases' disk
+            if fn == VACUUM_STASH:
+                continue
+            path = os.path.join(work, fn)
+            if os.path.isdir(path):
+                shutil.rmtree(path)
+            else:
+                os.remove(path)
+        vacres = phase_vacuum(torch, work, args.seed, vkeep, needle_mod)
+        ik_launches["vacuum"] = vacres["kernel_launches"]["index_search"]
     finally:
         shutil.rmtree(work, ignore_errors=True)
         try:
@@ -2965,11 +3528,13 @@ def main() -> int:
             "source": "seaweedfs_tpu_torch/ops/csrc/ragged_lookup.cu",
             "replaces": "seaweedfs_tpu/ops/ragged_lookup.py:181 (_ragged_dispatch)",
             "launches": ares["kernel_launches"] + sres["kernel_launches"]["ragged_lookup"]
-            + cres["kernel_launches"]["ragged_lookup"],
+            + cres["kernel_launches"]["ragged_lookup"]
+            + vacres["kernel_launches"]["ragged_lookup"],
             "launches_by_path": {
                 "arena_gate": ares["kernel_launches"],
                 "volume_server": sres["kernel_launches"]["ragged_lookup"],
                 "cluster": cres["kernel_launches"]["ragged_lookup"],
+                "vacuum": vacres["kernel_launches"]["ragged_lookup"],
             },
             "equal_to_plain": True,
             "max_abs_err": ares["max_abs_err"],

@@ -5,9 +5,11 @@ the reference, and imports nothing of it. Ported so far: warm-storage
 erasure coding (a sealed .dat becomes .ec00-.ec13 through RS(10,4) over
 GF(2^8) on a hand-written CUDA kernel; missing shards are rebuilt and
 needles read back with shards missing), the needle-index lookup on two
-hand-written search kernels, the volume server, and the master with the
-cluster's EC path (`python -m seaweedfs_tpu_torch master|server|volume|
-shell|benchmark`).
+hand-written search kernels over every needle-map kind (memory, lsm,
+sqlite "leveldb", sorted), the volume server, the master with the
+cluster's EC path, the EC round trip and mesh plane, and the vacuum plane
+(`python -m seaweedfs_tpu_torch master|server|volume|shell|benchmark|
+compact`).
 
 Entry points run on the card unless the caller asks for the CPU:
 `get_codec()` (backend "cuda"), `CudaRSCodec()`,

@@ -3,15 +3,16 @@
 Ported from the JAX package's command/cli.py with the commands
 `master`, `volume`, `server` (a master and a volume server in one process,
 on one event loop), `shell` (the semicolon-separated one-shot commands
-given as arguments, else a prompt) and `benchmark`. `-storageBackend`
-takes `cuda` (the default: the card, which must be present), `cpu` and
-`numpy` (the host); `adaptive` raises as not ported. `-index` takes
-`memory` and `lsm`. `-batchLookup` takes `off`, `auto`, `host`, `device`
-and `arena`. `-peers` runs a multi-master cluster through RaftLite.
-`-pulseSeconds` sets the volume server's heartbeat cadence (the JAX
-package reads it from SEAWEEDFS_TPU_PULSE_SECONDS). The flags of the
-parts still to port (`-garbageThreshold` and the master's other planes,
-`-tierConfig`, `-config`, the profilers, the filer and S3 of `server`)
+given as arguments, else a prompt), `benchmark` and `compact` (an offline
+vacuum of one volume). `-storageBackend` takes `cuda` (the default: the
+card, which must be present), `cpu` and `numpy` (the host); `adaptive`
+raises as not ported. `-index` takes `memory`, `leveldb`, `sorted` and
+`lsm`. `-batchLookup` takes `off`, `auto`, `host`, `device` and `arena`.
+`-peers` runs a multi-master cluster through RaftLite. `-garbageThreshold`
+is the master's vacuum threshold. `-pulseSeconds` sets the volume
+server's heartbeat cadence (the JAX package reads it from
+SEAWEEDFS_TPU_PULSE_SECONDS). The flags of the parts still to port
+(`-tierConfig`, `-config`, the profilers, the filer and S3 of `server`)
 are not declared, so argparse refuses them. SIGINT and SIGTERM stop the
 servers: the heartbeat ends, the gate, the arena, the executor and the
 sockets close, and the process exits with 0.
@@ -31,6 +32,7 @@ def _add_master_flags(p: argparse.ArgumentParser) -> None:
     p.add_argument("-port", type=int, default=9333)
     p.add_argument("-volumeSizeLimitMB", type=int, default=30_000)
     p.add_argument("-defaultReplication", default="000")
+    p.add_argument("-garbageThreshold", type=float, default=0.3)
     p.add_argument(
         "-peers",
         default="",
@@ -78,8 +80,7 @@ def _add_backend_flags(p: argparse.ArgumentParser) -> None:
         "-index",
         default="memory",
         choices=["memory", "leveldb", "sorted", "lsm"],
-        help="needle map kind (ref NeedleMapKind, weed/storage/needle_map.go:14;"
-        " the port has memory and lsm)",
+        help="needle map kind (ref NeedleMapKind, weed/storage/needle_map.go:14)",
     )
     p.add_argument(
         "-whiteList",
@@ -147,6 +148,7 @@ def _build_master_server(args):
         port=args.port,
         volume_size_limit_mb=args.volumeSizeLimitMB,
         default_replication=args.defaultReplication,
+        garbage_threshold=args.garbageThreshold,
         peers=[x for x in args.peers.split(",") if x] or None,
         jwt_signing_key=args.jwtSigningKey,
         sequencer_file=args.sequencerFile,
@@ -287,12 +289,33 @@ def cmd_benchmark(argv: list[str]) -> int:
     return 0
 
 
+def cmd_compact(argv: list[str]) -> int:
+    """Offline vacuum (ref command/compact.go): compact2 then commit, on
+    the host (the volume's snapshot device is never touched)."""
+    p = argparse.ArgumentParser(prog="seaweedfs_tpu_torch compact")
+    p.add_argument("-dir", required=True)
+    p.add_argument("-volumeId", type=int, required=True)
+    p.add_argument("-collection", default="")
+    args = p.parse_args(argv)
+
+    from ..storage.vacuum import commit_compact, compact2
+    from ..storage.volume import Volume
+
+    v = Volume(args.dir, args.collection, args.volumeId, create=False)
+    compact2(v)
+    v2 = commit_compact(v)
+    print(f"compacted volume {args.volumeId}: {v2.data_file_size()} bytes")
+    v2.close()
+    return 0
+
+
 COMMANDS = {
     "master": cmd_master,
     "volume": cmd_volume,
     "server": cmd_server,
     "shell": cmd_shell,
     "benchmark": cmd_benchmark,
+    "compact": cmd_compact,
 }
 
 

@@ -1,14 +1,14 @@
 """Master server: volume -> location mapping and file-id assignment.
 
 HTTP (data-plane control, ref: weed/server/master_server.go:112-130):
-  /dir/assign /dir/lookup /dir/status /vol/grow /col/delete
+  /dir/assign /dir/lookup /dir/status /vol/grow /vol/vacuum /col/delete
   /cluster/status /{fileId} redirect
 RPC "master" service (pb/rpc.py; ref: weed/server/master_grpc_server*.go):
   SendHeartbeat (bidi; full + delta volume/EC inventories),
   KeepConnected (vid-location push to clients), Assign, Statistics,
   LookupVolume, LookupEcVolume, CollectionList/Delete, VolumeList,
-  LeaseAdminToken/ReleaseAdminToken, GetMasterConfiguration and the two
-  Raft RPCs.
+  LeaseAdminToken/ReleaseAdminToken, GetMasterConfiguration,
+  VacuumStatus and the two Raft RPCs.
 
 Multi-master: RaftLite (server/raft.py) elects one leader; followers
 proxy Assign/lookups to it, redirect heartbeat + KeepConnected streams,
@@ -19,18 +19,23 @@ Ported from the JAX package's server/master.py. One HTTP server
 (util/fasthttp.py through server/serving_core.py) serves every route
 where the JAX master runs an aiohttp application behind a fast tier;
 the answers (status, JSON bodies, redirects) are the JAX handlers'.
-Not ported, each answering an explicit error: the anti-entropy repair,
-placement, vacuum, lifecycle and tier-sweep planes (their RPCs
-RepairStatus, PlacementStatus, VacuumStatus, LifecycleStatus and
-TierOrphanSweep answer the RPC tier's 501 `not ported`, `/vol/vacuum`
-an HTTP 501), the maintenance scripts, and the `/ui` page (HTTP 501).
-The constructor's `garbage_threshold` and `pulse_seconds` served those
-planes only and are not taken.
+The vacuum plane is the JAX master's: heartbeat garbage ratios feed a
+highest-garbage-first queue (topology/vacuum_plan.py) that dispatches
+check, compact, commit or cleanup to every replica under a concurrency
+cap, from `/vol/vacuum`, the VacuumStatus RPC and the opt-in background
+loop (`auto_vacuum`, SEAWEEDFS_TPU_AUTO_VACUUM). Not ported, each
+answering an explicit error: the anti-entropy repair, placement,
+lifecycle and tier-sweep planes (their RPCs RepairStatus,
+PlacementStatus, LifecycleStatus and TierOrphanSweep answer the RPC
+tier's 501 `not ported`), the maintenance scripts, and the `/ui` page
+(HTTP 501).
 """
 
 from __future__ import annotations
 
 import asyncio
+import os
+import random
 import time
 from typing import Optional
 from urllib.parse import parse_qsl
@@ -42,6 +47,8 @@ from ..storage.erasure_coding.ec_volume import ShardBits
 from ..storage.super_block import ReplicaPlacement
 from ..storage.ttl import TTL
 from ..topology import GrowOption, Topology, VolumeGrowth
+from ..topology.repair import RepairQueue
+from ..topology.vacuum_plan import plan_vacuums
 from ..topology.volume_growth import NoFreeSpaceError, grow_count_for_copy_level
 from ..util.fasthttp import (
     JSON_FULL,
@@ -49,7 +56,14 @@ from ..util.fasthttp import (
     render_http_exception,
     render_response,
 )
+from ..util.metrics import REPAIR_SECONDS, VACUUM_QUEUE_DEPTH
 from .serving_core import ServingCore, json_body, not_ported
+
+# the vacuum scheduler's scan interval and the silence after which a node
+# stops counting as a replica holder: the JAX master's at its default
+# 5 s pulse (max(4 pulses, 2 s) and max(15 s, 4 pulses))
+VACUUM_SCAN_SECONDS = 20.0
+LIVE_GRACE_SECONDS = 20.0
 
 # /dir/assign parameters the JAX master's fast tier serves itself
 _FAST_ASSIGN_PARAMS = frozenset(
@@ -90,12 +104,15 @@ class MasterServer:
         port: int = 9333,
         volume_size_limit_mb: int = 30_000,
         default_replication: str = "000",
+        garbage_threshold: float = 0.3,
         jwt_signing_key: str = "",
         jwt_expires_seconds: int = 10,
         peers: Optional[list[str]] = None,
         admin_lease_seconds: float = 10.0,
         sequencer_file: str = "",
         raft_state_file: str = "",
+        auto_vacuum: Optional[bool] = None,
+        vacuum_concurrency: int = 2,
     ):
         self.jwt_signing_key = jwt_signing_key
         self.jwt_expires_seconds = jwt_expires_seconds
@@ -104,6 +121,7 @@ class MasterServer:
         self.port = port
         self.address = f"{host}:{port}"
         self.default_replication = default_replication
+        self.garbage_threshold = garbage_threshold
         if sequencer_file:
             from ..sequence import FileSequencer
 
@@ -124,6 +142,23 @@ class MasterServer:
             adjust_max_volume_id=self.topo.adjust_max_volume_id,
             state_file=raft_state_file,
         )
+        # vacuum plane: garbage ratios ride heartbeats; findings feed a
+        # highest-garbage-first queue dispatched under a concurrency cap
+        # with full-jitter backoff. Background loop opt-in
+        # (SEAWEEDFS_TPU_AUTO_VACUUM / auto_vacuum=True); run_vacuum_once()
+        # is always callable (/vol/vacuum, VacuumStatus -run, tests).
+        if auto_vacuum is None:
+            auto_vacuum = os.environ.get(
+                "SEAWEEDFS_TPU_AUTO_VACUUM", ""
+            ).lower() in ("1", "true", "on", "yes")
+        self.auto_vacuum = auto_vacuum
+        self.vacuum_concurrency = vacuum_concurrency
+        self.vacuum_queue = RepairQueue(
+            rng=random.Random(), depth_gauge=VACUUM_QUEUE_DEPTH
+        )
+        self.vacuum_log: list[dict] = []
+        self._vacuum_task: Optional[asyncio.Task] = None
+        self._vacuum_inflight: set[int] = set()
         self._clients: dict[str, asyncio.Queue] = {}
         self._option_cache: dict[tuple, GrowOption] = {}
         self._admin_token: Optional[tuple[int, float]] = None  # (token, ts)
@@ -165,13 +200,22 @@ class MasterServer:
         svc.unary("LeaseAdminToken")(self._grpc_lease_admin_token)
         svc.unary("ReleaseAdminToken")(self._grpc_release_admin_token)
         svc.unary("GetMasterConfiguration")(self._grpc_get_configuration)
+        svc.unary("VacuumStatus")(self._grpc_vacuum_status)
         svc.unary("RaftRequestVote")(self._grpc_raft_request_vote)
         svc.unary("RaftAppendEntries")(self._grpc_raft_append_entries)
         self._grpc_server = await serve(grpc_address(self.address), svc)
         self.raft.start()
+        if self.auto_vacuum:
+            self._vacuum_task = asyncio.ensure_future(self._auto_vacuum_loop())
 
     async def stop(self) -> None:
         self._shutdown = True
+        if self._vacuum_task is not None:
+            self._vacuum_task.cancel()
+            try:
+                await self._vacuum_task
+            except (asyncio.CancelledError, Exception):
+                pass
         await self.raft.stop()
         if self._grpc_server is not None:
             await self._grpc_server.stop()
@@ -199,7 +243,7 @@ class MasterServer:
         if path == "/vol/grow":
             return await self._vol_grow(req)
         if path == "/vol/vacuum":
-            return not_ported("/vol/vacuum (the vacuum plane)")
+            return await self._vol_vacuum(req)
         if path == "/col/delete":
             return await self._col_delete(req)
         if path == "/cluster/status":
@@ -255,6 +299,15 @@ class MasterServer:
         if grown == 0:
             return _json(404, {"error": "no free volumes left"})
         return _json(200, {"count": grown})
+
+    async def _vol_vacuum(self, req) -> bytes:
+        gate = self._leader_gate_http(req)
+        if gate is not None:
+            return gate
+        # the query alone, as the JAX handler reads request.query
+        query = dict(parse_qsl(req.query, keep_blank_values=True))
+        threshold = float(query.get("garbageThreshold", self.garbage_threshold))
+        return _json(200, {"Result": await self.vacuum(threshold)})
 
     async def _col_delete(self, req) -> bytes:
         gate = self._leader_gate_http(req)
@@ -533,6 +586,16 @@ class MasterServer:
             self.topo.forget_ec_volume_if_empty(int(m["id"]))
             if not dn.ec_shards.get(int(m["id"])):
                 deleted_vids.append(int(m["id"]))
+        # the slim refresh: update the garbage and quarantine fields in
+        # place — layouts don't change, but the vacuum planner
+        # must see current values
+        for m in hb.get("volume_digests") or []:
+            info = dn.volumes.get(int(m["id"]))
+            if info is None:
+                continue
+            for k in ("read_only", "scrub_corrupt", "garbage_ratio"):
+                if k in m:
+                    info[k] = m[k]
         return new_vids, deleted_vids
 
     def _unregister_data_node(self, dn) -> None:
@@ -711,6 +774,284 @@ class MasterServer:
         return {
             "metrics_address": "",
             "metrics_interval_seconds": 15,
+        }
+
+    # ---------------- vacuum scheduler (ref topology_vacuum.go, rebuilt in
+    # the repair scheduler's shape: heartbeat-ranked queue, concurrency
+    # cap, full-jitter backoff, opt-in background loop) ----------------
+    async def _auto_vacuum_loop(self) -> None:
+        """Leader-only background vacuum: rank candidates off heartbeat
+        garbage ratios every few pulses, dispatch under the cap."""
+        while not self._shutdown:
+            try:
+                await asyncio.sleep(VACUUM_SCAN_SECONDS)
+                if not self.is_leader or self._shutdown:
+                    continue
+                await self.run_vacuum_once()
+            except asyncio.CancelledError:
+                return
+            except Exception:
+                continue  # scheduler errors must never kill the master
+
+    async def run_vacuum_once(
+        self,
+        garbage_threshold: Optional[float] = None,
+        max_dispatch: Optional[int] = None,
+        probe_all: bool = False,
+    ) -> dict:
+        """One scan+dispatch round: candidates from heartbeat-carried
+        garbage ratios merge into the highest-garbage-first queue, up to
+        the concurrency cap dispatch concurrently (authoritative
+        VacuumVolumeCheck -> compact every replica -> commit or cleanup),
+        failures back off with full jitter. probe_all enqueues every
+        registered volume regardless of heartbeat ratio (forced sweeps:
+        the per-replica check still gates the actual compaction)."""
+        if not self.is_leader:
+            return {"error": "not leader"}
+        threshold = (
+            self.garbage_threshold
+            if garbage_threshold is None
+            else garbage_threshold
+        )
+        if probe_all:
+            # forced sweeps enumerate the LAYOUTS (registered at volume
+            # allocation), not heartbeat-fed dn.volumes — a volume grown
+            # moments ago must still be sweepable
+            states = self._layout_vacuum_states()
+        else:
+            live = {
+                dn.url
+                for dn in self.topo.live_data_nodes(LIVE_GRACE_SECONDS)
+            }
+            states = self.topo.replica_states(live)
+        tasks = plan_vacuums(states, threshold, include_all=probe_all)
+        valid_keys = set()
+        for t in tasks:
+            valid_keys.add(t.key)
+            self.vacuum_queue.offer(t)
+        # tasks mid-retry (a forced sweep's failure in backoff) survive
+        # scans whose plan wouldn't re-justify them — the promised retry
+        # must happen; a success or terminal skip removes them normally
+        self.vacuum_queue.prune(valid_keys | self.vacuum_queue.retry_keys())
+        ready = self.vacuum_queue.pop_ready(
+            time.monotonic(), max_dispatch or self.vacuum_concurrency
+        )
+        results: list[dict] = []
+        await asyncio.gather(
+            *(self._dispatch_vacuum_task(t, threshold, results) for t in ready)
+        )
+        self.vacuum_log = (self.vacuum_log + results)[-50:]
+        return {
+            "dispatched": results,
+            "queue_depth": self.vacuum_queue.depth(),
+            "threshold": threshold,
+        }
+
+    def _layout_vacuum_states(self) -> dict:
+        """Every registered volume from the layout maps, in the
+        `plan_vacuums` shape; garbage ratio pinned to 1.0 so include_all
+        ordering is stable — the dispatcher's authoritative
+        VacuumVolumeCheck supplies the real number. read_only /
+        scrub_corrupt are carried over from the heartbeat-fed volume
+        infos when known, so forced sweeps honor the planner's
+        quarantine gate too (the volume server also refuses to compact a
+        quarantined volume — defense in depth)."""
+        states: dict = {}
+        for collection in list(self.topo.collections.values()):
+            for layout in collection.layouts():
+                for vid, nodes in list(layout.vid_to_locations.items()):
+                    replicas = []
+                    for dn in nodes:
+                        info = dn.volumes.get(int(vid), {})
+                        replicas.append(
+                            {
+                                "url": dn.url,
+                                "collection": collection.name,
+                                "garbage_ratio": 1.0,
+                                "read_only": bool(info.get("read_only")),
+                                "scrub_corrupt": bool(
+                                    info.get("scrub_corrupt")
+                                ),
+                            }
+                        )
+                    states[int(vid)] = replicas
+        return states
+
+    async def _dispatch_vacuum_task(
+        self, t, threshold: float, results: list
+    ) -> None:
+        """check -> compact (all replicas, concurrently) -> commit/cleanup
+        for one queued volume (ref topology_vacuum.go per-volume flow).
+        An in-flight set spans all three dispatch paths (auto loop,
+        /vol/vacuum, -run) so one master never double-dispatches a
+        volume; the volume server's own is_compacting gate covers the
+        rest (a refused compact/cleanup errors into backoff here)."""
+        inflight = self._vacuum_inflight
+        if t.vid in inflight:
+            results.append(
+                {**t.to_info(), "skipped": "already dispatching"}
+            )
+            return
+        inflight.add(t.vid)
+        try:
+            await self._dispatch_vacuum_task_inner(t, threshold, results)
+        finally:
+            inflight.discard(t.vid)
+
+    async def _dispatch_vacuum_task_inner(
+        self, t, threshold: float, results: list
+    ) -> None:
+        t0 = time.perf_counter()
+        nodes = self.topo.lookup(t.collection, t.vid)
+        if not nodes:
+            results.append({**t.to_info(), "error": "volume not registered"})
+            return  # prune/offer re-discovers it if it reappears
+        urls = sorted({dn.url for dn in nodes})
+
+        async def rpc(url: str, method: str, timeout: float = 600):
+            r = await Stub(grpc_address(url), "volume").call(
+                method, {"volume_id": t.vid}, timeout=timeout
+            )
+            if r.get("error"):
+                raise IOError(f"{method} on {url}: {r['error']}")
+            return r
+
+        async def cleanup_all() -> None:
+            # idempotent shadow sweep; a server with a compact still in
+            # flight refuses (it must not lose its own shadow mid-write)
+            await asyncio.gather(
+                *(
+                    Stub(grpc_address(u), "volume").call(
+                        "VacuumVolumeCleanup", {"volume_id": t.vid}
+                    )
+                    for u in urls
+                ),
+                return_exceptions=True,
+            )
+
+        try:
+            checks = await asyncio.gather(
+                *(rpc(u, "VacuumVolumeCheck", 30) for u in urls)
+            )
+            ratio = min(float(c.get("garbage_ratio", 0)) for c in checks)
+            if ratio < threshold:
+                REPAIR_SECONDS.observe(
+                    time.perf_counter() - t0, kind="vacuum", result="skipped"
+                )
+                results.append(
+                    {
+                        **t.to_info(),
+                        "skipped": f"garbage {ratio:.3f} < {threshold}",
+                    }
+                )
+                # a prior PARTIAL failure may have stranded shadows on the
+                # replica that kept its garbage — sweep them on the way out
+                await cleanup_all()
+                return
+            # settle EVERY compact before deciding: gather's first-error
+            # fast path would fire cleanup while other replicas are still
+            # mid-copy, unlinking their shadows under the writer
+            compacts = await asyncio.gather(
+                *(rpc(u, "VacuumVolumeCompact") for u in urls),
+                return_exceptions=True,
+            )
+            failed = [e for e in compacts if isinstance(e, BaseException)]
+            if failed:
+                raise IOError("; ".join(str(e) for e in failed[:3]))
+        except Exception as e:
+            # compaction is all-or-nothing per volume: sweep the shadows
+            # everywhere (now that every compact RPC has settled), back
+            # off, retry later
+            await cleanup_all()
+            REPAIR_SECONDS.observe(
+                time.perf_counter() - t0, kind="vacuum", result="error"
+            )
+            self.vacuum_queue.reschedule_failure(t, time.monotonic())
+            results.append({**t.to_info(), "error": str(e)})
+            return
+        commit = await asyncio.gather(
+            *(rpc(u, "VacuumVolumeCommit") for u in urls),
+            return_exceptions=True,
+        )
+        errs = [str(e) for e in commit if isinstance(e, BaseException)]
+        dt = time.perf_counter() - t0
+        if errs:
+            REPAIR_SECONDS.observe(dt, kind="vacuum", result="error")
+            self.vacuum_queue.reschedule_failure(t, time.monotonic())
+            results.append({**t.to_info(), "error": "; ".join(errs[:3])})
+        else:
+            REPAIR_SECONDS.observe(dt, kind="vacuum", result="ok")
+            results.append(
+                {
+                    **t.to_info(),
+                    "compacted": True,
+                    "garbage_ratio": round(ratio, 4),
+                    "nodes": urls,
+                }
+            )
+
+    async def vacuum(self, garbage_threshold: float) -> list[dict]:
+        """Forced cluster sweep through the scheduler (the /vol/vacuum
+        entry point): every registered volume is enqueued, the
+        authoritative per-replica check applies `garbage_threshold`, and
+        the queue drains in vacuum_concurrency-sized waves. Tasks a
+        failure pushed into backoff are left queued for the background
+        loop / a later call. Plan once, pop until empty: re-planning each
+        wave would re-offer the tasks the previous wave already popped
+        and skipped."""
+        if not self.is_leader:
+            return []
+        states = self._layout_vacuum_states()
+        tasks = plan_vacuums(states, garbage_threshold, include_all=True)
+        for t in tasks:
+            self.vacuum_queue.offer(t)
+        dispatched: list[dict] = []
+        while True:
+            ready = self.vacuum_queue.pop_ready(
+                time.monotonic(), self.vacuum_concurrency
+            )
+            if not ready:
+                break
+            await asyncio.gather(
+                *(
+                    self._dispatch_vacuum_task(t, garbage_threshold, dispatched)
+                    for t in ready
+                )
+            )
+        self.vacuum_log = (self.vacuum_log + dispatched)[-50:]
+        return [
+            {
+                "volume_id": d["volume_id"],
+                "compacted": bool(d.get("compacted")),
+            }
+            for d in dispatched
+            if "skipped" not in d
+        ]
+
+    async def _grpc_vacuum_status(self, req, context) -> dict:
+        """Vacuum-plane introspection for `volume.vacuum -status` (+ `-run`
+        to force a scan/dispatch round)."""
+        proxied = await self._proxy_to_leader("VacuumStatus", req)
+        if proxied is not None:
+            return proxied
+        ran = None
+        if req.get("run"):
+            ran = await self.run_vacuum_once(
+                garbage_threshold=(
+                    float(req["garbage_threshold"])
+                    if req.get("garbage_threshold") is not None
+                    else None
+                ),
+                max_dispatch=int(req.get("max_dispatch", 0) or 0) or None,
+                probe_all=bool(req.get("probe_all")),
+            )
+        return {
+            "auto_vacuum": self.auto_vacuum,
+            "garbage_threshold": self.garbage_threshold,
+            "queue_depth": self.vacuum_queue.depth(),
+            "queue": self.vacuum_queue.snapshot(),
+            "recent": self.vacuum_log[-10:],
+            **({"ran": ran} if ran is not None else {}),
         }
 
     async def _grpc_raft_request_vote(self, req, context) -> dict:

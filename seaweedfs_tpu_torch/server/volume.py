@@ -9,14 +9,16 @@ HTTP (ref: weed/server/volume_server_handlers_{read,write}.go):
 
 RPC "volume" service (pb/rpc.py; ref: weed/server/volume_grpc_*.go):
 AllocateVolume, VolumeMount, VolumeUnmount, VolumeDelete,
-VolumeMarkReadonly, VolumeMarkWritable, DeleteCollection, BatchDelete,
+VolumeMarkReadonly, VolumeMarkWritable, DeleteCollection, the four
+Vacuum calls (VacuumVolumeCheck, Compact, Commit, Cleanup), BatchDelete,
 BulkLookup, VolumeServerStatus, the CopyFile stream and the EC calls of
 volume_ec.py.
 
 Heartbeat loop (ref: weed/server/volume_grpc_client_to_master.go): with
 a master (`master`, the `-mserver` flag) the server keeps a bidi
-SendHeartbeat stream open, carrying its full inventory at connect and
-deltas each pulse, and follows the master's leader hints. The master
+SendHeartbeat stream open, carrying its full inventory at connect,
+deltas each pulse and a slim refresh of each volume's garbage ratio every
+five, and follows the master's leader hints. The master
 then serves the shapes that need the cluster: replicated writes and
 deletes fan out to the replicas it names, a read of a volume that is
 not local answers 301 to its holder, and EC deletes and degraded reads
@@ -37,7 +39,7 @@ serves it here, with the same status codes, bodies, Etags and
 Content-Range. Request shapes a later slice ports answer 501
 `{"error": "not ported: ..."}`: chunked manifests, `/!batch/put` and
 `/ui`. Not ported either: the group-commit worker (`?fsync=true` writes
-sync the append itself), vacuum, tiering, scrub and the lifecycle RPCs,
+sync the append itself), tiering, scrub and the lifecycle RPCs,
 the BatchRead, Query, VolumeIncrementalCopy and tier-move streams, and
 the overload, tenancy and fault seams.
 """
@@ -56,10 +58,11 @@ from urllib.parse import parse_qsl
 
 from ..pb import grpc_address
 from ..pb.rpc import EOF, Service, Stub, serve
+from ..storage import vacuum as vacuum_mod
 from ..storage.file_id import FileId
 from ..storage.needle import Needle, NotFoundError
 from ..storage.store import Store
-from ..storage.volume import AlreadyDeleted, CookieMismatch, NotFound
+from ..storage.volume import AlreadyDeleted, CookieMismatch, NotFound, Volume
 from ..util import metrics
 from ..util.fasthttp import (
     DETACHED,
@@ -394,6 +397,11 @@ class VolumeServer(EcHandlers):
                 ],
             )
         self.read_cache = HotNeedleCache()
+        # vid -> set when its vacuum commit has swapped the new volume in:
+        # the commit closes the old volume before the new one opens, so a
+        # read of it waits (the reference's reads wait on the volume's
+        # lock the same way, volume_vacuum.go CommitCompact)
+        self._commits: dict[int, asyncio.Event] = {}
 
     def make_codec(self, data_shards: int = 10, parity_shards: int = 4):
         """A codec of this server's backend and device."""
@@ -446,6 +454,10 @@ class VolumeServer(EcHandlers):
         svc.unary("VolumeMarkReadonly")(self._grpc_volume_mark_readonly)
         svc.unary("VolumeMarkWritable")(self._grpc_volume_mark_writable)
         svc.unary("DeleteCollection")(self._grpc_delete_collection)
+        svc.unary("VacuumVolumeCheck")(self._grpc_vacuum_check)
+        svc.unary("VacuumVolumeCompact")(self._grpc_vacuum_compact)
+        svc.unary("VacuumVolumeCommit")(self._grpc_vacuum_commit)
+        svc.unary("VacuumVolumeCleanup")(self._grpc_vacuum_cleanup)
         svc.unary("BatchDelete")(self._grpc_batch_delete)
         svc.unary("BulkLookup")(self._grpc_bulk_lookup)
         svc.unary("VolumeServerStatus")(self._grpc_status)
@@ -550,6 +562,11 @@ class VolumeServer(EcHandlers):
                 if tick % 17 == 0:
                     # periodic full EC state (ref :121, EC tick = 17 pulses)
                     hb.update(self.store.collect_ec_heartbeat())
+                if tick % 5 == 0:
+                    # slim refresh of the garbage ratio and the quarantine
+                    # flag, so the master's vacuum planner ranks CURRENT
+                    # values, not the ones frozen at stream connect
+                    hb["volume_digests"] = self.store.collect_volume_digests()
                 await call.write(hb)
         finally:
             reader_task.cancel()
@@ -612,12 +629,24 @@ class VolumeServer(EcHandlers):
             except Exception:
                 fid = None
             if fid is not None:
+                await self._wait_commit(fid.volume_id)
                 v = self.store.find_volume(fid.volume_id)
                 if v is not None:
                     out = self._fast_read(req, v, fid)
                     if out is not _NEEDS_FULL_PATH:
                         return out
         return await self._handle_read(req)
+
+    async def _wait_commit(self, vid: int) -> None:
+        ev = self._commits.get(vid)
+        if ev is not None:
+            await ev.wait()
+
+    def _vacuum_swapping(self, vid: int, v) -> bool:
+        """True while `v` is a volume a vacuum commit closes or closed: a
+        read of it that failed must wait for the commit and read the new
+        volume instead of answering 404 or 500."""
+        return vid in self._commits or self.store.find_volume(vid) is not v
 
     def _fast_read(self, req, v, fid):
         head_only = req.method == "HEAD"
@@ -643,6 +672,8 @@ class VolumeServer(EcHandlers):
         try:
             n, off_units, size = v.read_needle_by_key_located(fid.key)
         except (NotFound, NotFoundError, AlreadyDeleted, LookupError):
+            if self._vacuum_swapping(vid, v):
+                return _NEEDS_FULL_PATH
             return render_response(404, _NOT_FOUND, head_only=head_only)
         except Exception:
             return _NEEDS_FULL_PATH
@@ -686,6 +717,8 @@ class VolumeServer(EcHandlers):
         None for a shape the full path renders."""
         try:
             if exc is not None:
+                if self._vacuum_swapping(vid, v):
+                    return None  # the full path waits for the commit
                 if isinstance(exc, LookupError):
                     return render_response(404, _NOT_FOUND,
                                            head_only=head_only)
@@ -701,10 +734,13 @@ class VolumeServer(EcHandlers):
             try:
                 if size > 0:
                     n = v.read_needle_at(offset_units, size)
-                stale = size > 0 and n.cookie != fid.cookie
+                stale = size > 0 and (n.cookie != fid.cookie
+                                      or n.id != fid.key)
             except Exception:
                 stale = True
             if stale:
+                if self._vacuum_swapping(vid, v):
+                    return None  # the full path waits for the commit
                 # the .dat may have changed between probe and pread; the
                 # locked per-request path is atomic
                 n = Needle(id=fid.key)
@@ -717,8 +753,12 @@ class VolumeServer(EcHandlers):
                                        offset_units, size, out, head_only)
             return out
         except (NotFound, NotFoundError, AlreadyDeleted, LookupError):
+            if self._vacuum_swapping(vid, v):
+                return None
             return render_response(404, _NOT_FOUND, head_only=head_only)
         except Exception:
+            if self._vacuum_swapping(vid, v):
+                return None
             return render_response(
                 500, b'{"error": "internal error"}', head_only=head_only
             )
@@ -747,30 +787,19 @@ class VolumeServer(EcHandlers):
         vid = fid.volume_id
         q = _query(req)
         if self.store.has_volume(vid):
-            n = Needle(id=fid.key)
+            await self._wait_commit(vid)
             v = self.store.find_volume(vid)
-            if self.lookup_gate is not None and v is not None:
-                try:
-                    loc = await self.lookup_gate.lookup(vid, fid.key)
-                except LookupError:
+            try:
+                n = await self._read_local(v, vid, fid, head_only)
+            except Exception:
+                if not self._vacuum_swapping(vid, v):
                     raise
-                except Exception as e:
-                    self.note_device_error("read", e)
-                    return _json(500, {"error": "lookup failed"}, head_only)
-                if loc is None:
-                    return _json(404, {"error": "not found"}, head_only)
-                offset_units, size = loc
-                try:
-                    if size > 0:
-                        n = v.read_needle_at(offset_units, size)
-                    stale = size > 0 and n.cookie != fid.cookie
-                except Exception:
-                    stale = True
-                if stale:
-                    n = Needle(id=fid.key)
-                    self.store.read_volume_needle(vid, n)
-            else:
+                # a commit closed this volume mid-read: read the new one
+                await self._wait_commit(vid)
+                n = Needle(id=fid.key)
                 self.store.read_volume_needle(vid, n)
+            if isinstance(n, bytes):
+                return n  # the gate's 404, or a device error's 500
             if n.cookie != fid.cookie:
                 return _json(404, {"error": "cookie mismatch"}, head_only)
             if n.is_chunked_manifest() and q.get("cm") != "false":
@@ -805,6 +834,38 @@ class VolumeServer(EcHandlers):
                     head_only=head_only,
                 )
         return _json(404, {"error": "volume not found"}, head_only)
+
+    async def _read_local(self, v, vid: int, fid: FileId, head_only: bool):
+        """The needle of a local volume, or the response bytes of a gate
+        lookup that found nothing or failed."""
+        n = Needle(id=fid.key)
+        if self.lookup_gate is None or v is None:
+            self.store.read_volume_needle(vid, n)
+            return n
+        try:
+            loc = await self.lookup_gate.lookup(vid, fid.key)
+        except LookupError:
+            raise
+        except Exception as e:
+            if self._vacuum_swapping(vid, v):
+                raise
+            self.note_device_error("read", e)
+            return _json(500, {"error": "lookup failed"}, head_only)
+        if loc is None:
+            if self._vacuum_swapping(vid, v):
+                raise NotFound(f"needle {fid.key} not found")
+            return _json(404, {"error": "not found"}, head_only)
+        offset_units, size = loc
+        try:
+            if size > 0:
+                n = v.read_needle_at(offset_units, size)
+            stale = size > 0 and (n.cookie != fid.cookie or n.id != fid.key)
+        except Exception:
+            stale = True
+        if stale:
+            n = Needle(id=fid.key)
+            self.store.read_volume_needle(vid, n)
+        return n
 
     def _needle_response(self, req, q: dict, n: Needle, ext: str = "") -> bytes:
         from .. import images
@@ -881,6 +942,7 @@ class VolumeServer(EcHandlers):
         fid, _, _ = self._parse_fid_path(req.path)
         q = _query(req)
         vid = fid.volume_id
+        await self._wait_commit(vid)
         v = self.store.find_volume(vid)
         # the JAX server's fast tier hands a replicated write to its aiohttp
         # application (server/volume.py::_fast_write there)
@@ -968,6 +1030,7 @@ class VolumeServer(EcHandlers):
         if denied is not None:
             return denied
         vid = fid.volume_id
+        await self._wait_commit(vid)
         v = self.store.find_volume(vid)
         if v is not None:
             check = Needle(id=fid.key)
@@ -1184,6 +1247,94 @@ class VolumeServer(EcHandlers):
             for vid, v in list(loc.volumes.items()):
                 if v.collection == collection:
                     loc.delete_volume(vid)
+        return {}
+
+    # ---------------- RPC: vacuum (ref volume_grpc_vacuum.go) ----------------
+    async def _grpc_vacuum_check(self, req, context) -> dict:
+        v = self.store.find_volume(int(req["volume_id"]))
+        if v is None:
+            return {"error": "volume not found"}
+        return {"garbage_ratio": v.garbage_level()}
+
+    async def _grpc_vacuum_compact(self, req, context) -> dict:
+        v = self.store.find_volume(int(req["volume_id"]))
+        if v is None:
+            return {"error": "volume not found"}
+        try:
+            # the per-run report, NOT the module-global "last" snapshot:
+            # concurrent compactions each get their own numbers
+            report = await self.run_blocking(
+                lambda: vacuum_mod.compact2(
+                    v,
+                    route=req.get("route") or None,
+                    verify=req.get("verify"),
+                )
+            )
+            return {
+                "stages": report.get("stages", {}),
+                "route": {
+                    k: report[k]
+                    for k in ("route", "extents", "records")
+                    if k in report
+                },
+            }
+        except Exception as e:
+            return {"error": str(e)}
+
+    def _swap_volume(self, vid: int, new_v) -> None:
+        for loc in self.store.locations:
+            if loc.find_volume(vid) is not None:
+                loc.volumes[vid] = new_v
+
+    async def _grpc_vacuum_commit(self, req, context) -> dict:
+        vid = int(req["volume_id"])
+        v = self.store.find_volume(vid)
+        if v is None:
+            return {"error": "volume not found"}
+        old_msg = self.store._volume_message(v)
+        swapped = self._commits[vid] = asyncio.Event()
+        try:
+            new_v = await self.run_blocking(vacuum_mod.commit_compact, v)
+            self._swap_volume(vid, new_v)
+            # the swap rewrote the .dat: cached responses must not outlive
+            # it (the per-hit volume-identity check would catch any that
+            # did, but the LRU should shed them now, not at eviction)
+            self.read_cache.invalidate_volume(vid)
+            # the garbage ratio just changed: ride the next heartbeat
+            # pulse so the master's vacuum queue prunes this volume
+            # instead of re-dispatching off stale state
+            self.store.note_volume_changed(
+                old_msg, self.store._volume_message(new_v)
+            )
+            return {}
+        except Exception as e:
+            # commit_compact closed the volume before it failed (shadows
+            # swept, old .dat/.idx intact): reload so the volume keeps
+            # serving and a later vacuum retry can start clean
+            try:
+                reloaded = await self.run_blocking(
+                    lambda: Volume(
+                        v.dir, v.collection, vid, create=False,
+                        needle_map_kind=v.needle_map_kind, device=v.device,
+                    )
+                )
+                self._swap_volume(vid, reloaded)
+            except Exception:
+                pass  # original error is the one worth reporting
+            return {"error": str(e)}
+        finally:
+            self._commits.pop(vid, None)
+            swapped.set()
+
+    async def _grpc_vacuum_cleanup(self, req, context) -> dict:
+        v = self.store.find_volume(int(req["volume_id"]))
+        if v is not None:
+            if v.is_compacting:
+                # a cleanup racing an in-flight compact2 would unlink the
+                # shadow mid-write and leave .cpx-without-.cpd on disk —
+                # the state the load-time sweep treats as half-committed
+                return {"error": "compaction in flight; not cleaning"}
+            vacuum_mod.cleanup_compact(v)
         return {}
 
     async def _grpc_batch_delete(self, req, context) -> dict:

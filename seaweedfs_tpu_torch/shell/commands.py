@@ -6,9 +6,11 @@ volume.mark.readonly, volume.delete, volume.mount, volume.unmount,
 ec.encode (with VolumeEcShardsGenerateBatch for co-located volumes),
 ec.rebuild (one VolumeEcShardsRebuildBatch per rebuilder node, with a
 per-volume fallback), ec.decode (back to a normal volume through
-VolumeEcShardsToVolume) and ec.balance (dedupe and rack-aware moves).
-Every other command of the JAX shell (volume.move/copy/vacuum,
-volume.tier.*, the fs.* and operator commands) answers "not ported".
+VolumeEcShardsToVolume), ec.balance (dedupe and rack-aware moves) and
+volume.vacuum (the master's /vol/vacuum sweep, its VacuumStatus queue and
+a forced scheduler round). Every other command of the JAX shell
+(volume.move/copy, volume.tier.*, the fs.* and operator commands) answers
+"not ported".
 """
 
 from __future__ import annotations
@@ -34,7 +36,7 @@ COMMANDS: dict[str, callable] = {}
 NOT_PORTED = (
     "collection.list", "collection.delete", "volume.move", "volume.copy",
     "volume.configure.replication", "volume.tier.upload",
-    "volume.tier.download", "volume.vacuum", "volume.lifecycle",
+    "volume.tier.download", "volume.lifecycle",
     "volume.tier.sweep", "volume.fix.replication", "volume.balance",
     "volume.fsck", "volume.scrub", "ec.repair.status", "geo.status",
     "geo.resync", "meta.fleet.status", "trace.status", "trace.dump",
@@ -194,6 +196,67 @@ async def _ec_geometry(env, vid: int, collection: str, holders) -> tuple[int, in
         except Exception:
             continue
     return DATA_SHARDS_COUNT, TOTAL_SHARDS_COUNT - DATA_SHARDS_COUNT
+
+
+@command("volume.vacuum")
+async def cmd_volume_vacuum(env, argv) -> str:
+    """Vacuum plane: `volume.vacuum [-garbageThreshold=0.3]` forces a
+    cluster sweep; `-status` shows the master's highest-garbage-first
+    queue and recent outcomes; `-run` forces one scheduler scan+dispatch
+    round off heartbeat garbage ratios."""
+    flags = _parse_flags(argv)
+    if "status" in flags or "run" in flags:
+        req: dict = {}
+        if "run" in flags:
+            req["run"] = True
+            if "garbageThreshold" in flags:
+                req["garbage_threshold"] = float(flags["garbageThreshold"])
+        r = await env.master_stub.call("VacuumStatus", req, timeout=3600)
+        if r.get("error"):
+            return f"vacuum status failed: {r['error']}"
+        lines = [
+            f"auto_vacuum: {'on' if r.get('auto_vacuum') else 'off'} "
+            f"(threshold {r.get('garbage_threshold')}) · "
+            f"queue depth: {r.get('queue_depth', 0)}"
+        ]
+        from ..topology.vacuum_plan import priority_to_ratio
+
+        for t in r.get("queue", []):
+            lines.append(
+                f"  queued volume {t['volume_id']} (garbage ~"
+                f"{priority_to_ratio(int(t['priority'])):.2f}, "
+                f"attempts {t['attempts']})"
+            )
+        for t in r.get("recent", []):
+            if t.get("error"):
+                outcome = f"ERROR: {t['error']}"
+            elif t.get("skipped"):
+                outcome = f"skipped ({t['skipped']})"
+            else:
+                outcome = "compacted"
+            lines.append(f"  recent volume {t['volume_id']}: {outcome}")
+        if "ran" in r:
+            ran = r["ran"]
+            lines.append(
+                f"ran one round: dispatched {len(ran.get('dispatched', []))},"
+                f" queue depth now {ran.get('queue_depth', 0)}"
+            )
+        return "\n".join(lines)
+    threshold = float(flags.get("garbageThreshold", 0.3))
+    import json
+
+    from ..util.fasthttp import FastHTTPClient
+
+    http = FastHTTPClient()
+    try:
+        # a sweep answers when every compaction has committed
+        _status, body = await http.request(
+            "GET", env.master, f"/vol/vacuum?garbageThreshold={threshold}",
+            timeout=3600,
+        )
+    finally:
+        await http.close()
+    return f"vacuum: {json.loads(body)}"
 
 
 @command("ec.encode")

@@ -4,7 +4,7 @@
 Ported from the JAX package's storage/disk_location.py. Every volume and
 EC volume it opens lives on `device` (their snapshots on the card unless
 the caller asks for the CPU). Two differences: a volume the port cannot
-open (a needle map it lacks, a tiered .dat) raises out of the load
+open (an unknown needle map kind, a tiered .dat) raises out of the load
 instead of being skipped, and an EC volume whose shards sit on the cold
 tier (a `.ctm` manifest) raises, as the cold tier is not ported.
 """
@@ -35,8 +35,8 @@ class DiskLocation:
     ):
         if needle_map_kind not in NEEDLE_MAP_KINDS:
             raise ValueError(
-                f"needle map kind {needle_map_kind!r} is not ported "
-                f"(the port has {', '.join(NEEDLE_MAP_KINDS)})"
+                f"unknown needle map kind {needle_map_kind!r} "
+                f"(the kinds are {', '.join(NEEDLE_MAP_KINDS)})"
             )
         self.directory = os.path.abspath(directory)
         os.makedirs(self.directory, exist_ok=True)

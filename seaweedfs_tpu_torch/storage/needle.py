@@ -350,6 +350,23 @@ class Needle:
             ts = NEEDLE_HEADER_SIZE + size + NEEDLE_CHECKSUM_SIZE
             self.append_at_ns = bytes_to_u64(b[ts : ts + TIMESTAMP_SIZE])
 
+    def read_needle_body_bytes(self, body: bytes, version: int) -> None:
+        """Hydrate from body bytes after the header was parsed separately
+        (ref needle_read_write.go:323-344). Does NOT verify CRC; recomputes it."""
+        if not body:
+            return
+        if version == VERSION1:
+            self.data = body[: self.size]
+            self.checksum = masked_crc(self.data)
+        elif version in (VERSION2, VERSION3):
+            self._read_data_v2(body[: self.size])
+            self.checksum = masked_crc(self.data)
+            if version == VERSION3:
+                ts = self.size + NEEDLE_CHECKSUM_SIZE
+                self.append_at_ns = bytes_to_u64(body[ts : ts + TIMESTAMP_SIZE])
+        else:
+            raise ValueError(f"unsupported version {version}")
+
 
 def read_needle_blob(backend_file, offset: int, size: int, version: int) -> bytes:
     return backend_file.read_at(get_actual_size(size, version), offset)

@@ -3,8 +3,9 @@
 
 Ported from the JAX package's storage/store.py with its heartbeat
 collectors and delta queues (`collect_heartbeat`, `collect_ec_heartbeat`,
-`drain_deltas`, `note_ec_shards_changed`); the anti-entropy, lifecycle
-and cold-tier collectors wait with their master planes. One `device` is
+`collect_volume_digests` with the vacuum plane's fields, `drain_deltas`,
+`note_ec_shards_changed`, `note_volume_changed`); the anti-entropy digest,
+lifecycle and cold-tier collectors wait with their master planes. One `device` is
 passed down to every location, volume and EC volume: the card unless the
 caller asks for the CPU.
 """
@@ -161,8 +162,8 @@ class Store:
 
     def _volume_message(self, v: Volume) -> dict:
         """One volume's status fields, as the JAX package's heartbeat and
-        VolumeServerStatus carry them (without the anti-entropy digest,
-        scrub and garbage fields, which the port's Volume lacks)."""
+        VolumeServerStatus carry them (without the anti-entropy content
+        digest and the lifecycle heat, whose planes the port lacks)."""
         return {
             "id": v.id,
             "size": v.data_file_size(),
@@ -177,7 +178,34 @@ class Store:
             "compact_revision": v.super_block.compaction_revision,
             "modified_at_second": int(v.last_modified_ts_seconds),
             "append_at_ns": v.last_append_at_ns,
+            # scrub_corrupt marks a quarantined copy
+            "scrub_corrupt": v.scrub_corrupt,
+            # vacuum plane: the garbage ratio rides every heartbeat so the
+            # master's vacuum scheduler can rank candidates without an RPC
+            # sweep (the per-dispatch VacuumVolumeCheck stays the
+            # authoritative re-check)
+            "garbage_ratio": round(v.garbage_level(), 4),
         }
+
+    def collect_volume_digests(self) -> list[dict]:
+        """Lightweight per-pulse refresh: full volume messages only travel
+        at stream connect and on add/remove deltas, so steady-state writes
+        and deletes would leave the master ranking vacuum candidates off
+        stale garbage ratios. This slim message rides every few heartbeat
+        ticks instead (the JAX package's also carries the content digest,
+        append frontier, size and heat its other planners read)."""
+        out = []
+        for loc in self.locations:
+            for v in list(loc.volumes.values()):
+                out.append(
+                    {
+                        "id": v.id,
+                        "read_only": v.is_read_only(),
+                        "scrub_corrupt": v.scrub_corrupt,
+                        "garbage_ratio": round(v.garbage_level(), 4),
+                    }
+                )
+        return out
 
     # --- heartbeat assembly (ref store.go:194-254) ---
     def collect_heartbeat(self) -> dict:
@@ -218,6 +246,13 @@ class Store:
             "ec_shards": shard_messages,
             "has_no_ec_shards": len(shard_messages) == 0,
         }
+
+    def note_volume_changed(self, old_msg: dict, new_msg: dict) -> None:
+        """Queue an in-place change (a vacuum commit's new volume) as a
+        deleted(old)+new(new) delta pair for the next pulse."""
+        with self._lock:
+            self.deleted_volumes.append(old_msg)
+            self.new_volumes.append(new_msg)
 
     def drain_deltas(self) -> dict:
         with self._lock:

@@ -13,10 +13,12 @@ volume_read_write.go, volume_loading.go, volume_checking.go):
 `bulk_lookup` answers a batch of keys in one search on the card
 (ops/index_kernel.py) over a snapshot cached per volume.
 
-Ported from the JAX package's storage/volume.py: the `memory` and `lsm`
-needle maps, torn-tail recovery, writes, deletes, reads and bulk lookups.
-Not ported yet: the sqlite and sorted-file maps, tiered (remote) .dat
-files, the vacuum shadow sweep at load, content digests and scans.
+Ported from the JAX package's storage/volume.py: every needle map kind
+(`memory`, `lsm`, the sqlite-backed `leveldb` and the read-only
+`sorted`), the vacuum's compaction state and its shadow sweep at load,
+torn-tail recovery, writes, deletes, reads, scans, the scrub quarantine
+flag, the garbage level and bulk lookups. Not ported yet: tiered
+(remote) .dat files and content digests.
 """
 
 from __future__ import annotations
@@ -25,7 +27,7 @@ import logging
 import os
 import threading
 import time
-from typing import Optional
+from typing import Callable, Optional
 
 from ..types import (
     MAX_POSSIBLE_VOLUME_SIZE,
@@ -49,9 +51,8 @@ from .ttl import EMPTY_TTL
 
 _LOG = logging.getLogger(__name__)
 
-# kinds of needle map the port can open (the JAX package also has the
-# sqlite-backed "leveldb" and the read-only "sorted")
-NEEDLE_MAP_KINDS = ("memory", "lsm")
+# kinds of needle map (ref NeedleMapKind, weed/storage/needle_map.go:14-19)
+NEEDLE_MAP_KINDS = ("memory", "lsm", "leveldb", "sorted")
 
 
 class NotFound(Exception):
@@ -289,16 +290,21 @@ class Volume:
         the caller asks for the CPU (which runs the plain version)."""
         if needle_map_kind not in NEEDLE_MAP_KINDS:
             raise ValueError(
-                f"needle map kind {needle_map_kind!r} is not ported "
-                f"(the port has {', '.join(NEEDLE_MAP_KINDS)})"
+                f"unknown needle map kind {needle_map_kind!r} "
+                f"(the kinds are {', '.join(NEEDLE_MAP_KINDS)})"
             )
         self.dir = directory
         self.collection = collection
         self.id = vid
         self.no_write_or_delete = False
+        self.is_compacting = False
         self.last_append_at_ns = 0
         self.last_modified_ts_seconds = 0
+        self.last_compact_index_offset = 0
+        self.last_compact_revision = 0
         self._lock = threading.RLock()
+        # the scrub quarantine flag heartbeats carry
+        self.scrub_corrupt = False
         # lifecycle plane: decayed read/write heat, restored from the
         # sidecar so a clean restart keeps the volume's temperature
         from .heat import HeatTracker
@@ -314,6 +320,20 @@ class Volume:
         self._index_cache = SnapshotCache(device=device)
 
         base = self.file_name()
+        # a dead compaction's shadow files must be repaired BEFORE anything
+        # opens the .dat/.idx: sweep .cpd/.cpx leftovers, or complete a
+        # commit that crashed between its two renames (vacuum.py)
+        try:
+            from .vacuum import sweep_compaction_shadows
+
+            swept = sweep_compaction_shadows(base)
+            if swept:
+                _LOG.warning(
+                    "volume %d: %s stale compaction shadows at load",
+                    vid, swept,
+                )
+        except OSError:
+            pass  # unreadable shadows: the load below decides read-only
         dat_exists = os.path.exists(base + ".dat")
         from .volume_info import load_volume_info
 
@@ -358,8 +378,13 @@ class Volume:
                         self._recover_torn_tail(base)
             except Exception:
                 # the tail is torn (crash mid-append). The reference mounts
-                # read-only; we repair to the last CRC-valid needle boundary
-                self._recover_torn_tail(base)
+                # read-only; we repair to the last CRC-valid needle
+                # boundary — but only for the log-format .idx the memory
+                # and lsm maps replay (sqlite/sorted have other formats)
+                if needle_map_kind in ("memory", "lsm"):
+                    self._recover_torn_tail(base)
+                else:
+                    self.no_write_or_delete = True
             self.nm = self._open_needle_map(base, needle_map_kind)
             if needle_map_kind == "lsm":
                 # same torn-record-past-the-frontier check as "memory",
@@ -374,17 +399,37 @@ class Volume:
                     # recovery may have truncated/appended the log; the
                     # reopen revalidates the snapshot binding against it
                     self.nm = self._open_needle_map(base, needle_map_kind)
+            if needle_map_kind == "sorted":
+                # sorted-file maps can't Put; the reference only uses them
+                # on read-only volume loads (ref volume_loading.go:68-95)
+                self.no_write_or_delete = True
+        elif needle_map_kind == "leveldb":
+            from .needle_map.disk_maps import SqliteNeedleMap
+
+            if os.path.exists(base + ".idx"):
+                os.truncate(base + ".idx", 0)
+            self.nm = SqliteNeedleMap(base + ".idx")
         elif needle_map_kind == "lsm":
             from .needle_map.lsm_map import new_lsm_needle_map
 
             self.nm = new_lsm_needle_map(base + ".idx", version=self.version)
         else:
+            # "sorted" can't index a fresh writable volume; fall back
+            # to the in-memory map until a read-only reload
             self.nm = new_needle_map(base + ".idx")
 
     def _open_needle_map(self, base: str, kind: str):
         """Mapper selection (ref NeedleMapKind, weed/storage/needle_map.go:14-19):
-        memory=CompactMap replay, lsm=memory-bounded out-of-core map with
-        snapshot mount."""
+        memory=CompactMap replay, leveldb=disk B-tree, sorted=read-only
+        .sdx, lsm=memory-bounded out-of-core map with snapshot mount."""
+        if kind == "leveldb":
+            from .needle_map.disk_maps import SqliteNeedleMap
+
+            return SqliteNeedleMap(base + ".idx")
+        if kind == "sorted":
+            from .needle_map.disk_maps import SortedFileNeedleMap
+
+            return SortedFileNeedleMap(base + ".idx")
         if kind == "lsm":
             from .needle_map.lsm_map import load_lsm_needle_map
 
@@ -458,6 +503,20 @@ class Volume:
 
     def is_read_only(self) -> bool:
         return self.no_write_or_delete
+
+    def quarantine(self, reason: str) -> None:
+        """Scrub (or a verified vacuum) found latent damage: freeze writes
+        and flag the volume for the master's repair scheduler. NEVER
+        deletes anything — the evidence stays on disk for repair."""
+        self.no_write_or_delete = True
+        self.scrub_corrupt = True
+        _LOG.warning("volume %d quarantined: %s", self.id, reason)
+
+    def garbage_level(self) -> float:
+        """Ref: volume_vacuum.go:20-34."""
+        if self.content_size() == 0:
+            return 0.0
+        return self.deleted_size() / self.content_size()
 
     # --- data path ---
     def _is_file_unchanged(self, n: Needle) -> bool:
@@ -799,3 +858,27 @@ class Volume:
         with self._lock:
             self.nm.close()
             self.data_backend.close()
+
+    # --- scanning ---
+    def scan(
+        self,
+        visit: Callable[[Needle, int, bytes], None],
+        read_body: bool = True,
+    ) -> None:
+        """Visit every record in the .dat in file order
+        (ref: volume_read_write.go:371-428)."""
+        dat = self.data_backend
+        version = self.version
+        offset = self.super_block.block_size()
+        end = dat.size()
+        while offset + NEEDLE_HEADER_SIZE <= end:
+            try:
+                n, body_len = read_needle_header(dat, version, offset)
+            except EOFError:
+                return
+            body = b""
+            if read_body and body_len > 0:
+                body = dat.read_at(body_len, offset + NEEDLE_HEADER_SIZE)
+                n.read_needle_body_bytes(body, version)
+            visit(n, offset, body)
+            offset += NEEDLE_HEADER_SIZE + body_len

@@ -5,6 +5,7 @@ from __future__ import annotations
 
 import secrets as _secrets
 import threading
+import time
 from typing import Dict, Optional
 
 from ..sequence import MemorySequencer
@@ -231,3 +232,39 @@ class Topology(Node):
                 for dc in self.children.values()
             ],
         }
+
+    # --- state snapshots (consumed by topology/vacuum_plan.py) ---
+    def live_data_nodes(self, grace_seconds: float) -> list[DataNode]:
+        """Nodes whose heartbeats are fresh. A node silent past the grace
+        period stops counting as a holder — the heartbeat-driven failure
+        detector feeding the vacuum scheduler (a broken stream already
+        unregisters the node; this also catches a hung one that keeps the
+        stream open without pulsing)."""
+        now = time.time()
+        return [
+            dn
+            for dn in self.data_nodes()
+            if now - dn.last_seen <= grace_seconds
+        ]
+
+    def replica_states(self, live_urls: Optional[set] = None) -> dict:
+        """{vid: [per-live-replica garbage/corrupt records]} for
+        `vacuum_plan.plan_vacuums`, read straight off the volume infos
+        heartbeats delivered (the JAX package's records also carry the
+        digest, frontier, size and heat its repair and lifecycle planners
+        read)."""
+        states: Dict[int, list[dict]] = {}
+        for dn in self.data_nodes():
+            if live_urls is not None and dn.url not in live_urls:
+                continue
+            for vid, info in list(dn.volumes.items()):
+                states.setdefault(int(vid), []).append(
+                    {
+                        "url": dn.url,
+                        "collection": info.get("collection", ""),
+                        "scrub_corrupt": bool(info.get("scrub_corrupt")),
+                        "read_only": bool(info.get("read_only")),
+                        "garbage_ratio": float(info.get("garbage_ratio", 0.0)),
+                    }
+                )
+        return states

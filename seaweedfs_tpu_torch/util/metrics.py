@@ -1,15 +1,21 @@
-"""Counters and gauges of the needle-index plane.
+"""Counters, gauges and histograms of the ported planes.
 
 A small copy of the JAX package's metrics registry (util/metrics.py):
-labelled counters and gauges with the same metric names, kept in-process.
-Only the families the ported modules update are here; `render()` gives
-the Prometheus text exposition the volume server serves at /metrics.
+labelled counters, gauges and histograms with the same metric names,
+kept in-process. Only the families the ported modules update are here;
+`render()` gives the Prometheus text exposition the volume server serves
+at /metrics.
 """
 
 from __future__ import annotations
 
 import threading
+from bisect import bisect_left
 from collections import defaultdict
+
+_DEFAULT_BUCKETS = [
+    0.0001, 0.0003, 0.001, 0.003, 0.01, 0.03, 0.1, 0.3, 1, 3, 10,
+]
 
 
 class _Labeled:
@@ -45,6 +51,56 @@ class Gauge(_Labeled):
             self._values[key] = value
 
 
+class Histogram(_Labeled):
+    def __init__(self, name: str, help_text: str = "", buckets=None):
+        super().__init__(name, help_text, "histogram")
+        self.buckets = list(buckets or _DEFAULT_BUCKETS)
+        self._counts: dict[tuple, list[int]] = {}
+        self._sums: dict[tuple, float] = defaultdict(float)
+        self._totals: dict[tuple, int] = defaultdict(int)
+
+    def observe(self, value: float, **labels) -> None:
+        key = tuple(sorted(labels.items()))
+        with self._lock:
+            counts = self._counts.setdefault(key, [0] * len(self.buckets))
+            # Prometheus le bounds are inclusive: bisect_left
+            idx = bisect_left(self.buckets, value)
+            if idx < len(counts):
+                counts[idx] += 1  # cumulative sums computed at render time
+            self._sums[key] += value
+            self._totals[key] += 1
+
+    def count(self, **labels) -> int:
+        with self._lock:
+            return self._totals.get(tuple(sorted(labels.items())), 0)
+
+    def render_lines(self) -> list[str]:
+        out = []
+        with self._lock:
+            for key, counts in sorted(self._counts.items()):
+                cumulative = 0
+                for b, c in zip(self.buckets, counts):
+                    cumulative += c
+                    out.append(
+                        f"{self.name}_bucket{_labels(key, le=str(b))} "
+                        f"{cumulative}"
+                    )
+                out.append(f'{self.name}_bucket{_labels(key, le="+Inf")} '
+                           f"{self._totals[key]}")
+                out.append(f"{self.name}_sum{_labels(key)} {self._sums[key]}")
+                out.append(
+                    f"{self.name}_count{_labels(key)} {self._totals[key]}"
+                )
+        return out
+
+
+def _labels(key: tuple, **extra) -> str:
+    items = list(key) + list(extra.items())
+    if not items:
+        return ""
+    return "{" + ",".join(f'{k}="{v}"' for k, v in items) + "}"
+
+
 class Registry:
     def __init__(self):
         self._lock = threading.Lock()
@@ -59,6 +115,9 @@ class Registry:
 
     def gauge(self, name: str, help_text: str = "") -> Gauge:
         return self._add(Gauge(name, help_text))
+
+    def histogram(self, name: str, help_text: str = "") -> Histogram:
+        return self._add(Histogram(name, help_text))
 
 
 REGISTRY = Registry()
@@ -154,6 +213,42 @@ RETRIES_SUPPRESSED = REGISTRY.counter(
     "refilled by successes — no retry storms), by op",
 )
 
+# the vacuum plane (storage/vacuum.py, storage/maintenance.py, the
+# master's scheduler): per-stage copy walls, the master's queue, bytes a
+# verified vacuum re-parsed, and the maintenance budget's accounting
+VACUUM_STAGE_SECONDS = REGISTRY.histogram(
+    "seaweedfs_tpu_vacuum_stage_seconds",
+    "compaction copy per-stage wall seconds, by stage (plan/read/write/"
+    "verify/idx/total; pipelined stages overlap)",
+)
+VACUUM_QUEUE_DEPTH = REGISTRY.gauge(
+    "seaweedfs_tpu_vacuum_queue_depth",
+    "vacuum tasks currently queued on the master (highest-garbage-first)",
+)
+SCRUB_BYTES = REGISTRY.counter(
+    "seaweedfs_tpu_scrub_bytes_total",
+    "bytes read and verified by the scrubber, by kind (dat/idx/ec)",
+)
+MAINTENANCE_BYTES = REGISTRY.counter(
+    "seaweedfs_tpu_maintenance_bytes_total",
+    "bytes charged to the shared maintenance I/O budget, by plane "
+    "(scrub/vacuum/repair)",
+)
+MAINTENANCE_YIELDS = REGISTRY.counter(
+    "seaweedfs_tpu_maintenance_pressure_yields_total",
+    "maintenance budget consumes that yielded extra time to foreground "
+    "pressure (admission gates shedding/queueing), by plane",
+)
+REPAIR_QUEUE_DEPTH = REGISTRY.gauge(
+    "seaweedfs_tpu_repair_queue_depth",
+    "repair tasks currently queued on the master (fewest-survivors-first)",
+)
+REPAIR_SECONDS = REGISTRY.histogram(
+    "seaweedfs_tpu_repair_seconds",
+    "wall seconds per dispatched repair, by kind (ec_rebuild/replica_"
+    "recopy/tail_sync/vacuum) and result (ok/error/skipped)",
+)
+
 
 def render() -> str:
     """Every family in the Prometheus text exposition format (the
@@ -164,6 +259,9 @@ def render() -> str:
     for m in families:
         lines.append(f"# HELP {m.name} {m.help}")
         lines.append(f"# TYPE {m.name} {m.kind}")
+        if isinstance(m, Histogram):
+            lines.extend(m.render_lines())
+            continue
         with m._lock:
             items = sorted(m._values.items())
         for labels, v in items:

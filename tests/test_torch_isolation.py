@@ -216,12 +216,13 @@ _SCRIPT = textwrap.dedent(
 
 def _free_port() -> int:
     """A port whose RPC port (+10000) is free too, both under the
-    ephemeral range (32768-) and clear of the JAX tests' 21000-22000."""
+    ephemeral range (32768-) and clear of the JAX tests' 18200-20800
+    (bench and process-cluster bands) and 21000-22000."""
     import random
     import socket
 
     for _ in range(200):
-        p = random.randrange(12000, 20000)
+        p = random.randrange(12000, 18000)
         try:
             with socket.socket() as s:
                 s.bind(("127.0.0.1", p))

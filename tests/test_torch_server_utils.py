@@ -148,7 +148,7 @@ def _port_pair() -> int:
 
     rng = random.Random()
     for _ in range(200):
-        p = rng.randrange(12000, 20000)
+        p = rng.randrange(12000, 18000)
         try:
             with socket.socket() as s1, socket.socket() as s2:
                 s1.bind(("127.0.0.1", p))

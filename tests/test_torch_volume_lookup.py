@@ -108,7 +108,7 @@ def test_volumes_byte_identical_and_open_across(tmp_path, monkeypatch, batch):
         pv.close()
 
 
-@pytest.mark.parametrize("kind", ["memory", "lsm"])
+@pytest.mark.parametrize("kind", ["memory", "lsm", "leveldb", "sorted"])
 def test_bulk_lookup_matches_jax(tmp_path, kind):
     """Same volume on disk, opened by both: every use_device setting, and
     batches under and over the 64-key cut, give the JAX answers."""
@@ -217,5 +217,18 @@ def test_device_lookup_raises_without_a_card(tmp_path):
         assert v.bulk_lookup(probes[:10])[2].sum() == 1  # under 64: host
     finally:
         v.close()
-    with pytest.raises(ValueError, match="not ported"):
-        volume.Volume(str(tmp_path), "", 9, needle_map_kind="leveldb")
+    # a leveldb volume opens as the JAX package's does and answers alike
+    (tmp_path / "jax").mkdir()
+    jv = jax_volume.Volume(str(tmp_path / "jax"), "", 9, needle_map_kind="leveldb")
+    pv = volume.Volume(str(tmp_path), "", 9, needle_map_kind="leveldb")
+    try:
+        for v, n in ((jv, JaxNeedle), (pv, Needle)):
+            v.write_needle(n(cookie=1, id=5, data=b"abc"))
+        for a, b in zip(jv.bulk_lookup(probes, use_device=False),
+                        pv.bulk_lookup(probes, use_device=False)):
+            assert np.array_equal(a, b)
+    finally:
+        jv.close()
+        pv.close()
+    with pytest.raises(ValueError, match="unknown needle map kind"):
+        volume.Volume(str(tmp_path), "", 10, needle_map_kind="btree")
