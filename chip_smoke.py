@@ -6,10 +6,10 @@ calls, at full width, then through the port's volume server, its cluster
 and its mesh plane, and holds each CUDA kernel against its plain PyTorch
 version: warm-storage erasure coding (gf_matmul, and gf_verify for the
 mesh's parity check) and the needle-index lookup (index_search,
-ragged_lookup):
+ragged_lookup, and the mesh lookup's index_buckets and bucket_search):
 
   0  identity: nvidia-smi name and power limit, torch and CUDA versions
-  1  build the three kernels from the checkout's sources (one nvcc each,
+  1  build the kernels from the checkout's four sources (one nvcc each,
      all at once; sm_90a)
   2  gf_matmul against plain on the card, at the main path's shapes, and
      its median time beside the plain version's and the card's bound
@@ -102,9 +102,20 @@ ragged_lookup):
      the gf_verify kernel), sharded_reconstruct_step for the loss of
      shards 2 and 12, sharded_reconstruct_padded at a ragged width,
      sharded_bulk_lookup of phase 8's index with 10,000,003 probes (equal
-     to the single-device index_search answer), entry.entry() and
-     entry.dryrun(); each against the plain version; gf_verify's time
-     beside its plain version's and its bound.
+     to the single-device index_search answer) and of phase 8's edge
+     tables, entry.entry() and entry.dryrun(); each against the plain
+     version, and every kernel's launches on the path checked exactly
+     (index_buckets once a bucketable table and mesh, bucket_search once
+     a bucketable table and place, index_search once an unbucketable
+     table and place); gf_verify's time beside its plain version's and its
+     bound; index_buckets and bucket_search against their plain versions
+     on the card and K1's whole-table search on phase 8's table, every
+     edge table, a run of duplicates, a skewed table and a 2,200,000-row
+     table of sequential keys, then timed (A a replica and on the
+     sequential keys; B on each mesh, with and without the persisting-L2
+     window; K1 over B's table, and the unbucketed K1 route B replaces;
+     torch.searchsorted and its gathers), with nb, the card's persisting
+     L2 size, the bounds and the probes B bisects after its first group.
  13  vacuum (`weed benchmark` scale, the master's default -garbageThreshold
      0.3): phase 7's volume (kept through hard links) with a seeded 35 %
      of its needles deleted (garbage level >= 0.3). 13a: compact2 and
@@ -173,7 +184,7 @@ GIB = 1 << 30
 MIB = 1 << 20
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 INT32_LANES_PER_SM = 64  # INT32 lanes per SM per clock (Hopper)
-KERNELS = ("gf256", "index_search", "ragged_lookup")  # csrc/<name>.cu
+KERNELS = ("gf256", "index_search", "ragged_lookup", "bucket_search")  # csrc/<name>.cu
 REBUILD_LOST = (0, 7, 10, 13)
 DEGRADED_LOST = (1, 5, 11, 12)
 SAMPLED_READS = 1000  # seeded needles read with DEGRADED_LOST gone
@@ -642,6 +653,19 @@ def edge_tables(np):
     }
 
 
+def edge_inputs(np, rng) -> dict:
+    """The edge tables with offsets and sizes drawn from `rng`, and probes
+    of every key, its neighbours, 0, 2^63 and 2^64 - 1."""
+    out = {}
+    for name, keys in edge_tables(np).items():
+        offs = rng.integers(1, 1 << 32, size=len(keys), dtype=np.uint64).astype(np.uint32)
+        sizes = rng.integers(1, 1 << 32, size=len(keys), dtype=np.uint64).astype(np.uint32)
+        probes = np.concatenate([keys, keys + np.uint64(1), keys - np.uint64(1),
+                                 np.asarray([0, 1 << 63, (1 << 64) - 1], dtype=np.uint64)])
+        out[name] = (keys, offs, sizes, probes)
+    return out
+
+
 def phase_index_kernel(torch, seed: int, keep: dict) -> dict:
     """K1 against its plain version and torch.searchsorted on one full
     volume's index; `keep` gets the index and probes for phase 12."""
@@ -651,11 +675,7 @@ def phase_index_kernel(torch, seed: int, keep: dict) -> dict:
 
     # the edge tables first: the kernel against the plain version
     rng = np.random.default_rng(seed + 8)
-    for name, keys in edge_tables(np).items():
-        offs = rng.integers(1, 1 << 32, size=len(keys), dtype=np.uint64).astype(np.uint32)
-        sizes = rng.integers(1, 1 << 32, size=len(keys), dtype=np.uint64).astype(np.uint32)
-        probes = np.concatenate([keys, keys + np.uint64(1), keys - np.uint64(1),
-                                 np.asarray([0, 1 << 63, (1 << 64) - 1], dtype=np.uint64)])
+    for name, (keys, offs, sizes, probes) in edge_inputs(np, rng).items():
         got = K.IndexSnapshot(keys, offs, sizes).lookup(probes)
         plain = K.IndexSnapshot(keys, offs, sizes, device="cpu").lookup(probes)
         if not all(np.array_equal(a, b) for a, b in zip(got, plain)):
@@ -2395,6 +2415,261 @@ MESH_SHARD_BYTES = 16 * MIB  # each of the 10 data rows of a volume
 MESH_RAGGED = MIB + 13  # sharded_reconstruct_padded's ragged byte width
 MESH_LOST = [2, 12]  # one data and one parity shard, as the JAX dryrun
 MESH_EXTRA_PROBES = 3  # 10,000,003 probes: uneven over 4 places
+DENSE_ROWS = 2_200_000  # search_tables' sequential keys
+
+
+def search_tables(np, rng) -> dict:
+    """Tables the mesh lookup's kernels are held to their plain versions on
+    beside the edge tables (the same as tests/test_torch_mesh_search.py's):
+    a run of 400 duplicates, a skewed table whose widest bucket holds 300
+    rows, and sequential keys, as the sequencer hands out file ids, for a
+    2,200,000-needle volume (about one bucket a row, the upper half of the
+    table empty); offsets and sizes drawn from `rng`, probes of every key,
+    its neighbours, 0, 2^63 and 2^64 - 1."""
+    dup = np.cumsum(np.random.default_rng(1).integers(1, 9, size=6000, dtype=np.uint64))
+    dup[2000:2400] = dup[2000]
+    tables = {
+        "duplicates": np.sort(dup).astype(np.uint64),
+        "skewed": np.concatenate([
+            np.arange(4096, dtype=np.uint64) * np.uint64(1 << 20),
+            np.uint64(1 << 33) + np.arange(300, dtype=np.uint64)]),
+        "sequential": np.uint64(1 << 20) + np.arange(DENSE_ROWS, dtype=np.uint64),
+    }
+    out = {}
+    for name, keys in tables.items():
+        offs = rng.integers(1, 1 << 32, size=len(keys), dtype=np.uint64).astype(np.uint32)
+        sizes = rng.integers(1, 1 << 32, size=len(keys), dtype=np.uint64).astype(np.uint32)
+        probes = np.concatenate([keys, keys + np.uint64(1), keys - np.uint64(1),
+                                 np.asarray([0, 1 << 63, (1 << 64) - 1], dtype=np.uint64)])
+        out[name] = (keys, offs, sizes, probes)
+    return out
+
+
+def _buckets_against_plain(torch, np, snap, kmin: int, kmax: int, pk, host_keys=None) -> dict:
+    """index_buckets (A) and bucket_search (B) on a snapshot's rows at the
+    geometry the mesh lookup gives its table, against their plain versions
+    on the card and K1's whole-table search; with `host_keys`, A's table
+    also against numpy's searchsorted. Launches here are comparisons."""
+    from seaweedfs_tpu_torch.ops import bucket_search as BS
+    from seaweedfs_tpu_torch.ops import index_kernel as IK
+
+    dev = snap.rows.device
+    nb = BS.table_buckets(snap.n, dev)
+    bstep = BS.bucket_step(kmin, kmax, nb)
+    starts, max_rows = BS._index_buckets_cuda(snap.rows, kmin, bstep, nb)
+    pstarts, prows = BS._index_buckets_torch(snap.keys ^ IK._SIGN, kmin, bstep, nb)
+    err = int((starts.long() - pstarts.long()).abs().max())
+    err = max(err, abs(int(max_rows) - prows))
+    if err:
+        fail(f"index_buckets != the plain version ({snap.n} rows): max |diff| {err}")
+    if host_keys is not None:
+        bounds = np.uint64(kmin) + np.arange(nb, dtype=np.uint64) * np.uint64(bstep)
+        if not np.array_equal(starts.cpu().numpy(),
+                              np.append(np.searchsorted(host_keys, bounds), snap.n)):
+            fail(f"index_buckets != numpy searchsorted ({snap.n} rows)")
+    try:
+        got = BS._bucket_search_cuda(snap.rows, starts, kmin, bstep, nb, pk)
+        plain = BS._bucket_search_torch(BS.search_steps(prows), snap.keys, snap.offsets,
+                                        snap.sizes, pstarts, kmin, bstep, nb, pk)
+        whole = IK._index_search_cuda(snap.rows, None, 0, 1, 0, pk)
+        torch.cuda.synchronize()
+    finally:
+        BS.release_l2(dev)
+    for what, want in (("the plain version", plain), ("K1 over the whole table", whole)):
+        if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+                and torch.equal(got[2].bool(), want[2].bool())):
+            fail(f"bucket_search != {what} ({snap.n} rows)")
+    return {"nb": nb, "bstep": bstep, "max_rows": prows, "starts_err": err,
+            "search_err": max_abs_diff(torch, zip(got[:2], plain[:2]))}
+
+
+def _bucket_sector_bytes(torch, rows_lo, rows_hi, n: int) -> tuple:
+    """Bytes of the 32-byte sectors (two 16-byte rows each) that the row
+    ranges [lo, hi) cover: the distinct ones, each counted once, and every
+    range's own, summed."""
+    keep = rows_hi > rows_lo
+    first = rows_lo[keep] // 2
+    last = (rows_hi[keep] - 1) // 2
+    s = (n + 1) // 2
+    edge = torch.zeros(s + 1, dtype=torch.int32, device=rows_lo.device)
+    ones = torch.ones(first.shape[0], dtype=torch.int32, device=rows_lo.device)
+    edge.index_add_(0, first, ones)
+    edge.index_add_(0, last + 1, -ones)
+    distinct = int((torch.cumsum(edge, 0)[:s] > 0).sum()) * 32
+    return distinct, int((last - first + 1).sum()) * 32
+
+
+def _second_trips(torch, pk, snap, lower) -> int:
+    """Probes whose lower bound `lower` lies outside the group of 4 rows
+    that bucket_search loads first (the same guess in float64), so that
+    the kernel bisects a side of the bucket after it."""
+    from seaweedfs_tpu_torch.ops import bucket_search as BS
+    from seaweedfs_tpu_torch.ops import index_kernel as IK
+
+    bucket = BS._bucket_torch(pk, snap.kmin, snap.bstep, snap.nb)
+    lo = snap.starts[bucket].long()
+    hi = snap.starts[bucket + 1].long()
+    # the key's place in its bucket, as the kernel's u64 arithmetic gives it
+    q = torch.clamp(pk ^ IK._SIGN, min=snap.kmin - (1 << 63)) ^ IK._SIGN
+    kmin = snap.kmin - (1 << 64) if snap.kmin >= 1 << 63 else snap.kmin
+    off = q - kmin - bucket * snap.bstep  # u64 bits, wraps
+    place = off.double() + torch.where(off < 0, 2.0 ** 64, 0.0)
+    rows_in = hi - lo
+    guess = lo + torch.minimum((rows_in - 1).double(),
+                               place / snap.bstep * rows_in.double()).long()
+    g0 = guess & ~3
+    start, end = torch.maximum(g0, lo), torch.minimum(g0 + 4, hi)
+    left = (lower <= start) & (start > lo)
+    right = (lower >= end) & (end < hi)
+    return int(((rows_in > 0) & (left | right)).sum())
+
+
+def _mesh_lookup_kernels(torch, np, meshes: dict, keys, offs, sizes, probes,
+                         edges: dict, seed: int) -> dict:
+    """The mesh lookup's kernels held to their plain versions on phase 8's
+    table, on every edge table and on search_tables, then timed with CUDA
+    events on phase 8's table: A per replica (and on the sequential keys),
+    B on each mesh and with and without the L2 window, K1's bisection over
+    A's table (the route without B) and over the whole table (the mesh
+    lookup before this pair), the plain versions and the library calls;
+    with A's and B's bounds."""
+    from seaweedfs_tpu_torch.ops import bucket_search as BS
+    from seaweedfs_tpu_torch.ops import index_kernel as IK
+    from seaweedfs_tpu_torch.parallel.sharded_lookup import replicate_index, search_blocks
+
+    cuda0 = torch.device("cuda", 0)
+    checks = {}
+    tables = {**edges, **search_tables(np, np.random.default_rng(seed + 122))}
+    for name, (k, of, sz, pr) in tables.items():
+        snap = IK.IndexSnapshot.from_columns(k, of, sz, None, 0, 1, 0, 0, device=cuda0)
+        pk = torch.from_numpy(pr.view(np.int64)).to(cuda0)
+        checks[name] = _buckets_against_plain(torch, np, snap, int(k[0]), int(k[-1]),
+                                              pk, host_keys=k)
+        if name == "sequential":
+            checks[name]["index_buckets_ms"] = cuda_median_ms(torch, lambda: BS._index_buckets_cuda(
+                snap.rows, int(k[0]), checks[name]["bstep"], checks[name]["nb"]), 10)
+        del snap, pk
+    reps = replicate_index(keys, offs, sizes, meshes["1x1"])  # one table: both meshes are cuda:0
+    snap = reps[cuda0]
+    if snap.starts is None:
+        fail("phase 8's table was not bucketed")
+    pad = (-len(probes)) % 4
+    pk = torch.from_numpy(np.concatenate([probes, np.zeros(pad, np.uint64)]).view(np.int64)
+                          ).to(cuda0)
+    kmin, kmax = int(keys[0]), int(keys[-1])
+    check = _buckets_against_plain(torch, np, snap, kmin, kmax, pk)
+    if (check["nb"], check["bstep"]) != (snap.nb, snap.bstep):
+        fail("the replica's geometry differs from the card's rule")
+    a_starts, _rows = BS._index_buckets_cuda(snap.rows, snap.kmin, snap.bstep, snap.nb)
+    if not torch.equal(a_starts, snap.starts):
+        fail("the replica's table differs from a second index_buckets run")
+    del a_starts, _rows
+    persist, window = BS.l2_limits(cuda0)
+
+    # times: B through search_blocks on each mesh, then alone with and
+    # without the window, and K1 over the same table (the persisting lines
+    # released before each)
+    b_ms = {}
+    for name, mesh in meshes.items():
+        b_ms[name] = cuda_median_ms(torch, lambda: search_blocks(reps, pk, mesh), 10)
+    args = (snap.rows, snap.starts, snap.kmin, snap.bstep, snap.nb, pk)
+    window_ms, no_window_ms, k1_on_a_ms = [], [], []
+    for _ in range(2):
+        BS.release_l2(cuda0)
+        no_window_ms.append(cuda_median_ms(
+            torch, lambda: BS._bucket_search_cuda(*args, l2_window=False), 10))
+        k1_on_a_ms.append(cuda_median_ms(torch, lambda: IK._index_search_cuda(*args), 10))
+        window_ms.append(cuda_median_ms(torch, lambda: BS._bucket_search_cuda(*args), 10))
+    BS.release_l2(cuda0)
+    a_ms = cuda_median_ms(
+        torch, lambda: BS._index_buckets_cuda(snap.rows, snap.kmin, snap.bstep, snap.nb), 10)
+    k1_flat_ms = cuda_median_ms(
+        torch, lambda: IK._index_search_cuda(snap.rows, None, 0, 1, 0, pk), 10)
+    biased = snap.keys ^ IK._SIGN
+    a_plain_ms = cuda_median_ms(
+        torch, lambda: BS._index_buckets_torch(biased, snap.kmin, snap.bstep, snap.nb), 3,
+        warm=1)
+    cols = (snap.keys, snap.offsets, snap.sizes)
+    b_plain_ms = cuda_median_ms(torch, lambda: BS._bucket_search_torch(
+        snap.bsteps, *cols, snap.starts, snap.kmin, snap.bstep, snap.nb, pk), 3, warm=1)
+    # the library calls: searchsorted of the bucket boundaries (A's starts
+    # without the occupancy), and searchsorted + 3 gathers over contiguous
+    # columns (B's answers), on sign-biased keys
+    bounds = (torch.arange(snap.nb, dtype=torch.int64, device=cuda0) * snap.bstep
+              + snap.kmin) ^ IK._SIGN
+    a_lib_ms = cuda_median_ms(torch, lambda: torch.searchsorted(biased, bounds), 10)
+    lib_offs, lib_sizes = snap.offsets.contiguous(), snap.sizes.contiguous()
+    bp = pk ^ IK._SIGN
+    n = snap.n
+
+    def library():
+        i = torch.searchsorted(biased, bp).clamp_(max=n - 1)
+        f = biased[i] == bp
+        return (torch.where(f, lib_offs[i], 0), torch.where(f, lib_sizes[i], 0), f)
+
+    lib_ms = cuda_median_ms(torch, library, 10)
+
+    # bounds, over 3.35 TB/s. A: every row read once (each 32-byte sector
+    # holds two rows' keys) and the table written once. B, the function's
+    # own bytes (K1's rule in phase 8): each probe's key in, its 9 bytes of
+    # answer out, and the distinct sectors of the rows that answer (each
+    # probe's lower bound), each once. Beside it, what B's design reads:
+    # the sectors of the bucket rows [starts[b], starts[b + 1]), distinct
+    # and summed over the probes; the L2-resident starts reads not counted
+    a_bytes = n * 16 + (snap.nb + 1) * 4 + 4
+    lower = torch.searchsorted(biased, bp)
+    final_bytes = unique_sector_bytes(torch, lower.clamp(max=n - 1), 16)
+    second = _second_trips(torch, pk, snap, lower)
+    del biased, bounds, lib_offs, lib_sizes, bp, lower
+    bucket = BS._bucket_torch(pk, snap.kmin, snap.bstep, snap.nb)
+    lo = snap.starts[bucket].long()
+    hi = snap.starts[bucket + 1].long()
+    row_bytes, fetched_bytes = _bucket_sector_bytes(torch, lo, hi, n)
+    wide = int(((hi - lo) > 8).sum())
+    del bucket, lo, hi
+    io_bytes = pk.shape[0] * (8 + 4 + 4 + 1)
+    b_bytes = io_bytes + final_bytes
+    del reps, snap
+    torch.cuda.empty_cache()
+    return {
+        "entries": n, "probes": int(pk.shape[0]),
+        "nb": check["nb"], "bstep": check["bstep"], "starts_bytes": (check["nb"] + 1) * 4,
+        "max_bucket_rows": check["max_rows"], "probes_in_buckets_over_8_rows": wide,
+        "probes_with_a_second_trip": second,
+        "persisting_l2_max_bytes": persist, "access_window_max_bytes": window,
+        "tables": checks,
+        "index_buckets": {
+            "max_abs_err": max(c["starts_err"] for c in (check, *checks.values())),
+            "ms": a_ms, "ms_from": "events",
+            "ms_sequential_keys": checks["sequential"]["index_buckets_ms"],
+            "plain_ms": a_plain_ms, "library_ms": a_lib_ms,
+            "library_call": "torch.searchsorted of the nb boundaries (no occupancy)",
+            "bound_bytes": a_bytes, "bound_ms": a_bytes / HBM_BYTES_PER_S * 1e3,
+            "bound_by": "bytes",
+            "registers": BS._kernel_lib().bucket_kernels_registers(0),
+        },
+        "bucket_search": {
+            "max_abs_err": max(c["search_err"] for c in (check, *checks.values())),
+            "ms": b_ms["1x1"], "ms_2x2": b_ms["2x2"],
+            "ms_from": "events around search_blocks (every place's launch)",
+            "ms_alone_window": window_ms, "ms_alone_no_window": no_window_ms,
+            "k1_on_the_same_table_ms": k1_on_a_ms,
+            "plain_ms": b_plain_ms, "library_ms": lib_ms,
+            "library_call": "torch.searchsorted on sign-biased int64 keys + 3 gathers "
+                            "over contiguous columns",
+            "bound_bytes": b_bytes, "bound_ms": b_bytes / HBM_BYTES_PER_S * 1e3,
+            "bound_by": "bytes",
+            "bound_rule": "probes, answers and the distinct sectors of each probe's "
+                          "final row (phase 8's rule for K1)",
+            "bucket_row_bytes_distinct": row_bytes,
+            "bucket_row_bytes_per_probe_summed": fetched_bytes,
+            "bucket_rows_bound_ms": (io_bytes + row_bytes) / HBM_BYTES_PER_S * 1e3,
+            "registers": BS._kernel_lib().bucket_kernels_registers(1),
+        },
+        "unbucketed_k1_ms": k1_flat_ms,
+        "unbucketed_k1_note": "the mesh lookup before this kernel pair: K1 over the "
+                              "whole table, one launch on the 1x1 mesh's shape",
+    }
 
 
 def phase_mesh(torch, seed: int, index: dict, ires: dict, sm_clock_hz: float) -> dict:
@@ -2402,14 +2677,16 @@ def phase_mesh(torch, seed: int, index: dict, ires: dict, sm_clock_hz: float) ->
     reconstruct_step and reconstruct_padded of 5 volumes of 10 x 16 MiB,
     on a 1x1 mesh of cuda:0 and on a 2x2 grid of cuda:0 repeated (one
     card split into four blocks, one stream each; not four cards); the
-    sharded bulk lookup of phase 8's index with 10,000,003 probes;
-    entry.entry() and entry.dryrun() on both meshes. Launch counts are
-    read after the path and before the comparisons with the plain
-    versions, which follow; then gf_verify's time beside its plain
-    version's and its bound."""
+    sharded bulk lookup of phase 8's index with 10,000,003 probes and of
+    phase 8's edge tables; entry.entry() and entry.dryrun() on both meshes.
+    Launch counts are read after the path and before the comparisons with
+    the plain versions, which follow; then gf_verify's time beside its
+    plain version's and its bound, and the mesh lookup's kernels held to
+    their plain versions and timed (_mesh_lookup_kernels)."""
     import numpy as np
 
     from seaweedfs_tpu_torch import entry
+    from seaweedfs_tpu_torch.ops import bucket_search as BS
     from seaweedfs_tpu_torch.ops import gf256 as G
     from seaweedfs_tpu_torch.ops import index_kernel as IK
     from seaweedfs_tpu_torch.parallel import (
@@ -2420,7 +2697,6 @@ def phase_mesh(torch, seed: int, index: dict, ires: dict, sm_clock_hz: float) ->
         sharded_reconstruct_step,
         sharded_verify,
     )
-    from seaweedfs_tpu_torch.parallel.sharded_lookup import replicate_index, search_blocks
     from seaweedfs_tpu_torch.storage.erasure_coding import galois
 
     t_phase = time.perf_counter()
@@ -2443,8 +2719,20 @@ def phase_mesh(torch, seed: int, index: dict, ires: dict, sm_clock_hz: float) ->
     rng = np.random.default_rng(seed + 12)
     absent = rng.integers(int(keys[-1]) + 1, 1 << 62, size=MESH_EXTRA_PROBES, dtype=np.uint64)
     probes = np.concatenate([index["probes"], absent])
+    edges = edge_inputs(np, np.random.default_rng(seed + 121))
+    # launches the path must make: A once a bucketable table and mesh (one
+    # distinct device), B once a bucketable table and place, K1 once an
+    # unbucketable table and place; the bucketable tables are phase 8's,
+    # the dryrun's (65,536 keys) and those edge tables IndexSnapshot buckets
+    bucketed = 2 + sum(IK.IndexSnapshot.bucketable(len(k), int(k[0]), int(k[-1]))
+                       for k, _o, _s, _p in edges.values())
+    places = sum(m.devices.size for m in meshes.values())
+    want_launches = {"index_buckets": len(meshes) * bucketed,
+                     "bucket_search": places * bucketed,
+                     "index_search": places * (len(edges) + 2 - bucketed)}
 
     G.KERNEL_LAUNCHES = G.VERIFY_LAUNCHES = IK.KERNEL_LAUNCHES = 0
+    BS.BUCKETS_LAUNCHES = BS.SEARCH_LAUNCHES = 0
     t_path = time.perf_counter()
     out = {}
     for name, mesh in meshes.items():
@@ -2461,6 +2749,7 @@ def phase_mesh(torch, seed: int, index: dict, ires: dict, sm_clock_hz: float) ->
         host = clean[:, survivors, :MESH_RAGGED].cpu().numpy()
         o["padded"] = sharded_reconstruct_padded(dec_rows, host, mesh)
         o["lookup"] = sharded_bulk_lookup(keys, offs, sizes, probes, mesh)
+        o["edges"] = {t: sharded_bulk_lookup(*e, mesh) for t, e in edges.items()}
         fn, args = entry.entry()
         o["entry"] = (fn(*args), args[0])
         entry.dryrun(list(mesh.devices.flat))
@@ -2468,7 +2757,11 @@ def phase_mesh(torch, seed: int, index: dict, ires: dict, sm_clock_hz: float) ->
     torch.cuda.synchronize()
     path_s = time.perf_counter() - t_path
     launches = {"gf_matmul": G.KERNEL_LAUNCHES, "gf_verify": G.VERIFY_LAUNCHES,
-                "index_search": IK.KERNEL_LAUNCHES}
+                "index_search": IK.KERNEL_LAUNCHES, "index_buckets": BS.BUCKETS_LAUNCHES,
+                "bucket_search": BS.SEARCH_LAUNCHES}
+    for k, n in want_launches.items():
+        if launches[k] != n:
+            fail(f"phase 12 launched {k} {launches[k]} times, the path makes {n}")
 
     # the comparisons: the plain versions on the card, then single-device K1
     plain_parity = torch.stack([
@@ -2502,6 +2795,13 @@ def phase_mesh(torch, seed: int, index: dict, ires: dict, sm_clock_hz: float) ->
         for a, b in zip(o["lookup"], single):
             if not np.array_equal(a, b):
                 fail(f"sharded_bulk_lookup ({name}) != single-device index_search")
+        for t, (k, of, sz, pr) in edges.items():
+            want_single = IK.IndexSnapshot(k, of, sz).lookup(pr)
+            want_plain = IK.IndexSnapshot(k, of, sz, device="cpu").lookup(pr)
+            for a, b, c in zip(o["edges"][t], want_single, want_plain):
+                if not (np.array_equal(a, b) and np.array_equal(a, c)):
+                    fail(f"sharded_bulk_lookup ({name}) of the edge table {t} != "
+                         "single-device index_search or the plain version")
         got, ex = o["entry"]
         if not torch.equal(got.view(torch.int32), torch.stack([G._gf_matmul_torch_packed(
                 pm, ex[v].view(torch.int32)) for v in range(ex.shape[0])])):
@@ -2534,15 +2834,7 @@ def phase_mesh(torch, seed: int, index: dict, ires: dict, sm_clock_hz: float) ->
     v_bytes_ms = v_bytes / HBM_BYTES_PER_S * 1e3
     v_ops_ms = v_ops / int_rate * 1e3
 
-    # the sharded lookup's device time on each mesh, replicas built once
-    k1_ms = {}
-    pad = (-len(probes)) % 4
-    pk = torch.from_numpy(np.concatenate([probes, np.zeros(pad, np.uint64)]).view(np.int64)
-                          ).to(cuda0)
-    for name, mesh in meshes.items():
-        reps = replicate_index(keys, offs, sizes, mesh)
-        k1_ms[name] = cuda_median_ms(torch, lambda: search_blocks(reps, pk, mesh), 10)
-        del reps
+    lres = _mesh_lookup_kernels(torch, np, meshes, keys, offs, sizes, probes, edges, seed)
     mesh_ms = {}
     for name, mesh in meshes.items():
         sh = torch.cat([data, plain_parity], dim=1)
@@ -2561,14 +2853,10 @@ def phase_mesh(torch, seed: int, index: dict, ires: dict, sm_clock_hz: float) ->
         "ragged_width": MESH_RAGGED, "lost": MESH_LOST, "flips": len(flips),
         "verify_words": out["1x1"]["verify_flipped"],
         "equal_to_plain": True, "max_abs_err": worst, "tolerance": "exact",
-        "lookup": {"entries": len(keys), "probes": len(probes), "found": found,
+        "lookup": {"found": found, "edge_tables": list(edges),
                    "equal_to_single_device_index_search": True,
-                   "ms": k1_ms,
-                   "ms_note": "CUDA events around search_blocks: every block's K1 "
-                              "launch, replicas built before",
-                   "bound_ms_unbucketed": ires["bound_ms_unbucketed"],
-                   "plain_ms_unbucketed": ires["plain_ms_unbucketed"],
-                   "library_ms": ires["library_ms"]},
+                   "equal_to_plain": True, **lres,
+                   "plain_ms_unbucketed": ires["plain_ms_unbucketed"]},
         "mesh_ms": mesh_ms,
         "path_s": path_s,
         "kernel_launches": launches,
@@ -3107,6 +3395,7 @@ def main() -> int:
     try:
         from seaweedfs_tpu_torch.gpu.coder import get_codec
         from seaweedfs_tpu_torch.ops import _build
+        from seaweedfs_tpu_torch.ops import bucket_search as BS
         from seaweedfs_tpu_torch.ops import gf256 as G
         from seaweedfs_tpu_torch.ops import index_kernel as IK
         from seaweedfs_tpu_torch.ops import ragged_lookup as RL
@@ -3165,6 +3454,7 @@ def main() -> int:
     limits = G.kernel_limits()
     IK._kernel_lib()
     RL._kernel_lib()
+    BS._kernel_lib()
     emit({
         "phase": "build",
         "libraries": {k: os.path.relpath(v, HERE) for k, v in built.items()},
@@ -3444,7 +3734,9 @@ def main() -> int:
         ik_launches["mesh"] = mres["kernel_launches"]["index_search"]
         for path, n in (("gf_matmul", launches["mesh"]),
                         ("gf_verify", mres["kernel_launches"]["gf_verify"]),
-                        ("index_search", ik_launches["mesh"])):
+                        ("index_search", ik_launches["mesh"]),
+                        ("index_buckets", mres["kernel_launches"]["index_buckets"]),
+                        ("bucket_search", mres["kernel_launches"]["bucket_search"])):
             if n <= 0:
                 fail(f"phase 12 launched {path} no time")
 
@@ -3469,6 +3761,8 @@ def main() -> int:
 
     k2 = ares["ragged_lookup"]["65536"]
     gv = mres["gf_verify"]
+    lk = mres["lookup"]
+    kb, ks = lk["index_buckets"], lk["bucket_search"]
     emit({
         "kernels": [{
             "name": "gf_matmul",
@@ -3546,6 +3840,41 @@ def main() -> int:
             "bound_ms": k2["bound_ms"],
             "bound_by": "bytes",
             "library_ms": None,
+        }, {
+            "name": "index_buckets",
+            "route": "cuda",
+            "source": "seaweedfs_tpu_torch/ops/csrc/bucket_search.cu",
+            "replaces": "seaweedfs_tpu/parallel/sharded_lookup.py:29 (_compiled_body, "
+                        "with bucket_search: each replica's bucket table)",
+            "launches": mres["kernel_launches"]["index_buckets"],
+            "launches_by_path": {"mesh": mres["kernel_launches"]["index_buckets"]},
+            "equal_to_plain": True,
+            "max_abs_err": kb["max_abs_err"],
+            "shape": f"{lk['entries']} rows -> {lk['nb']} + 1 starts",
+            "ms": kb["ms"],
+            "ms_from": kb["ms_from"],
+            "plain_ms": kb["plain_ms"],
+            "bound_ms": kb["bound_ms"],
+            "bound_by": kb["bound_by"],
+            "library_ms": kb["library_ms"],
+        }, {
+            "name": "bucket_search",
+            "route": "cuda",
+            "source": "seaweedfs_tpu_torch/ops/csrc/bucket_search.cu",
+            "replaces": "seaweedfs_tpu/parallel/sharded_lookup.py:29 (_compiled_body; "
+                        "sharded_bulk_lookup at :57)",
+            "launches": mres["kernel_launches"]["bucket_search"],
+            "launches_by_path": {"mesh": mres["kernel_launches"]["bucket_search"]},
+            "equal_to_plain": True,
+            "max_abs_err": ks["max_abs_err"],
+            "shape": f"{lk['entries']} entries, {lk['probes']} probes, 1x1 mesh",
+            "ms": ks["ms"],
+            "ms_2x2": ks["ms_2x2"],
+            "ms_from": ks["ms_from"],
+            "plain_ms": ks["plain_ms"],
+            "bound_ms": ks["bound_ms"],
+            "bound_by": ks["bound_by"],
+            "library_ms": ks["library_ms"],
         }],
     })
     print(smi, flush=True)

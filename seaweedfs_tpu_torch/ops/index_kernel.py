@@ -127,6 +127,18 @@ def _kernel_lib():
         return _LIB
 
 
+def search_steps(rows: int) -> int:
+    """Rounds of the fixed-step search over ranges of at most `rows` rows:
+    ceil(log2(rows)) + 1, at least 1."""
+    return max(1, (max(rows, 1) - 1).bit_length() + 1)
+
+
+def bucket_step(kmin: int, kmax: int, nb: int) -> int:
+    """Keys a bucket spans when nb buckets cover kmin .. kmax: the ceiling
+    of the span over nb, at least 1."""
+    return max(1, -(-(kmax - kmin + 1) // nb))
+
+
 def _check_cuda(name: str, t: torch.Tensor, dtype, device) -> None:
     if t.device != device or t.dtype != dtype or not t.is_contiguous():
         raise ValueError(
@@ -134,6 +146,21 @@ def _check_cuda(name: str, t: torch.Tensor, dtype, device) -> None:
             f"{t.dtype} on {t.device}"
             + ("" if t.is_contiguous() else " (not contiguous)")
         )
+
+
+def _check_rows(rows: torch.Tensor) -> int:
+    """Refuse what the kernels do not take as a table -> its row count."""
+    dev = rows.device
+    if dev.type != "cuda":
+        raise ValueError(f"the kernel takes CUDA tensors, got {dev}")
+    _check_cuda("rows", rows, torch.int64, dev)
+    if rows.dim() != 2 or rows.shape[1] != 2 or rows.data_ptr() % 16:
+        raise ValueError(f"rows must be a 16-byte aligned int64 [n, 2] table, "
+                         f"got shape {tuple(rows.shape)}")
+    n = rows.shape[0]
+    if not 1 <= n < 1 << 31:
+        raise ValueError(f"the kernel takes 1 to 2^31-1 rows, got {n}")
+    return n
 
 
 def _index_search_cuda(
@@ -150,16 +177,8 @@ def _index_search_cuda(
     `rows` is an IndexSnapshot's int64[n, 2] table; `starts` None searches
     the whole table. Not synchronised."""
     global KERNEL_LAUNCHES
+    n = _check_rows(rows)
     dev = rows.device
-    if dev.type != "cuda":
-        raise ValueError(f"the kernel takes CUDA tensors, got {dev}")
-    _check_cuda("rows", rows, torch.int64, dev)
-    if rows.dim() != 2 or rows.shape[1] != 2 or rows.data_ptr() % 16:
-        raise ValueError(f"rows must be a 16-byte aligned int64 [n, 2] table, "
-                         f"got shape {tuple(rows.shape)}")
-    n = rows.shape[0]
-    if not 1 <= n < 1 << 31:
-        raise ValueError(f"the kernel takes 1 to 2^31-1 rows, got {n}")
     _check_cuda("probes", probes, torch.int64, dev)
     if probes.dim() != 1:
         raise ValueError("probes must be 1-D")
@@ -289,6 +308,14 @@ class IndexSnapshot:
     MIN_BUCKETED = 4096
     MAX_BUCKETS = 1 << 25
 
+    @classmethod
+    def bucketable(cls, n: int, kmin: int, kmax: int) -> bool:
+        """Whether a sorted table of n keys from kmin to kmax gets a bucket
+        table: not a tiny one, and not a key span that would overflow the
+        u64 boundary arithmetic (the top boundary is < kmax + 1 + nb)."""
+        return (n >= cls.MIN_BUCKETED and 0 < kmax - kmin + 1 < 1 << 62
+                and kmax + 1 + cls.MAX_BUCKETS < 1 << 64)
+
     @staticmethod
     def prepare_host_columns(keys: np.ndarray, offsets: np.ndarray, sizes: np.ndarray):
         """(keys u64, offsets u32, sizes u32) without copying inputs whose
@@ -303,34 +330,27 @@ class IndexSnapshot:
         assert len(keys) == len(offsets) == len(sizes)
         keys, off_u32, sizes_u32 = self.prepare_host_columns(keys, offsets, sizes)
         self._init_common(len(keys), resolve_device(device))
-        self.steps = max(1, int(np.ceil(np.log2(max(self.n, 1)))) + 1)
+        self.steps = search_steps(self.n)
 
         # interpolation buckets (skipped for tiny tables and for key spans
         # that would overflow the u64 boundary arithmetic)
         self.kmin = int(keys[0]) if self.n else 0
         kmax = int(keys[-1]) if self.n else 0
-        span = kmax - self.kmin + 1 if self.n else 0
         starts = None
-        # the top boundary is < kmax + 1 + nb; require it to fit in u64
-        if (
-            self.n >= self.MIN_BUCKETED
-            and 0 < span < 1 << 62
-            and kmax + 1 + self.MAX_BUCKETS < 1 << 64
-        ):
+        if self.bucketable(self.n, self.kmin, kmax):
             # ~2 buckets per entry keeps each bucket's occupancy, and so
             # the per-probe search chain, short; the cap bounds the starts
             # table at 128 MiB of device memory
             nb = 1 << max(10, int(np.ceil(np.log2(self.n))) + 1)
             nb = min(nb, self.MAX_BUCKETS)
             self.nb = nb
-            self.bstep = max(1, -(-span // nb))  # ceil
+            self.bstep = bucket_step(self.kmin, kmax, nb)
             boundaries = np.uint64(self.kmin) + np.arange(
                 nb, dtype=np.uint64
             ) * np.uint64(self.bstep)
             starts = np.searchsorted(keys, boundaries).astype(np.int32)
             starts = np.append(starts, np.int32(self.n))
-            max_occ = int(np.max(np.diff(starts))) if nb else self.n
-            self.bsteps = max(1, int(np.ceil(np.log2(max(max_occ, 1)))) + 1)
+            self.bsteps = search_steps(int(np.max(np.diff(starts))))
         self._upload(keys, off_u32, sizes_u32, starts)
 
     def _init_common(self, n: int, device: torch.device) -> None:
@@ -376,7 +396,7 @@ class IndexSnapshot:
         keys, off_u32, sizes_u32 = cls.prepare_host_columns(keys, offsets, sizes)
         snap = cls.__new__(cls)
         snap._init_common(len(keys), resolve_device(device))
-        snap.steps = max(1, int(np.ceil(np.log2(max(snap.n, 1)))) + 1)
+        snap.steps = search_steps(snap.n)
         if starts is not None:
             snap.kmin, snap.bstep, snap.nb = int(kmin), int(bstep), int(nb)
             snap.bsteps = int(bsteps)

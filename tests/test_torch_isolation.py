@@ -4,7 +4,8 @@ the JAX package seaweedfs_tpu (exact module names: seaweedfs_tpu_torch
 itself merely starts with the same letters), and a process that refuses
 those imports (and triton, with no nvcc on its PATH) runs an encode, a
 rebuild, a degraded read, a Volume.bulk_lookup, an EcVolume.bulk_locate,
-one gate flush through the arena of the port, and the port's master
+one gate flush through the arena of the port, a bucketed sharded lookup
+on a mesh of CPU devices, and the port's master
 (with topology, sequence and raft) and a volume server heartbeating to
 it on the CPU answering an assign, a POST and a GET, with the client and
 shell modules imported, building no kernel. The plain versions of the
@@ -159,6 +160,18 @@ _SCRIPT = textwrap.dedent(
     assert gate.stats["device_probes"] == 300, gate.stats
     assert gate.stats["identity_mismatches"] == 0
     assert index_kernel._LIB is None and ragged_lookup._LIB is None
+
+    # the mesh lookup on a CPU mesh: the bucket table's plain version
+    from seaweedfs_tpu_torch.ops import bucket_search
+    from seaweedfs_tpu_torch.parallel import make_mesh, sharded_bulk_lookup
+    keys = np.arange(1, 8193, dtype=np.uint64) * np.uint64(3)
+    cols = np.arange(8192, dtype=np.uint32)
+    probes = keys[::7].copy()
+    probes[1::2] += np.uint64(1)  # absent: every key is a multiple of 3
+    got = sharded_bulk_lookup(keys, cols, cols, probes, make_mesh(devices=["cpu"] * 4))
+    assert got[2].tolist() == [i % 2 == 0 for i in range(len(probes))]
+    assert got[0][::2].tolist() == cols[::7][::2].tolist()
+    assert bucket_search._LIB is None
     arena.close()
     for v in vols.values():
         v.close()
