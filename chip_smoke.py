@@ -10,9 +10,12 @@ ragged_lookup, and the mesh lookup's index_buckets and bucket_search):
 
   0  identity: nvidia-smi name and power limit, torch and CUDA versions
   1  build the kernels from the checkout's four sources (one nvcc each,
-     all at once; sm_90a)
-  2  gf_matmul against plain on the card, at the main path's shapes, and
-     its median time beside the plain version's and the card's bound
+     all at once; sm_90a), with ptxas's registers and spills for gf256.cu
+  2  gf_matmul and gf_verify against plain on the card, at the main path's
+     shapes, widths of 1 to 33 words and views the 16-byte route cannot
+     take; gf_matmul's median time beside the plain version's, B3's
+     bit-sliced torch form (its library yardstick) and the card's bound,
+     the bytes it must move (the xtime chain's operation ceiling beside it)
   3  encode: write an 11 GiB version-3 volume (superblock, needles, .idx),
      then write_ec_files on the card, write_sorted_file_from_idx and .vif;
      the .dat's first find_dat_file_size bytes hashed for the decode
@@ -107,9 +110,10 @@ ragged_lookup, and the mesh lookup's index_buckets and bucket_search):
      version, and every kernel's launches on the path checked exactly
      (index_buckets once a bucketable table and mesh, bucket_search once
      a bucketable table and place, index_search once an unbucketable
-     table and place); gf_verify's time beside its plain version's and its
-     bound; index_buckets and bucket_search against their plain versions
-     on the card and K1's whole-table search on phase 8's table, every
+     table and place); gf_verify's time beside its plain version's, B3's
+     torch form with a compare and a sum, and its bytes bound;
+     index_buckets and bucket_search against their plain versions on the
+     card and K1's whole-table search on phase 8's table, every
      edge table, a run of duplicates, a skewed table and a 2,200,000-row
      table of sequential keys, then timed (A a replica and on the
      sequential keys; B on each mesh, with and without the persisting-L2
@@ -152,7 +156,8 @@ The kernels line gives each kernel's launches on the main path (counts
 set to 0 just before a path runs and read just after; comparison launches
 are not counted), its largest difference from the plain version, its
 median time, the plain version's, the card's bound and what bounds it, and
-the time of a PyTorch call computing the same function where one exists.
+the time of a PyTorch call (or, for gf_matmul and gf_verify, B3's
+composition of torch calls) computing the same function where one exists.
 
     python3 chip_smoke.py [--volume-gib 11] [--seed 0] [--workdir DIR]
 
@@ -183,6 +188,7 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 GIB = 1 << 30
 MIB = 1 << 20
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
+INT8_OPS_PER_S = 1.979e15  # H100 SXM data sheet, dense int8 tensor-core peak
 INT32_LANES_PER_SM = 64  # INT32 lanes per SM per clock (Hopper)
 KERNELS = ("gf256", "index_search", "ragged_lookup", "bucket_search")  # csrc/<name>.cu
 REBUILD_LOST = (0, 7, 10, 13)
@@ -224,7 +230,70 @@ def sha1_files(paths: list) -> dict:
         return dict(zip(paths, pool.map(one, paths)))
 
 
+# --- phase 1 -----------------------------------------------------------------
+def ptxas_report(log: str) -> dict:
+    """Per kernel of an `nvcc -Xptxas -v` log: registers, spill stores and
+    loads (bytes) and shared memory, keyed by the kernel's name with its
+    template arguments (gf_matmul_kernel<R,VEC>)."""
+    out, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            k = re.search(r"(gf_\w+_kernel)ILi(\d+)ELb([01])E", m.group(1))
+            name = f"{k.group(1)}<{k.group(2)},{k.group(3)}>" if k else m.group(1)
+            out[name] = {}
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            out[name]["spill_stores"] = int(m.group(1))
+            out[name]["spill_loads"] = int(m.group(2))
+        m = re.search(r"Used (\d+) registers(?:, (\d+) bytes smem)?", line)
+        if m:
+            out[name]["registers"] = int(m.group(1))
+            out[name]["smem_bytes"] = int(m.group(2) or 0)
+    return out
+
+
 # --- phase 2 -----------------------------------------------------------------
+def gf_bounds(G, m, n_bytes: int, moved_bytes: int, sm_clock_hz: float, props) -> dict:
+    """The least time the card could take for the GF(2^8) product of
+    matrix m over n_bytes byte positions, whatever computes it: the larger
+    of the bytes the function must move over 3.35 TB/s and its operations
+    as a GF(2) matrix product (2 * N * 8C * 8R int8 operations) over 1,979
+    TOP/s. Beside it the xtime chain's i32 operations over the INT32 lanes,
+    the ceiling of the kernel the bit-plane design replaced."""
+    r_cnt, c_cnt = m.shape
+    gf2_ops = 2 * n_bytes * 8 * c_cnt * 8 * r_cnt
+    bytes_ms = moved_bytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = gf2_ops / INT8_OPS_PER_S * 1e3
+    xtime_ops = G.count_expr_ops(m, "mul") * (n_bytes // 4)
+    int_rate = props.multi_processor_count * INT32_LANES_PER_SM * sm_clock_hz
+    return {
+        "bytes": moved_bytes, "bytes_bound_ms": bytes_ms,
+        "gf2_int8_ops": gf2_ops, "ops_bound_ms": ops_ms,
+        "bound_ms": max(bytes_ms, ops_ms),
+        "bound_by": "operations" if ops_ms > bytes_ms else "bytes",
+        "xtime_int32_ops": xtime_ops,
+        "xtime_ops_bound_ms": xtime_ops / int_rate * 1e3,
+    }
+
+
+def verify_against_plain(torch, G, m, x, store, gen, what: str) -> None:
+    """gf_verify's count on data x against its plain version's, the stored
+    parity the plain product with seeded flipped words (copied into
+    `store`, a view, where given)."""
+    par = G._gf_matmul_torch_packed(m, x)
+    flat = par.view(-1)
+    flat[torch.randint(0, flat.numel(), (3,), device="cuda", generator=gen)] ^= 0x01000010
+    if store is not None:
+        par = store.copy_(par)
+    got, want = int(G._gf_verify_cuda(m, x, par)), int(G._gf_verify_torch(m, x, par))
+    if got != want or want == 0:
+        fail(f"gf_verify != plain on {what}: {got} words, plain {want}")
+
+
 def kernel_against_plain(torch, G, galois, seed: int, sm_clock_hz: float) -> dict:
     import numpy as np
 
@@ -241,29 +310,35 @@ def kernel_against_plain(torch, G, galois, seed: int, sm_clock_hz: float) -> dic
         "rand7x11": rng.integers(0, 256, (7, 11), dtype=np.uint8),
     }
     chunk_words = 16 * MIB // 4  # the main path's 16 MiB chunk per shard
-    widths = (1, 3, 4097, (1 << 20) + 3, chunk_words)
+    widths = (1, 3, 7, 33, 4097, (1 << 20) + 3, chunk_words)
     gen = torch.Generator(device="cuda")
     gen.manual_seed(seed)
+
+    def words(rows, w):
+        return torch.randint(-(1 << 31), 1 << 31, (rows, w), dtype=torch.int32,
+                             device="cuda", generator=gen)
+
+    def err_of(got, want) -> int:
+        diff = (got.contiguous().view(torch.uint8).to(torch.int16)
+                - want.contiguous().view(torch.uint8).to(torch.int16))
+        return int(diff.abs().max())
+
     max_err = 0
     checked = 0
     for name, m in matrices.items():
         for w in widths:
-            x = torch.randint(
-                -(1 << 31), 1 << 31, (m.shape[1], w), dtype=torch.int32,
-                device="cuda", generator=gen,
-            )
+            x = words(m.shape[1], w)
             got = G.gf_matmul_packed(m, x)
             want = G._gf_matmul_torch_packed(m, x)
             torch.cuda.synchronize()
-            diff = (
-                got.contiguous().view(torch.uint8).to(torch.int16)
-                - want.contiguous().view(torch.uint8).to(torch.int16)
-            )
-            err = int(diff.abs().max())
+            err = err_of(got, want)
             max_err = max(max_err, err)
             checked += 1
             if err != 0:
                 fail(f"kernel != plain for {name} at {w} words (max err {err})")
+            if w in (7, 33, (1 << 20) + 3):
+                verify_against_plain(torch, G, m, x, None, gen, f"{name} at {w} words")
+                checked += 1
         # the numpy entry point: host bytes packed, run on the card, unpacked
         data = rng.integers(0, 256, (m.shape[1], 70_001), dtype=np.uint8)
         got = G.gf_matmul_bytes(m, data)
@@ -272,42 +347,50 @@ def kernel_against_plain(torch, G, galois, seed: int, sm_clock_hz: float) -> dic
             fail(f"gf_matmul_bytes on the card != plain for {name}")
         checked += 1
 
-    # time the 10.4 encode at the main path's chunk: per-launch CUDA events
+    # views the 16-byte route cannot take (the kernel's 4-byte cp.async
+    # route): an input and an output 4 bytes past 16-byte alignment, and a
+    # pitch of 4,099 words; then a 16-byte aligned view with a pitch of
+    # whole pieces, as the EC pipeline passes
     m = matrices["10.4"]
-    x = torch.randint(
-        -(1 << 31), 1 << 31, (10, chunk_words), dtype=torch.int32,
-        device="cuda", generator=gen,
-    )
-    out = torch.empty((4, chunk_words), dtype=torch.int32, device="cuda")
-
-    def median_ms(fn, reps: int) -> float:
-        for _ in range(3):
-            fn()
+    views = {}
+    for w in (7, 33, 4097):
+        views[f"input+4B,w{w}"] = (words(10, w + 1)[:, 1:], None)
+        views[f"output+4B,w{w}"] = (
+            words(10, w), torch.empty((4, w + 1), dtype=torch.int32, device="cuda")[:, 1:])
+    views["pitch4099"] = (words(10, 4099)[:, :4097], None)
+    views["pitch4100"] = (words(10, 4100)[:, :4097], None)
+    for name, (x, out) in views.items():
+        got = G._gf_matmul_cuda(m, x, out=out)
+        want = G._gf_matmul_torch_packed(m, x)
         torch.cuda.synchronize()
-        times = []
-        for _ in range(reps):
-            s = torch.cuda.Event(enable_timing=True)
-            e = torch.cuda.Event(enable_timing=True)
-            s.record()
-            fn()
-            e.record()
-            e.synchronize()
-            times.append(s.elapsed_time(e))
-        times.sort()
-        return times[len(times) // 2]
+        err = err_of(got, want)
+        max_err = max(max_err, err)
+        checked += 1
+        if err != 0:
+            fail(f"kernel != plain on the view {name} (max err {err})")
+        # gf_verify on the same view, the stored parity in `out` where given
+        verify_against_plain(torch, G, m, x, out, gen, f"the view {name}")
+        checked += 1
 
-    ms = median_ms(lambda: G._gf_matmul_cuda(m, x, out=out), 50)
-    plain_ms = median_ms(lambda: G._gf_matmul_torch_packed(m, x), 10)
+    # B3's bit-sliced form on the card: the library yardstick, held exact too
+    x = words(10, 4097)
+    if not torch.equal(G.gf_matmul_bitsliced(m, x), G._gf_matmul_torch_packed(m, x)):
+        fail("gf_matmul_bitsliced on the card != plain")
+
+    # time the 10.4 encode at the main path's chunk: per-launch CUDA events
+    x = words(10, chunk_words)
+    out = torch.empty((4, chunk_words), dtype=torch.int32, device="cuda")
+    ms = cuda_median_ms(torch, lambda: G._gf_matmul_cuda(m, x, out=out), 50)
+    plain_ms = cuda_median_ms(torch, lambda: G._gf_matmul_torch_packed(m, x), 10)
+    library_ms = cuda_median_ms(torch, lambda: G.gf_matmul_bitsliced(m, x), 10)
     props = torch.cuda.get_device_properties(0)
-    nbytes = (m.shape[0] + m.shape[1]) * chunk_words * 4
-    ops = G.count_expr_ops(m, "mul") * chunk_words
-    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    int_rate = props.multi_processor_count * INT32_LANES_PER_SM * sm_clock_hz
-    ops_ms = ops / int_rate * 1e3
+    bound = gf_bounds(G, m, chunk_words * 4, (m.shape[0] + m.shape[1]) * chunk_words * 4,
+                      sm_clock_hz, props)
     res = {
         "phase": "kernel_vs_plain",
         "matrices": list(matrices),
         "widths_words": list(widths),
+        "views": list(views),
         "compared": checked,
         "equal_to_plain": True,
         "max_abs_err": max_err,
@@ -315,14 +398,15 @@ def kernel_against_plain(torch, G, galois, seed: int, sm_clock_hz: float) -> dic
         "timed": "10.4 encode, [10, 4194304] int32 words (16 MiB per shard)",
         "ms": ms,
         "plain_ms": plain_ms,
-        "bytes": nbytes,
-        "int32_ops": ops,
-        "bytes_bound_ms": bytes_ms,
-        "ops_bound_ms": ops_ms,
-        "bound_ms": max(bytes_ms, ops_ms),
-        "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
-        "int32_ops_per_s_peak": int_rate,
+        "library_ms": library_ms,
+        "library_call": "gf_matmul_bitsliced: unpack to int8 bits, torch._int_mm by "
+                        "_bitslice_matrix, & 1, repack (a composition of torch calls; "
+                        "the port's paths never call it)",
+        **bound,
+        "bound_share": bound["bound_ms"] / ms,
+        "achieved_GBps": bound["bytes"] / (ms * 1e-3) / 1e9,
         "data_GBps": 10 * chunk_words * 4 / (ms * 1e-3) / 1e9,
+        "int32_ops_per_s_peak": props.multi_processor_count * INT32_LANES_PER_SM * sm_clock_hz,
     }
     emit(res)
     return res
@@ -2083,14 +2167,14 @@ def phase_cluster(torch, work: str, seed: int, keep: dict) -> dict:
                 if sha1_files([path])[path] != pair_sums[v][f".ec{i:02d}"]:
                     fail(f"rebuilt {v}.ec{i:02d} differs from the plain version's")
         # the launches one RPC per volume would have made: each volume's
-        # rounds of DEFAULT_CHUNK, one launch per 8 rebuilt rows; volumes
+        # rounds of DEFAULT_CHUNK, one launch per 4 rebuilt rows; volumes
         # that lost the same shards at the same round width share launches
         per_volume = {}
         shapes = {}
         for v, miss in [(1, lost)] + [(v, pair_lost[v]) for v in pair]:
             size = os.path.getsize(os.path.join(rd, f"{v}.ec{miss[0]:02d}"))
             rounds = -(-size // enc.DEFAULT_CHUNK)
-            per_volume[v] = rounds * -(-len(miss) // 8)
+            per_volume[v] = rounds * -(-len(miss) // G.kernel_limits()[2])
             widths = {min(enc.DEFAULT_CHUNK, size - r * enc.DEFAULT_CHUNK)
                       for r in range(rounds)}
             shapes[v] = (tuple(miss), widths)
@@ -2681,8 +2765,9 @@ def phase_mesh(torch, seed: int, index: dict, ires: dict, sm_clock_hz: float) ->
     phase 8's edge tables; entry.entry() and entry.dryrun() on both meshes.
     Launch counts are read after the path and before the comparisons with
     the plain versions, which follow; then gf_verify's time beside its
-    plain version's and its bound, and the mesh lookup's kernels held to
-    their plain versions and timed (_mesh_lookup_kernels)."""
+    plain version's, B3's torch form and its bytes bound, and the mesh
+    lookup's kernels held to their plain versions and timed
+    (_mesh_lookup_kernels)."""
     import numpy as np
 
     from seaweedfs_tpu_torch import entry
@@ -2826,13 +2911,16 @@ def phase_mesh(torch, seed: int, index: dict, ires: dict, sm_clock_hz: float) ->
     verify_clear_ms = cuda_median_ms(torch, verify_kernel, 20)
     verify_plain_ms = cuda_median_ms(torch, lambda: G._gf_verify_torch(pm, d_words, p_words),
                                      5, warm=1)
+
+    def verify_library():
+        return (G.gf_matmul_bitsliced(pm, d_words) != p_words).sum()
+
+    if int(verify_library()) != 0:
+        fail("gf_matmul_bitsliced's parity != the plain version's (phase 12)")
+    verify_library_ms = cuda_median_ms(torch, verify_library, 5, warm=1)
     words = MESH_SHARD_BYTES // 4
-    props = torch.cuda.get_device_properties(0)
-    v_bytes = (10 + 4) * MESH_SHARD_BYTES + 8
-    v_ops = G.count_expr_ops(pm, "mul") * words
-    int_rate = props.multi_processor_count * INT32_LANES_PER_SM * sm_clock_hz
-    v_bytes_ms = v_bytes / HBM_BYTES_PER_S * 1e3
-    v_ops_ms = v_ops / int_rate * 1e3
+    v_bound = gf_bounds(G, pm, MESH_SHARD_BYTES, (10 + 4) * MESH_SHARD_BYTES + 8,
+                        sm_clock_hz, torch.cuda.get_device_properties(0))
 
     lres = _mesh_lookup_kernels(torch, np, meshes, keys, offs, sizes, probes, edges, seed)
     mesh_ms = {}
@@ -2866,10 +2954,12 @@ def phase_mesh(torch, seed: int, index: dict, ires: dict, sm_clock_hz: float) ->
             "ms": verify_ms, "ms_from": "events",
             "ms_with_counter_zeroing": verify_clear_ms,
             "plain_ms": verify_plain_ms,
-            "bytes": v_bytes, "int32_ops": v_ops,
-            "bytes_bound_ms": v_bytes_ms, "ops_bound_ms": v_ops_ms,
-            "bound_ms": max(v_bytes_ms, v_ops_ms),
-            "bound_by": "operations" if v_ops_ms >= v_bytes_ms else "bytes",
+            "library_ms": verify_library_ms,
+            "library_call": "(gf_matmul_bitsliced(data) != parity).sum(): B3's torch "
+                            "form, a compare and a sum (never called on the path)",
+            **v_bound,
+            "bound_share": v_bound["bound_ms"] / verify_ms,
+            "achieved_GBps": v_bound["bytes"] / (verify_ms * 1e-3) / 1e9,
         },
         "phase_s": time.perf_counter() - t_phase,
     }
@@ -3459,6 +3549,7 @@ def main() -> int:
         "phase": "build",
         "libraries": {k: os.path.relpath(v, HERE) for k, v in built.items()},
         "nvcc_seconds": dict(_build.BUILD_SECONDS),
+        "gf256_ptxas": ptxas_report(_build.BUILD_LOGS.get("gf256", "")),
         "seconds": time.perf_counter() - t0,
         "gf256_max_rows": limits[0], "gf256_max_cols": limits[1],
         "gf256_rows_per_launch": limits[2],
@@ -3780,7 +3871,9 @@ def main() -> int:
             "plain_ms": kres["plain_ms"],
             "bound_ms": kres["bound_ms"],
             "bound_by": kres["bound_by"],
-            "library_ms": None,
+            "xtime_ops_bound_ms": kres["xtime_ops_bound_ms"],
+            "library_ms": kres["library_ms"],
+            "library_call": kres["library_call"],
         }, {
             "name": "gf_verify",
             "route": "cuda",
@@ -3797,7 +3890,9 @@ def main() -> int:
             "plain_ms": gv["plain_ms"],
             "bound_ms": gv["bound_ms"],
             "bound_by": gv["bound_by"],
-            "library_ms": None,
+            "xtime_ops_bound_ms": gv["xtime_ops_bound_ms"],
+            "library_ms": gv["library_ms"],
+            "library_call": gv["library_call"],
         }, {
             "name": "index_search",
             "route": "cuda",

@@ -31,6 +31,7 @@ BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-Xptxas", "-v",  # each kernel's registers, spills and shared memory
 )
 
 NVCC_DEFAULT = "/usr/local/cuda/bin/nvcc"
@@ -38,8 +39,10 @@ NVCC_DEFAULT = "/usr/local/cuda/bin/nvcc"
 _LOCK = threading.Lock()
 _LIBS: dict = {}
 # seconds each library took to build in this process (0.0 when loaded from
-# an earlier build); read by chip_smoke.py
+# an earlier build), and what nvcc printed (ptxas's per-kernel report); read
+# by chip_smoke.py
 BUILD_SECONDS: dict = {}
+BUILD_LOGS: dict = {}
 
 
 def find_nvcc() -> str:
@@ -93,6 +96,7 @@ def build(name: str) -> str:
                 f"{proc.stdout}{proc.stderr}"
             )
         os.replace(tmp, out)
+        BUILD_LOGS[name] = proc.stdout + proc.stderr
     finally:
         if os.path.exists(tmp):
             os.remove(tmp)

@@ -11,14 +11,24 @@ packed 4 per 32-bit word and xtime runs byte-parallel inside each word:
     xtime   = doubled ^ r * 0x1D             # ("mul" form)
             = doubled ^ r<<4 ^ r<<3 ^ r<<2 ^ r   # ("shift" form)
 
-Two implementations of the same function live here:
+The same function has these implementations here:
 
 - the kernel (csrc/gf256.cu, built by _build.py): launched for a tensor on
   a CUDA device, through _gf_matmul_cuda, which counts its launches in
-  KERNEL_LAUNCHES;
+  KERNEL_LAUNCHES. It computes on bit-planes: 32 bytes of a row
+  transposed into 8 words, word k holding bit k of each byte, where xtime
+  is three XORs (_gf_matmul_bitplanes_torch repeats its steps);
 - the plain version (_gf_matmul_torch_packed): gf_matmul_expr on torch
   int32 tensors, taken only for a tensor that lies on the CPU. The tests
-  run it, and chip_smoke.py holds the kernel against it on the card.
+  run it, and chip_smoke.py holds the kernel against it on the card;
+- _gf_matmul_bitplanes_torch: the kernel's arithmetic step by step in
+  torch (the lane layout, the plane transpose, plane xtime, accumulate,
+  the transpose back), for the CPU tests; nothing on the path calls it;
+- gf_matmul_bitsliced: the JAX package's bit-sliced form (B3), the product
+  as one int8 GF(2) matrix product (torch._int_mm) of the unpacked bits by
+  _bitslice_matrix, then `& 1` and a repack. chip_smoke.py times it on the
+  card as the yardstick of a composition of torch calls; the port's paths
+  never call it.
 
 gf_verify_count is the parity check of parallel/sharded_ec.py's
 sharded_verify: the same product compared with stored parity, counting
@@ -35,6 +45,7 @@ masked: 0x80808080 >> 7 gives 0xff010101 before the 0x01010101 mask.
 from __future__ import annotations
 
 import ctypes
+import functools
 import threading
 from typing import Optional
 
@@ -137,6 +148,127 @@ def _gf_matmul_torch_packed(
     matrix = np.asarray(matrix, dtype=np.uint8)
     rows = [packed_int32[j] for j in range(matrix.shape[1])]
     return torch.stack(gf_matmul_expr(matrix, rows, xtime_mode))
+
+
+# --- the kernel's arithmetic, step by step (bit-planes) ---
+# the kernel's layout: each lane of a warp holds two 4-word pieces of a row,
+# at words 4 * lane and 128 + 4 * lane of its warp's 256-word tile
+_TILE_WORDS = 256
+# (shift, mask) of the three delta-swap stages, which pair word i with word
+# i + shift; every mask clears the top `shift` bits, so the sign bits of
+# int32 `>>` drop out
+_SWAP_STAGES = ((1, 0x55555555), (2, 0x33333333), (4, 0x0F0F0F0F))
+
+
+def _transpose8(x: torch.Tensor) -> torch.Tensor:
+    """The kernel's transpose8 on the last dimension (8 int32 words): word
+    k of the result holds bit k of every byte, bit 8b + w of it bit k of
+    byte b of word w. Its own inverse."""
+    x = x.clone()
+    for s, m in _SWAP_STAGES:
+        lo = [i for i in range(8) if not i & s]
+        hi = [i + s for i in lo]
+        a, b = x[..., lo], x[..., hi]
+        t = ((a >> s) ^ b) & m
+        x[..., lo] = a ^ (t << s)
+        x[..., hi] = b ^ t
+    return x
+
+
+def _plane_xtime(t: torch.Tensor) -> torch.Tensor:
+    """Multiply by 2 on 8 planes (last dimension): plane k becomes plane
+    k + 1, and the old plane 7 becomes plane 0 and is XORed into planes 2,
+    3 and 4 (0x1D)."""
+    hi = t[..., 7]
+    return torch.stack([hi, t[..., 0], t[..., 1] ^ hi, t[..., 2] ^ hi,
+                        t[..., 3] ^ hi, t[..., 4], t[..., 5], t[..., 6]], dim=-1)
+
+
+def _gf_matmul_bitplanes_torch(matrix: np.ndarray, packed_int32: torch.Tensor) -> torch.Tensor:
+    """The kernel's arithmetic in torch: int32[C, W] -> int32[R, W].
+
+    As in csrc/gf256.cu: each lane of a warp takes two 4-word pieces 128
+    words apart in its warp's 256-word tile (zeros past the width), the 8
+    words go into planes, t_k = 2^k * row by plane xtime, each output row
+    XORs in the t_k its coefficient's bits select, and the planes go back
+    to words and to their places."""
+    matrix = np.asarray(matrix, dtype=np.uint8)
+    r_cnt, c_cnt = matrix.shape
+    w = packed_int32.shape[1]
+    tiles = -(-w // _TILE_WORDS)
+    x = torch.zeros((c_cnt, tiles * _TILE_WORDS), dtype=torch.int32,
+                    device=packed_int32.device)
+    x[:, :w] = packed_int32
+    # [C, tile, piece, lane, word] -> [C, tile, lane, piece * 4 + word]
+    lanes = x.view(c_cnt, tiles, 2, 32, 4).permute(0, 1, 3, 2, 4)
+    planes = _transpose8(lanes.reshape(c_cnt, tiles, 32, 8))
+    acc = torch.zeros((r_cnt, tiles, 32, 8), dtype=torch.int32, device=x.device)
+    for c in range(c_cnt):
+        t = planes[c]
+        for k in range(8):
+            for r in range(r_cnt):
+                if (int(matrix[r, c]) >> k) & 1:
+                    acc[r] ^= t
+            t = _plane_xtime(t)
+    out = _transpose8(acc).view(r_cnt, tiles, 32, 2, 4).permute(0, 1, 3, 2, 4)
+    return out.reshape(r_cnt, tiles * _TILE_WORDS)[:, :w]
+
+
+# --- B3: the bit-sliced form, an int8 GF(2) matrix product ---
+@functools.lru_cache(maxsize=None)
+def _bitslice_matrix(matrix_key) -> np.ndarray:
+    """B[C*8, R*8] over GF(2): column block r, bit b gets the b-th bit of
+    matrix[r, c] * 2^k for input bit k of input byte c."""
+    from ..storage.erasure_coding.galois import MUL_TABLE
+
+    matrix = np.asarray(matrix_key, dtype=np.uint8)
+    r_cnt, c_cnt = matrix.shape
+    b = np.zeros((c_cnt * 8, r_cnt * 8), dtype=np.int8)
+    for c in range(c_cnt):
+        for k in range(8):
+            for r in range(r_cnt):
+                prod = int(MUL_TABLE[matrix[r, c], 1 << k])
+                for bit in range(8):
+                    b[c * 8 + k, r * 8 + bit] = (prod >> bit) & 1
+    return b
+
+
+# torch._int_mm on CUDA takes more than 16 rows of its first operand
+_INT_MM_MIN_ROWS = 17
+
+
+def gf_matmul_bitsliced(matrix: np.ndarray, packed, device=None):
+    """The bit-sliced route: words [C, W] -> [R, W], byte-identical to
+    gf_matmul_packed. The bytes unpack to bits int8[N, C*8], multiply
+    _bitslice_matrix with int32 sums (torch._int_mm), and the sums' low
+    bits repack into bytes and words. A torch tensor (int32 or uint32)
+    computes on its own device and keeps its dtype; numpy input (uint32
+    words) goes to `device` (the card unless the caller asks for the CPU)
+    and comes back as numpy uint32."""
+    matrix = np.asarray(matrix, dtype=np.uint8)
+    if isinstance(packed, np.ndarray):
+        dev = resolve_device(device)
+        words = np.ascontiguousarray(packed, dtype=np.uint32).view(np.int32)
+        res = gf_matmul_bitsliced(matrix, torch.from_numpy(words.copy()).to(dev))
+        return res.cpu().numpy().view(np.uint32)
+    r_cnt, c_cnt = matrix.shape
+    if packed.dim() != 2 or packed.shape[0] != c_cnt:
+        raise ValueError(f"shape {tuple(packed.shape)} vs matrix {matrix.shape}")
+    dev = packed.device
+    key = tuple(map(tuple, matrix))
+    # column-major: cuBLASLt's int8 product takes its second operand so
+    bmat = torch.from_numpy(_bitslice_matrix(key)).to(dev).t().contiguous().t()
+    w = packed.shape[1]
+    n = w * 4
+    data = packed.contiguous().view(torch.uint8).reshape(c_cnt, n)
+    shifts = torch.arange(8, dtype=torch.uint8, device=dev)
+    bits = ((data.t()[:, :, None] >> shifts) & 1).to(torch.int8).reshape(n, c_cnt * 8)
+    if n < _INT_MM_MIN_ROWS:
+        bits = torch.cat([bits, bits.new_zeros((_INT_MM_MIN_ROWS - n, c_cnt * 8))])
+    sums = torch._int_mm(bits, bmat)[:n]
+    out_bits = (sums & 1).to(torch.uint8).view(n, r_cnt, 8)
+    out_bytes = (out_bits << shifts).sum(dim=2, dtype=torch.uint8)
+    return out_bytes.t().contiguous().view(packed.dtype)
 
 
 # --- the CUDA kernel ---

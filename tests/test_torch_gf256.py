@@ -1,7 +1,9 @@
 """The port's GF(2^8) product (seaweedfs_tpu_torch.ops.gf256) against the
 JAX package's: the plain torch version must be byte-equal to the Pallas
 kernel (interpret mode), to the jnp path and to the numpy CpuRSCodec, for
-every matrix shape the EC path uses, ragged widths and every byte value.
+every matrix shape the EC path uses, ragged widths and every byte value;
+the kernel's bit-plane arithmetic repeated in torch and the bit-sliced form
+(B3) must be byte-equal to the JAX package's routes too.
 Tolerance: exact equality (integer arithmetic)."""
 
 import numpy as np
@@ -107,6 +109,80 @@ def test_plain_packed_matches_jax_packed(jax_reference, name):
     got_u32 = G.gf_matmul_packed(m, t.view(torch.uint32))
     assert got_u32.dtype == torch.uint32
     assert np.array_equal(got_u32.view(torch.int32).numpy().view(np.uint32), want)
+
+
+# widths in words for the bit-plane and bit-sliced forms: one word, a
+# ragged piece, one lane's 32 bytes, a ragged lane, several warp tiles
+# with a ragged last one
+PLANE_WIDTHS = (1, 7, 8, 33, 1027)
+# a 32 x 32 matrix (the kernel's largest) beside the EC shapes; its JAX
+# reference is the JAX package's bit-sliced route, since the jnp route
+# compiles a 32 x 32 xtime program for about 12 s on the CPU
+WIDE = np.random.default_rng(32).integers(0, 256, (32, 32), dtype=np.uint8)
+
+
+@pytest.fixture(scope="module")
+def wide_reference():
+    data = _data(32, 7)[:, : 4 * max(PLANE_WIDTHS)]
+    packed = G.pack_bytes_host(data)
+    return packed, np.asarray(jax_gf.gf_matmul_bitsliced(WIDE, packed))
+
+
+def _plane_case(name, jax_reference, wide_reference):
+    """(matrix, packed words, the JAX package's product) at the widest width."""
+    if name == "wide32x32":
+        return (WIDE, *wide_reference)
+    data, pallas, _ = jax_reference[name]
+    w = 4 * max(PLANE_WIDTHS)
+    return (MATRICES[name], G.pack_bytes_host(data[:, :w]),
+            G.pack_bytes_host(pallas[:, :w]))
+
+
+@pytest.mark.parametrize("name", [*MATRICES, "wide32x32"])
+def test_bitplanes_match_jax_and_plain(jax_reference, wide_reference, name):
+    """The kernel's arithmetic step by step (lane layout, plane transpose,
+    plane xtime, accumulate, transpose back) equals the JAX package's
+    product and the plain version at every width, ragged tiles included."""
+    m, packed, want = _plane_case(name, jax_reference, wide_reference)
+    for w in PLANE_WIDTHS:
+        t = torch.from_numpy(packed[:, :w].view(np.int32).copy())
+        got = G._gf_matmul_bitplanes_torch(m, t)
+        assert got.shape == (m.shape[0], w)
+        assert np.array_equal(got.numpy().view(np.uint32), want[:, :w]), (name, w)
+        assert torch.equal(got, G._gf_matmul_torch_packed(m, t)), (name, w)
+
+
+@pytest.mark.parametrize("name", [*MATRICES, "wide32x32"])
+def test_bitsliced_matches_jax(jax_reference, wide_reference, name):
+    """B3 ported: the int8 GF(2) product (torch._int_mm) gives the JAX
+    package's words, from numpy and from int32 and uint32 CPU tensors;
+    its matrix is the JAX package's _bitslice_matrix."""
+    m, packed, want = _plane_case(name, jax_reference, wide_reference)
+    key = tuple(map(tuple, m))
+    assert np.array_equal(G._bitslice_matrix(key), jax_gf._bitslice_matrix(key))
+    for w in PLANE_WIDTHS:
+        got = G.gf_matmul_bitsliced(m, packed[:, :w], device="cpu")
+        assert got.dtype == np.uint32 and np.array_equal(got, want[:, :w]), (name, w)
+    t = torch.from_numpy(packed.view(np.int32).copy())
+    assert np.array_equal(G.gf_matmul_bitsliced(m, t).numpy().view(np.uint32), want)
+    got_u32 = G.gf_matmul_bitsliced(m, t.view(torch.uint32))
+    assert got_u32.dtype == torch.uint32
+    assert np.array_equal(got_u32.view(torch.int32).numpy().view(np.uint32), want)
+
+
+def test_plane_transpose_is_its_own_inverse():
+    """Plane k holds bit k of every byte: bit 8b + w of it is bit k of byte
+    b of word w, and the network undoes itself."""
+    words = np.random.default_rng(8).integers(0, 1 << 32, (3, 8), dtype=np.uint64)
+    x = torch.from_numpy(words.astype(np.uint32).view(np.int32))
+    planes = G._transpose8(x)
+    assert torch.equal(G._transpose8(planes), x)
+    got = planes.numpy().view(np.uint32).astype(np.uint64)
+    by = words.astype(np.uint32).view(np.uint8).reshape(3, 8, 4)
+    for k in range(8):
+        for w in range(8):
+            for b in range(4):
+                assert np.array_equal((got[:, k] >> (8 * b + w)) & 1, (by[:, w, b] >> k) & 1)
 
 
 @pytest.mark.parametrize("xtime_mode", ["mul", "shift"])
