@@ -2,15 +2,19 @@
 """Chip smoke test of the PyTorch/CUDA port (seaweedfs_tpu_torch) on one GPU.
 
 Drives the port's paths through the entry points a volume server
-calls, at full width, then through the port's volume server, its cluster
-and its mesh plane, and holds each CUDA kernel against its plain PyTorch
-version: warm-storage erasure coding (gf_matmul, and gf_verify for the
-mesh's parity check) and the needle-index lookup (index_search,
-ragged_lookup, and the mesh lookup's index_buckets and bucket_search):
+calls, at full width, then through the port's volume server, its cluster,
+its mesh plane and the volume tier under the filer, and holds each CUDA
+kernel against its plain PyTorch version: warm-storage erasure coding
+(gf_matmul, and gf_verify for the mesh's parity check) and the
+needle-index lookup (index_search, ragged_lookup, and the mesh lookup's
+index_buckets and bucket_search):
 
   0  identity: nvidia-smi name and power limit, torch and CUDA versions
   1  build the kernels from the checkout's four sources (one nvcc each,
-     all at once; sm_90a), with ptxas's registers and spills for gf256.cu
+     all at once; sm_90a), with ptxas's registers and spills for gf256.cu,
+     and beside them host_crc32c.cu (host code only: the needle CRC32C
+     where google-crc32c is missing), held to the Python table CRC on
+     0 B to 1 MiB and timed on a 1 KiB needle
   2  gf_matmul and gf_verify against plain on the card, at the main path's
      shapes, widths of 1 to 33 words and views the 16-byte route cannot
      take; gf_matmul's median time beside the plain version's, B3's
@@ -145,6 +149,29 @@ ragged_lookup, and the mesh lookup's index_buckets and bucket_search):
      fallback, mismatch or device error after the re-warm), BulkLookup
      equal to the reference and the
      host map, a second /vol/vacuum with no candidate, stop within 10 s.
+ 14  volume tier (the paths under the filer): (a) `volume -index lsm
+     -batchLookup arena -storageBackend cuda` (phase 10's server) takes
+     `weed benchmark -size 1024` needles as /!batch/put frames of 64 (the
+     filer's ChunkUploadGate) at concurrency 16 through its group-commit
+     worker, every reply item checked (fsyncs, mean and largest batch);
+     (b) the BatchRead stream of every key plus 10 % absent in requests
+     of 65,536 keys, every body held to what was written and every absent
+     key to None; index_search must launch at least once a request
+     (launches and device ms from the profiler); (c) `server
+     -defaultReplication 001` over (a)'s directory and a `volume
+     -mserver`, both `-index lsm -batchLookup arena`: run_benchmark with -assignBatch 128 and the replica read
+     fan-out, a read-only pass at c=256, 16,384 GETs of (a)'s volume at
+     c=512 through the fan-out and the `server`'s gate (ragged_lookup must
+     launch: the benchmark's small volumes stay in the LSM memtable, which
+     the arena does not hold), then reads through the fan-out while the
+     `volume` server stops (0 failed or wrong reads; failovers and
+     breaker opens reported); (d) `upload -maxMB 4 -replication 000` of
+     a 256 MiB file (64 chunks on both servers and a manifest),
+     `download` of it whole and three ranges across chunk boundaries
+     (one across the two servers), byte-identical, then its delete:
+     every chunk answers 404. Children of this script (`--tier-client
+     MODE`) are the load clients. The counts of (a) and (c) are cut from
+     `weed benchmark -n 1048576`, and the line says why.
 
 Each phase prints one JSON line; any mismatch or exception exits non-zero
 without the final line. The line before last but one is the kernels
@@ -191,6 +218,9 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 INT8_OPS_PER_S = 1.979e15  # H100 SXM data sheet, dense int8 tensor-core peak
 INT32_LANES_PER_SM = 64  # INT32 lanes per SM per clock (Hopper)
 KERNELS = ("gf256", "index_search", "ragged_lookup", "bucket_search")  # csrc/<name>.cu
+# csrc/host_crc32c.cu: no device code, the needle CRC32C of every server
+# write and read on a host without google-crc32c (util/crc.py)
+HOST_CRC = "host_crc32c"
 REBUILD_LOST = (0, 7, 10, 13)
 DEGRADED_LOST = (1, 5, 11, 12)
 SAMPLED_READS = 1000  # seeded needles read with DEGRADED_LOST gone
@@ -202,6 +232,42 @@ def emit(obj: dict) -> None:
 
 def fail(msg: str) -> None:
     raise SystemExit(f"chip_smoke: FAILED: {msg}")
+
+
+def check_host_crc(crc_mod, seed: int) -> dict:
+    """util/crc.py's route; where it is the host library, its CRC32C held
+    to the Python table forms on seeded inputs of 0 B to 1 MiB at odd
+    offsets, and both timed on one 1 KiB needle."""
+    import numpy as np
+
+    route = crc_mod.route()
+    res: dict = {"route": route}
+    if route == "python":
+        fail("util/crc.py fell back to the Python CRC32C: the host library "
+             f"{HOST_CRC} did not load")
+    if route != "native":
+        return res
+    rng = np.random.default_rng(seed + 1)
+    buf = rng.bytes((1 << 20) + 8)
+    sizes = [0, 1, 7, 8, 9, 1023, 1024, 1025, 16383, 16384, 70001, 1 << 20]
+    for n in sizes:
+        for off in (0, 3):
+            init = int(rng.integers(0, 1 << 32))
+            d = buf[off:off + n]
+            want = crc_mod._crc32c_python(d, init)
+            if (crc_mod.crc32c(d, init), crc_mod.crc32c(memoryview(d), init)) != (want, want):
+                fail(f"host CRC32C differs from the table loop at {n} bytes, offset {off}")
+    one = buf[:1024]
+    t0 = time.perf_counter()
+    for _ in range(2000):
+        crc_mod.crc32c(one)
+    t1 = time.perf_counter()
+    for _ in range(200):
+        crc_mod._crc32c_loop(one)
+    t2 = time.perf_counter()
+    res.update(sizes_checked=sizes, equal_to_table_loop=True,
+               us_per_1KiB=(t1 - t0) / 2000 * 1e6, python_us_per_1KiB=(t2 - t1) / 200 * 1e6)
+    return res
 
 
 def nvidia_smi(query: str) -> str:
@@ -3458,6 +3524,552 @@ def phase_vacuum(torch, work: str, seed: int, keep: dict, needle_mod) -> dict:
 
 
 
+# --- phase 14 ----------------------------------------------------------------
+# (a) weed benchmark -size 1024 (cli.py:746-747) sent as the filer
+# ChunkUploadGate's /!batch/put frames of 64 (server/filer.py:78) at c=16;
+# -n cut from 1,048,576 (TIER_CUTS)
+TIER_NEEDLES = 1 << 18  # (b) then spans 5 BatchRead requests
+TIER_FRAME = 64
+TIER_CONCURRENCY = 16
+TIER_READ_REQUEST = 65_536  # keys a BatchRead request
+TIER_ABSENT_SHARE = 0.1
+# (c) the cluster's benchmark, its read pass at c=256 and the reads across a
+# replica's loss; (d) `upload -maxMB 4` (the filer's -maxMB, cli.py:444)
+TIER_BENCH_N = 1 << 14
+TIER_ASSIGN_BATCH = 128
+TIER_WIDE_C = 256
+# (a)'s volume served again by the cluster's `server`: GETs through the
+# fan-out at the concurrency at which phase 10's wakeups pass the gate's
+# 128-probe arena cut
+TIER_GATED_GETS = 1 << 14
+TIER_GATED_C = 512
+TIER_COLLECTION = "tier"  # (a)'s volume: no assign of (c) or (d) picks it
+TIER_FAILOVER_READS = 10_000
+TIER_FAILOVER_STOP_AFTER = 2_000  # reads before the replica's server stops
+TIER_AFTER_STOP = 2_000  # reads at least once the stop has completed
+TIER_FILE_BYTES = 256 * MIB
+TIER_CHUNK_MB = 4
+TIER_MAX_VOLUMES = "30"  # slots for 001 growth, then 000 growth for (d)
+_TIER_RATES = ("a calibration run of this phase at these counts on an NVIDIA H100 "
+               "80GB HBM3 at 700.00 W put 11,380.3 needles/s, read 9,826.8 keys/s "
+               "back and ran the cluster's benchmark at 557.8 writes/s (a replicated "
+               "write, bound by per-request Python on the one interpreter the two "
+               "servers and the master share), and took 123.5 s")
+TIER_CUTS = {
+    "batch_put_needles": {
+        "from": 1 << 20, "to": TIER_NEEDLES,
+        "why": "the phase's budget of about 120 s: " + _TIER_RATES + "; 1,048,576 "
+               "needles would take about 3.5 minutes for (a) and (b) alone"},
+    "batch_read_keys": {"from": (1 << 20) + 104_858,
+                        "to": TIER_NEEDLES + int(TIER_NEEDLES * TIER_ABSENT_SHARE),
+                        "why": "every key of (a) plus 10 % absent"},
+    "benchmark_n": {
+        "from": 65_536, "to": TIER_BENCH_N,
+        "why": "the phase's budget of about 120 s: " + _TIER_RATES + "; 65,536 "
+               "files would take about 2 minutes of writes alone"},
+}
+_K2_NOTE = ("the benchmark's volumes hold about 1,200 needles each, all in the "
+            "LSM memtable (a run is sealed at 34,952 entries), so the arena holds "
+            "nothing of them and their GETs stay on the host maps; ragged_lookup "
+            "runs in the GETs of (a)'s volume, one sealed run and a memtable, "
+            "which the cluster's `server` loads from (a)'s directory")
+
+
+def _tier_npz(path: str, rng, n: int) -> dict:
+    """Needles of (a) and (b): ids, cookies, each one's pool blob, the pool
+    and its etags, and the absent ids (b) adds; saved for the children."""
+    import numpy as np
+
+    from seaweedfs_tpu_torch.util.crc import masked_crc
+
+    pool = rng.integers(0, 256, (256, NEEDLE_BYTES), dtype=np.uint8)
+    ids = rng.permutation(np.unique(rng.integers(1, 1 << 48, n + 4096, dtype=np.uint64)))[:n]
+    absent = np.setdiff1d(np.unique(rng.integers(1 << 48, 1 << 49, int(n * TIER_ABSENT_SHARE) + 64,
+                                                 dtype=np.uint64)), ids)[:int(n * TIER_ABSENT_SHARE)]
+    table = {"ids": ids, "cookies": rng.integers(1, 1 << 32, n, dtype=np.uint64),
+             "blob_of": rng.integers(0, len(pool), n), "pool": pool,
+             "etags": np.array([f"{masked_crc(b.tobytes()):08x}" for b in pool]),
+             "absent": absent}
+    np.savez(path, **table)
+    return table
+
+
+def tier_client_main(argv: list) -> int:
+    """Child mode of this script (`--tier-client MODE`): the load clients of
+    phase 14, each in its own process so the servers' threads keep this
+    script's interpreter to themselves. Writes its result as JSON.
+
+    put:      /!batch/put frames of the table's needles at --concurrency,
+              every reply item checked (size and etag)
+    read:     BatchRead of every id plus the absent ids in requests of
+              TIER_READ_REQUEST keys, every body held to the table
+    bench:    run_benchmark with -assignBatch and the read fan-out, then a
+              read-only pass at TIER_WIDE_C; the fids' seeds go to --seeds
+    gets:     --n GETs of the table's needles at --concurrency through
+              ReplicaReader, every body held to the table
+    failover: --n reads (more if needed, until TIER_AFTER_STOP reads
+              have completed after the script creates --stopped) of
+              --seeds' fids through ReplicaReader; touches --signal after
+              --stop-after reads, and the script then stops a replica's
+              server"""
+    import asyncio
+
+    import numpy as np
+
+    sys.path.insert(0, HERE)
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--tier-client", required=True)
+    ap.add_argument("--addr", required=True)
+    ap.add_argument("--out", required=True)
+    ap.add_argument("--table", default="")
+    ap.add_argument("--vid", type=int, default=1)
+    ap.add_argument("--concurrency", type=int, default=TIER_CONCURRENCY)
+    ap.add_argument("--n", type=int, default=0)
+    ap.add_argument("--seeds", default="")
+    ap.add_argument("--signal", default="")
+    ap.add_argument("--stopped", default="")
+    ap.add_argument("--stop-after", type=int, default=TIER_FAILOVER_STOP_AFTER)
+    a = ap.parse_args(argv)
+    from seaweedfs_tpu_torch.storage.file_id import FileId
+    from seaweedfs_tpu_torch.util.fasthttp import FastHTTPClient
+
+    res: dict = {}
+    if a.table:
+        t = np.load(a.table)
+        ids, cookies, blob_of = t["ids"], t["cookies"], t["blob_of"]
+        pool = [b.tobytes() for b in t["pool"]]
+        etags = [str(e) for e in t["etags"]]
+
+    async def put() -> None:
+        n = len(ids)
+        fids = [str(FileId(a.vid, k, c)) for k, c in zip(ids.tolist(), cookies.tolist())]
+        frames = []
+        for lo in range(0, n, TIER_FRAME):
+            parts = [struct.pack("<I", min(TIER_FRAME, n - lo))]
+            for i in range(lo, min(lo + TIER_FRAME, n)):
+                f = fids[i].encode()
+                parts.append(struct.pack("<HI", len(f), NEEDLE_BYTES) + f + pool[blob_of[i]])
+            frames.append((lo, b"".join(parts)))
+        http = FastHTTPClient(pool_per_host=a.concurrency)
+        todo = list(reversed(frames))
+        lat, bad = [], []
+
+        async def one() -> None:
+            while todo:
+                lo, body = todo.pop()
+                t0 = time.perf_counter()
+                st, got = await http.request("POST", a.addr, "/!batch/put", body,
+                                             "application/octet-stream", timeout=120)
+                lat.append(time.perf_counter() - t0)
+                reply = json.loads(got) if st == 200 else None
+                if reply is None or len(reply) != min(TIER_FRAME, n - lo):
+                    bad.append((lo, st, got[:120].decode("latin1")))
+                    continue
+                for j, item in enumerate(reply):
+                    i = lo + j
+                    if (item.get("f") != fids[i] or item.get("s") != NEEDLE_BYTES
+                            or item.get("e") != etags[blob_of[i]]):
+                        bad.append((i, item))
+
+        t0 = time.perf_counter()
+        await asyncio.gather(*(one() for _ in range(a.concurrency)))
+        wall = time.perf_counter() - t0
+        await http.close()
+        srt = sorted(lat)
+        res.update(frames=len(frames), needles=n, wall_s=wall, needles_per_s=n / wall,
+                   frame_p50_ms=srt[len(srt) // 2] * 1e3,
+                   frame_p99_ms=srt[min(len(srt) - 1, int(len(srt) * 0.99))] * 1e3,
+                   bad=len(bad), bad_examples=bad[:5])
+
+    async def read() -> None:
+        from seaweedfs_tpu_torch.client.operation import batch_read
+
+        absent = t["absent"]
+        keys = np.random.default_rng(len(ids)).permutation(np.concatenate([ids, absent]))
+        want = {int(k): pool[b] for k, b in zip(ids.tolist(), blob_of.tolist())}
+        wrong = present_absent = missing = 0
+        t0 = time.perf_counter()
+        for lo in range(0, len(keys), TIER_READ_REQUEST):
+            ks = keys[lo:lo + TIER_READ_REQUEST]
+            for k, got in zip(ks.tolist(), await batch_read(a.addr, a.vid, ks)):
+                w = want.get(k)
+                if w is None:
+                    present_absent += got is not None
+                elif got is None:
+                    missing += 1
+                elif got != w:
+                    wrong += 1
+        wall = time.perf_counter() - t0
+        res.update(keys=len(keys), absent=len(absent), requests=-(-len(keys) // TIER_READ_REQUEST),
+                   wall_s=wall, keys_per_s=len(keys) / wall, wrong=wrong, missing=missing,
+                   absent_answered=present_absent,
+                   bad=wrong + missing + present_absent)
+
+    async def bench() -> None:
+        from seaweedfs_tpu_torch.command.benchmark import run_benchmark
+
+        s1: dict = {}
+        await run_benchmark(a.addr, num_files=a.n, file_size=NEEDLE_BYTES, concurrency=TIER_CONCURRENCY,
+                            stats_out=s1, assign_batch=TIER_ASSIGN_BATCH, read_fanout=True)
+        with open(a.seeds, "w") as f:
+            json.dump(s1["seeds"], f)
+        s2: dict = {}
+        await run_benchmark(a.addr, num_files=a.n, file_size=NEEDLE_BYTES, concurrency=TIER_WIDE_C,
+                            stats_out=s2, do_write=False, fids_in=s1["seeds"], read_fanout=True)
+
+        def rates(st):
+            return {"completed": st.completed, "failed": st.failed,
+                    "per_s": st.completed / max(st.end - st.start, 1e-9),
+                    "p50_ms": st.percentile(50), "p99_ms": st.percentile(99)}
+
+        res.update(writes=rates(s1["write_stats"]), reads=rates(s1["read_stats"]),
+                   assign_rpcs=s1["assign_rpcs"], read_fanout=s1["read_fanout"],
+                   wide_reads=rates(s2["read_stats"]), wide_read_fanout=s2["read_fanout"],
+                   bad=s1["write_failed"] + s1["read_failed"] + s2["read_failed"])
+
+    async def gets() -> None:
+        from seaweedfs_tpu_torch.client import MasterClient
+        from seaweedfs_tpu_torch.client.read_fanout import ReplicaReader
+
+        mc = MasterClient("tier-gets", [a.addr])
+        await mc.start()
+        await mc.wait_connected()
+        http = FastHTTPClient(pool_per_host=a.concurrency + 4)
+        reader = ReplicaReader(http, mc.vid_map)
+        todo = np.random.default_rng(a.n).integers(0, len(ids), a.n).tolist()
+        lat, bad = [], []
+
+        async def one() -> None:
+            while todo:
+                i = todo.pop()
+                fid = str(FileId(a.vid, int(ids[i]), int(cookies[i])))
+                t0 = time.perf_counter()
+                try:
+                    st, data = await reader.read(fid)
+                except LookupError:
+                    st, data = await http.request(
+                        "GET", (await mc.lookup_file_id_async(fid)).removeprefix(
+                            "http://").partition("/")[0], "/" + fid)
+                lat.append(time.perf_counter() - t0)
+                if st != 200 or data != pool[blob_of[i]]:
+                    bad.append((fid, st))
+
+        t0 = time.perf_counter()
+        await asyncio.gather(*(one() for _ in range(a.concurrency)))
+        wall = time.perf_counter() - t0
+        srt = sorted(lat)
+        res.update(gets=len(lat), wall_s=wall, per_s=len(lat) / wall,
+                   p50_ms=srt[len(srt) // 2] * 1e3,
+                   p99_ms=srt[min(len(srt) - 1, int(len(srt) * 0.99))] * 1e3,
+                   bad=len(bad), bad_examples=bad[:5])
+        await http.close()
+        await mc.stop()
+
+    async def failover() -> None:
+        from seaweedfs_tpu_torch.client import MasterClient
+        from seaweedfs_tpu_torch.client.read_fanout import ReplicaReader
+        from seaweedfs_tpu_torch.command.benchmark import fake_payload
+        from seaweedfs_tpu_torch.util import overload
+
+        with open(a.seeds) as f:
+            seeds = json.load(f)
+        rng = np.random.default_rng(14)
+        fids = list(seeds)
+        mc = MasterClient("tier-failover", [a.addr])
+        await mc.start()
+        await mc.wait_connected()
+        http = FastHTTPClient(pool_per_host=a.concurrency + 4)
+        reader = ReplicaReader(http, mc.vid_map)
+        done = [0, 0]  # reads, reads completed after the stop
+        failed, wrong = [], []
+        deadline = time.perf_counter() + 300
+
+        async def one() -> None:
+            while (done[0] < a.n or done[1] < TIER_AFTER_STOP) and time.perf_counter() < deadline:
+                fid = fids[int(rng.integers(len(fids)))]
+                try:
+                    st, data = await reader.read(fid)
+                    if st != 200:
+                        failed.append((fid, st))
+                    elif data != fake_payload(seeds[fid], NEEDLE_BYTES):
+                        wrong.append(fid)
+                except Exception as e:
+                    failed.append((fid, repr(e)))
+                done[0] += 1
+                if done[0] == a.stop_after:
+                    open(a.signal, "w").close()
+                elif done[0] > a.stop_after and os.path.exists(a.stopped):
+                    done[1] += 1
+
+        t0 = time.perf_counter()
+        await asyncio.gather(*(one() for _ in range(a.concurrency)))
+        wall = time.perf_counter() - t0
+        res.update(reads=done[0], reads_after_stop=done[1], wall_s=wall, failed=len(failed),
+                   failed_examples=failed[:5], wrong=len(wrong), fanout=reader.stats(),
+                   breakers=overload.BREAKERS.stats(), bad=len(failed) + len(wrong))
+        await http.close()
+        await mc.stop()
+
+    asyncio.run({"put": put, "read": read, "bench": bench, "gets": gets,
+                 "failover": failover}[a.tier_client]())
+    with open(a.out, "w") as f:
+        json.dump(res, f)
+    return 0
+
+
+def _tier_child(work: str, mode: str, args: list, timeout: float = 600, wait: bool = True):
+    """Run a `--tier-client MODE` child; with wait=False return the Popen
+    and the path of its result."""
+    out = os.path.join(work, f"tier-{mode}.json")
+    cmd = [sys.executable, os.path.abspath(__file__), "--tier-client", mode, "--out", out, *args]
+    if not wait:
+        return subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True), out
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=timeout)
+    return _tier_result(mode, proc.returncode, proc.stderr, out)
+
+
+def _tier_result(mode: str, rc: int, stderr: str, out: str) -> dict:
+    if rc != 0:
+        fail(f"tier client {mode} exited {rc}: {stderr[-2000:]}")
+    with open(out) as f:
+        res = json.load(f)
+    os.remove(out)
+    if res["bad"]:
+        fail(f"tier client {mode}: {res}")
+    return res
+
+
+def _start_served(fn, argv: list, name: str) -> dict:
+    held = _serve_in_thread(fn, argv, name)
+    if not held["ready"].wait(SERVER_START_S) or "error" in held:
+        fail(f"{name} did not start in {SERVER_START_S} s: {held.get('error')!r}")
+    return held
+
+
+def _http_get(port: int, path: str, headers: dict | None = None, method: str = "GET"):
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
+    try:
+        conn.request(method, path, headers=headers or {})
+        resp = conn.getresponse()
+        return resp.status, dict(resp.getheaders()), resp.read()
+    finally:
+        conn.close()
+
+
+def phase_volume_tier(torch, work: str, seed: int) -> dict:
+    """The volume tier under the filer. (a) /!batch/put into a `volume
+    -index lsm -batchLookup arena` server through its group-commit worker;
+    (b) the BatchRead stream of every key plus the absent ones (K1 must
+    launch); (c) `server -defaultReplication 001` over (a)'s directory and
+    a `volume -mserver`: the benchmark with -assignBatch and the read
+    fan-out, a read pass at c=256, GETs of (a)'s volume at c=512 through
+    the `server`'s gate (K2 must launch), then reads across the loss of
+    one replica's server; (d) `upload -maxMB 4` of a 256 MiB file over
+    both servers, GETs of it whole and of three ranges, and its delete.
+    Every body is checked."""
+    import asyncio
+
+    import numpy as np
+
+    from seaweedfs_tpu_torch.command import cli
+    from seaweedfs_tpu_torch.ops import index_kernel as IK
+    from seaweedfs_tpu_torch.ops import ragged_lookup as RL
+    from seaweedfs_tpu_torch.pb import grpc_address
+    from seaweedfs_tpu_torch.pb.rpc import Stub
+
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(seed + 14)
+    root = os.path.join(work, "tier")
+    dirs = [os.path.join(root, f"c{i}") for i in range(2)]
+    for d in dirs:
+        os.makedirs(d)
+    table_path = os.path.join(root, "table.npz")
+    table = _tier_npz(table_path, rng, TIER_NEEDLES)
+    res: dict = {"phase": "volume_tier", "needles": TIER_NEEDLES, "cuts": TIER_CUTS}
+
+    # the path: every count at 0 now, read at the phase's end
+    IK.KERNEL_LAUNCHES = RL.KERNEL_LAUNCHES = 0
+
+    # --- (a) and (b): one volume server ---
+    taken: set = set()
+    port = _port_pair(taken)
+    argv = ["-dir", dirs[0], "-port", str(port), "-index", "lsm", "-batchLookup", "arena",
+            "-storageBackend", "cuda"]
+    held = _start_served(cli.cmd_volume, argv, "tier-volume")
+    try:
+        vs = held["servers"][0]
+        addr = f"127.0.0.1:{port}"
+        reply = asyncio.run(Stub(grpc_address(addr), "volume").call(
+            "AllocateVolume", {"volume_id": 1, "collection": TIER_COLLECTION}))
+        if reply:
+            fail(f"AllocateVolume: {reply}")
+        put = _tier_child(work, "put", ["--addr", addr, "--table", table_path])
+        gc = vs._group_committers[1].stats
+        res["batch_put"] = {"argv": argv, "frame": TIER_FRAME, "concurrency": TIER_CONCURRENCY,
+                            **put, "fsyncs": gc["batches"],
+                            "mean_batch_frames": gc["requests"] / gc["batches"],
+                            "mean_batch_needles": put["needles"] / gc["batches"],
+                            "largest_batch_frames": gc["largest_batch"]}
+        k1_before = IK.KERNEL_LAUNCHES
+        prof: dict = {}
+
+        def read_all():
+            prof["res"] = _tier_child(work, "read", ["--addr", addr, "--table", table_path])
+
+        dev = profile_device(torch, read_all)
+        k1 = IK.KERNEL_LAUNCHES - k1_before
+        if k1 < prof["res"]["requests"]:
+            fail(f"{prof['res']['requests']} BatchRead requests launched index_search {k1} times")
+        kern = (dev["kernels"] or {}).get("index_search_kernel") or {}
+        res["batch_read"] = {**prof["res"], "index_search_launches": k1,
+                             "profiler_index_search": kern or None,
+                             "device_busy_s": dev["device_busy_s"], "busy_share": dev["busy_share"],
+                             "device_errors": dict(vs.device_errors)}
+        if vs.device_errors:
+            fail(f"volume tier server device errors: {vs.device_errors}")
+    finally:
+        res["ab_stop_s"] = _stop_served(held, SERVER_STOP_S)
+    res["ab_s"] = time.perf_counter() - t_phase
+
+    # --- (c) and (d): `server` + `volume -mserver`, replication 001 ---
+    t_c = time.perf_counter()
+    mport, vports = _port_pair(taken), [_port_pair(taken) for _ in dirs]
+    maddr = f"127.0.0.1:{mport}"
+    urls = [f"127.0.0.1:{p}" for p in vports]
+    server_argv = ["-ip", "127.0.0.1", "-port", str(mport), "-volumePort", str(vports[0]),
+                   "-dir", dirs[0], "-max", TIER_MAX_VOLUMES, "-defaultReplication", "001",
+                   "-index", "lsm", "-batchLookup", "arena", "-storageBackend", "cuda"]
+    volume_argv = ["-ip", "127.0.0.1", "-port", str(vports[1]), "-dir", dirs[1],
+                   "-max", TIER_MAX_VOLUMES, "-mserver", maddr, "-index", "lsm",
+                   "-batchLookup", "arena", "-storageBackend", "cuda"]
+    served = [_start_served(cli.cmd_server, server_argv, "tier-server")]
+    stopped = False
+    try:
+        served.append(_start_served(cli.cmd_volume, volume_argv, "tier-volume-2"))
+        while True:
+            st = _http_json(mport, "/dir/status")
+            nodes = [dn["url"] for dc in st["Topology"]["data_centers"]
+                     for rack in dc["racks"] for dn in rack["data_nodes"]]
+            if len(nodes) == 2:
+                break
+            if time.perf_counter() - t_c > CLUSTER_START_S:
+                fail(f"the master knows {nodes}, not 2 data nodes")
+            time.sleep(0.1)
+        res["cluster_start_s"] = time.perf_counter() - t_c
+        seeds_path = os.path.join(root, "seeds.json")
+        rl0 = RL.KERNEL_LAUNCHES
+        bench = _tier_child(work, "bench", ["--addr", maddr, "--n", str(TIER_BENCH_N),
+                                            "--seeds", seeds_path], timeout=900)
+        res["cluster"] = {"server_argv": server_argv, "volume_argv": volume_argv, **bench,
+                          "ragged_lookup_launches": RL.KERNEL_LAUNCHES - rl0,
+                          "ragged_lookup_note": _K2_NOTE}
+        rl0 = RL.KERNEL_LAUNCHES
+        gets = _tier_child(work, "gets", ["--addr", maddr, "--table", table_path,
+                                          "--n", str(TIER_GATED_GETS),
+                                          "--concurrency", str(TIER_GATED_C)])
+        gate = _http_json(vports[0], "/debug/needle_map")
+        res["gated_gets"] = {"concurrency": TIER_GATED_C, **gets,
+                             "ragged_lookup_launches": RL.KERNEL_LAUNCHES - rl0,
+                             "gate": gate["gate"], "arena_errors": gate["device"]["errors"],
+                             "device_errors": gate["device_errors"]}
+        if res["gated_gets"]["ragged_lookup_launches"] <= 0:
+            fail(f"the GETs of (a)'s volume launched ragged_lookup no time: {gate['gate']}")
+        if gate["device"]["errors"] or any(gate["device_errors"].values()):
+            fail(f"the server's gate: arena errors {gate['device']['errors']}, "
+                 f"device errors {gate['device_errors']}")
+
+        # --- (d) a 256 MiB file in 4 MiB chunks over both servers ---
+        t_d = time.perf_counter()
+        src = os.path.join(root, "big.bin")
+        data = rng.integers(0, 256, TIER_FILE_BYTES, dtype=np.uint8).tobytes()
+        with open(src, "wb") as f:
+            f.write(data)
+        out, up_wall = _port_cli(["upload", "-master", maddr, "-maxMB", str(TIER_CHUNK_MB),
+                                  "-replication", "000", src])
+        m = re.search(r"-> fid (\S+) \((\d+) bytes\)", out)
+        if not m or int(m.group(2)) != TIER_FILE_BYTES:
+            fail(f"upload: {out!r}")
+        fid = m.group(1)
+
+        def holder(f):
+            r = asyncio.run(Stub(grpc_address(maddr), "master").call(
+                "LookupVolume", {"volume_ids": [f.split(",")[0]]}))
+            return r["volume_id_locations"][0]["locations"][0]["url"]
+
+        mport_of = dict(zip(urls, vports))
+        m_port = mport_of[holder(fid)]
+        st, _, raw = _http_get(m_port, f"/{fid}?cm=false")
+        chunks = json.loads(raw)["chunks"]
+        where = [holder(c["fid"]) for c in chunks]
+        if len(chunks) != TIER_FILE_BYTES // (TIER_CHUNK_MB * MIB) or len(set(where)) != 2:
+            fail(f"the upload made {len(chunks)} chunks on {sorted(set(where))}")
+        down = os.path.join(root, "down")
+        os.makedirs(down)
+        out, get_wall = _port_cli(["download", "-master", maddr, "-dir", down, fid])
+        with open(os.path.join(down, fid.replace(",", "_")), "rb") as f:
+            if f.read() != data:
+                fail("the downloaded 256 MiB file differs from the uploaded one")
+        cs = TIER_CHUNK_MB * MIB
+        cross = next(k for k in range(len(where) - 1) if where[k] != where[k + 1])
+        ranges = [(cs - 100, cs + 99), (10 * cs + 7, 13 * cs - 3),
+                  ((cross + 1) * cs - 5000, (cross + 1) * cs + 4999)]
+        for lo, hi in ranges:
+            st, hd, got = _http_get(m_port, f"/{fid}", {"Range": f"bytes={lo}-{hi}"})
+            if (st, hd.get("Content-Range"), got) != (
+                    206, f"bytes {lo}-{hi}/{TIER_FILE_BYTES}", data[lo:hi + 1]):
+                fail(f"range {lo}-{hi}: {st} {hd.get('Content-Range')}")
+        st, _, _ = _http_get(m_port, f"/{fid}", method="DELETE")
+        gone = [_http_get(mport_of[w], "/" + c["fid"])[0] for c, w in zip(chunks, where)]
+        if st != 202 or gone != [404] * len(chunks):
+            fail(f"manifest delete: {st}, chunk GETs after it {sorted(set(gone))}")
+        res["chunked"] = {"bytes": TIER_FILE_BYTES, "chunks": len(chunks),
+                          "chunks_per_server": {u: where.count(u) for u in urls},
+                          "upload_wall_s": up_wall, "upload_GBps": TIER_FILE_BYTES / up_wall / 1e9,
+                          "get_wall_s": get_wall, "get_GBps": TIER_FILE_BYTES / get_wall / 1e9,
+                          "walls_note": "the CLI child's wall, its start-up included",
+                          "ranges": ranges, "ranges_equal": True, "cross_server_boundary": cross + 1,
+                          "deleted_chunks_404": len(gone), "d_s": time.perf_counter() - t_d}
+        os.remove(src)
+        shutil.rmtree(down)
+
+        # --- (c) reads across the loss of one replica's server ---
+        signal_path = os.path.join(root, "stop-now")
+        stopped_path = os.path.join(root, "stopped")
+        proc, out_path = _tier_child(work, "failover", [
+            "--addr", maddr, "--n", str(TIER_FAILOVER_READS), "--seeds", seeds_path,
+            "--signal", signal_path, "--stopped", stopped_path,
+            "--stop-after", str(TIER_FAILOVER_STOP_AFTER)], wait=False)
+        t_f = time.perf_counter()
+        while not os.path.exists(signal_path):
+            if proc.poll() is not None or time.perf_counter() - t_f > 300:
+                break
+            time.sleep(0.01)
+        stop_s = _stop_served(served[1], SERVER_STOP_S)
+        stopped = True
+        open(stopped_path, "w").close()
+        try:
+            so, se = proc.communicate(timeout=600)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            fail("the failover reads did not end in 600 s")
+        fo = _tier_result("failover", proc.returncode, se, out_path)
+        if fo["reads_after_stop"] < TIER_AFTER_STOP:
+            fail(f"{fo['reads_after_stop']} reads after the replica's server stopped: {fo}")
+        res["failover"] = {**fo, "stopped": urls[1], "stop_s": stop_s,
+                           "breaker_opens": sum(b["opens"] for b in fo["breakers"].values())}
+    finally:
+        if len(served) > 1 and not stopped:
+            _stop_served(served[1], SERVER_STOP_S)
+        _stop_served(served[0], SERVER_STOP_S)
+    res["kernel_launches"] = {"index_search": IK.KERNEL_LAUNCHES, "ragged_lookup": RL.KERNEL_LAUNCHES}
+    res["phase_s"] = time.perf_counter() - t_phase
+    shutil.rmtree(root, ignore_errors=True)
+    emit(res)
+    return res
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--volume-gib", type=float, default=11.0)
@@ -3534,13 +4146,14 @@ def main() -> int:
         except Exception as e:  # reported below, for every kernel
             errors[name] = str(e)
 
-    threads = [threading.Thread(target=build, args=(k,)) for k in KERNELS]
+    threads = [threading.Thread(target=build, args=(k,)) for k in (*KERNELS, HOST_CRC)]
     for t in threads:
         t.start()
     for t in threads:
         t.join()
     if errors:
         fail(f"kernel build failed: {errors}")
+    crc_check = check_host_crc(crc_mod, args.seed)
     limits = G.kernel_limits()
     IK._kernel_lib()
     RL._kernel_lib()
@@ -3553,6 +4166,7 @@ def main() -> int:
         "seconds": time.perf_counter() - t0,
         "gf256_max_rows": limits[0], "gf256_max_cols": limits[1],
         "gf256_rows_per_launch": limits[2],
+        "host_crc32c": crc_check,
     })
 
     if args.gate_cut_ab:
@@ -3620,10 +4234,7 @@ def main() -> int:
                 "blobs": len(pool),
                 "note": "payloads drawn from a seeded pool whose CRCs are "
                         "computed once",
-                "crc32c": crc_mod.crc32c.__module__ + (
-                    " (google_crc32c)" if hasattr(crc_mod, "_gcrc")
-                    else " (numpy lanes fallback)"
-                ),
+                "crc32c": crc_mod.route(),
             },
             "generate_s": gen_s,
             "rows": {"large": n_large, "small": n_small},
@@ -3842,6 +4453,16 @@ def main() -> int:
                 os.remove(path)
         vacres = phase_vacuum(torch, work, args.seed, vkeep, needle_mod)
         ik_launches["vacuum"] = vacres["kernel_launches"]["index_search"]
+
+        # --- phase 14 ---
+        for fn in os.listdir(work):  # free the earlier phases' disk
+            path = os.path.join(work, fn)
+            if os.path.isdir(path):
+                shutil.rmtree(path)
+            else:
+                os.remove(path)
+        tres = phase_volume_tier(torch, work, args.seed)
+        ik_launches["volume_tier"] = tres["kernel_launches"]["index_search"]
     finally:
         shutil.rmtree(work, ignore_errors=True)
         try:
@@ -3918,12 +4539,14 @@ def main() -> int:
             "replaces": "seaweedfs_tpu/ops/ragged_lookup.py:181 (_ragged_dispatch)",
             "launches": ares["kernel_launches"] + sres["kernel_launches"]["ragged_lookup"]
             + cres["kernel_launches"]["ragged_lookup"]
-            + vacres["kernel_launches"]["ragged_lookup"],
+            + vacres["kernel_launches"]["ragged_lookup"]
+            + tres["kernel_launches"]["ragged_lookup"],
             "launches_by_path": {
                 "arena_gate": ares["kernel_launches"],
                 "volume_server": sres["kernel_launches"]["ragged_lookup"],
                 "cluster": cres["kernel_launches"]["ragged_lookup"],
                 "vacuum": vacres["kernel_launches"]["ragged_lookup"],
+                "volume_tier": tres["kernel_launches"]["ragged_lookup"],
             },
             "equal_to_plain": True,
             "max_abs_err": ares["max_abs_err"],
@@ -3987,4 +4610,6 @@ def main() -> int:
 if __name__ == "__main__":
     if "--client" in sys.argv[1:]:
         sys.exit(client_main(sys.argv[1:]))
+    if "--tier-client" in sys.argv[1:]:
+        sys.exit(tier_client_main(sys.argv[1:]))
     sys.exit(main())

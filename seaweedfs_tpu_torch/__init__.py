@@ -7,9 +7,12 @@ GF(2^8) on a hand-written CUDA kernel; missing shards are rebuilt and
 needles read back with shards missing), the needle-index lookup on two
 hand-written search kernels over every needle-map kind (memory, lsm,
 sqlite "leveldb", sorted), the volume server, the master with the
-cluster's EC path, the EC round trip and mesh plane, and the vacuum plane
+cluster's EC path, the EC round trip and mesh plane, the vacuum plane,
+and the volume tier under the filer (batched chunk writes through the
+group-commit worker, the BatchRead stream, chunked files, count=N assign
+leases and the replica read fan-out with per-peer circuit breakers)
 (`python -m seaweedfs_tpu_torch master|server|volume|shell|benchmark|
-compact`).
+upload|download|compact`).
 
 Entry points run on the card unless the caller asks for the CPU:
 `get_codec()` (backend "cuda"), `CudaRSCodec()`,

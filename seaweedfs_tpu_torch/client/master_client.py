@@ -24,12 +24,18 @@ from ..util.metrics import RETRY_COUNTER
 
 
 class VidMap:
-    """vid -> [urls] with random picking (ref: wdclient/vid_map.go:23-45).
-    The JAX package's data-center-aware ordering (`pick_ordered`) serves
-    the replica read fan-out, which the port does not have yet."""
+    """vid -> [urls] with round-robin-ish random picking
+    (ref: wdclient/vid_map.go:23-45). With a `local_dc` label the map is
+    DC-aware (read affinity): lookup/KeepConnected responses
+    carry each holder's data center, and `pick_ordered` serves same-DC
+    replicas first — remote DCs stay in the order as late hedge targets,
+    never the primary, while any local holder lives."""
 
-    def __init__(self):
+    def __init__(self, local_dc: str = ""):
         self._map: dict[int, list[str]] = {}
+        self._rr: dict[int, int] = {}
+        self.local_dc = local_dc
+        self._dc: dict[str, str] = {}  # url -> data center label
 
     def lookup(self, vid: int) -> list[str]:
         return list(self._map.get(vid, []))
@@ -40,10 +46,46 @@ class VidMap:
             return None
         return random.choice(locs)
 
-    def add(self, vid: int, url: str) -> None:
+    def location_dc(self, url: str) -> str:
+        return self._dc.get(url, "")
+
+    def _is_local(self, url: str) -> bool:
+        dc = self._dc.get(url, "")
+        # unlabeled holders count as local: a cluster that never set DC
+        # labels must keep plain round-robin, not demote everyone
+        return not dc or dc == self.local_dc
+
+    def pick_ordered(self, vid: int) -> list[str]:
+        """All replica locations, rotated round-robin per call: element 0
+        is the primary this read should try, the rest are hedge targets in
+        preference order. Successive calls for one vid walk the replica
+        set so skewed load spreads across holders instead of pinning one
+        server (random `pick` spreads in expectation; round-robin spreads
+        deterministically, which matters when a handful of hot needles
+        dominates the offered load). When this map has a `local_dc`,
+        same-DC holders are served first (rotation preserved within each
+        group) so steady reads never cross the WAN while a local replica
+        lives."""
+        locs = self._map.get(vid)
+        if not locs:
+            return []
+        if len(locs) == 1:
+            return locs  # the live list; callers read, never mutate
+        i = self._rr.get(vid, 0)
+        self._rr[vid] = (i + 1) % len(locs)
+        order = locs[i:] + locs[:i]
+        if self.local_dc and self._dc:
+            near = [u for u in order if self._is_local(u)]
+            if near and len(near) < len(order):
+                order = near + [u for u in order if not self._is_local(u)]
+        return order
+
+    def add(self, vid: int, url: str, data_center: str = "") -> None:
         locs = self._map.setdefault(vid, [])
         if url not in locs:
             locs.append(url)
+        if data_center:
+            self._dc[url] = data_center
 
     def remove(self, vid: int, url: str) -> None:
         locs = self._map.get(vid)
@@ -161,8 +203,9 @@ class MasterClient:
                 return
             url = msg.get("url")
             if url:
+                dc = msg.get("data_center", "")
                 for vid in msg.get("new_vids", []):
-                    self.vid_map.add(int(vid), url)
+                    self.vid_map.add(int(vid), url, dc)
                 for vid in msg.get("deleted_vids", []):
                     self.vid_map.remove(int(vid), url)
             leader = msg.get("leader")
@@ -291,7 +334,9 @@ class MasterClient:
                 except ValueError:
                     continue
                 for loc in r.get("locations", []):
-                    self.vid_map.add(rvid, loc["url"])
+                    self.vid_map.add(
+                        rvid, loc["url"], loc.get("dataCenter", "")
+                    )
         except BaseException as e:
             # BaseException: CancelledError (3.8+) must ALSO resolve the
             # riders — a cancelled batch that strands its futures makes

@@ -7,12 +7,14 @@ cached vid locations and GET. All data-plane requests ride the keep-alive
 FastHTTPClient (benchmark.go:281-311). Latencies land in a 0.1ms-bucket
 histogram with the same percentile table.
 
-Ported from the JAX package's command/benchmark.py. One change: a read
-counts as failed unless its body equals the payload written for that fid
-(the JAX reader checks the status only). Not ported: the replica read
-fan-out (`read_fanout`, client/read_fanout.py), and the write-path
-attribution legs, sub-phase samples and read-only passes that bench.py
-reads from the JAX function.
+Ported from the JAX package's command/benchmark.py, with its count=N
+assign leases (`assign_batch`), the replica read fan-out
+(`read_fanout`, client/read_fanout.py) and read-only passes over an
+earlier run's file ids. One change: a read counts as failed unless its
+body equals the payload written for that fid (the JAX reader checks the
+status only), so `fids_in` carries each fid's payload seed. Not ported:
+the write-path attribution legs and the early/final sub-phase samples
+that bench.py reads from the JAX function.
 """
 
 from __future__ import annotations
@@ -25,7 +27,7 @@ from dataclasses import dataclass, field
 from typing import Optional
 
 from ..client import MasterClient
-from ..client.operation import http_assign
+from ..client.operation import AssignLease, http_assign
 from ..util.fasthttp import FastHTTPClient, build_multipart
 
 
@@ -106,74 +108,117 @@ async def run_benchmark(
     file_size: int = 1024,
     concurrency: int = 16,
     collection: str = "",
+    do_write: bool = True,
     do_read: bool = True,
     stats_out: Optional[dict] = None,
+    fids_in: Optional[dict] = None,
+    assign_batch: int = 1,
+    read_fanout: bool = False,
 ) -> str:
     """Returns the human report; when `stats_out` is given it also receives
     {write_qps, write_failed, read_qps, read_failed, write_stats,
-    read_stats, fids} for machine use. Every write assigns its own file
-    id through `/dir/assign`."""
+    read_stats, fids, seeds, assign_rpcs} for machine use. `fids_in`
+    (the `seeds` of an earlier run: fid -> the payload seed it was
+    written with) seeds the read phase, so read-only passes
+    (do_write=False) re-read a previously written set and check its
+    bodies.
+
+    assign_batch > 1 leases file ids in count=N batches through an
+    AssignLease (the reference benchmark's fid-reuse trick,
+    ref: weed/command/benchmark.go), amortizing the per-write master
+    round-trip to 1/N of a request; `assign_rpcs` counts the assigns.
+
+    read_fanout=True routes reads through client.read_fanout.ReplicaReader
+    — round-robin across replica locations with hedge-on-p99-timeout — so
+    skewed read load spreads across holders instead of pinning one server
+    (stats_out then also carries `read_fanout` hedge counters)."""
     out = []
     mc = MasterClient("benchmark", [master])
     await mc.start()
     try:
         await mc.wait_connected()
-        fids: list[str] = []
         # fid -> the payload seed it was written with (reads check bodies)
-        seeds: dict[str, int] = {}
+        seeds: dict[str, int] = dict(fids_in or {})
+        fids: list[str] = list(seeds)
         http = FastHTTPClient(pool_per_host=concurrency + 4)
-        stats = Stats("Writing Benchmark")
-        # plain deque, not asyncio.Queue: workers only ever pop
-        # synchronously
-        queue: deque = deque(range(num_files))
+        if do_write:
+            stats = Stats("Writing Benchmark")
+            # plain deque, not asyncio.Queue: workers only ever pop
+            # synchronously
+            queue: deque = deque(range(num_files))
 
-        async def writer() -> None:
-            while True:
-                try:
-                    i = queue.popleft()
-                except IndexError:
-                    return
-                t0 = time.perf_counter()
-                try:
-                    ar = await http_assign(http, master, 1, collection)
-                    payload, ctype = build_multipart(
-                        "file", fake_payload(i, file_size)
-                    )
-                    headers = (
-                        {"Authorization": "Bearer " + ar.auth}
-                        if ar.auth
-                        else None
-                    )
-                    st, rbody = await http.request(
-                        "POST",
-                        ar.url,
-                        "/" + ar.fid,
-                        body=payload,
-                        content_type=ctype,
-                        headers=headers,
-                    )
-                    if st >= 300:
-                        raise RuntimeError(f"upload: {st} {rbody[:120]!r}")
-                    stats.record(time.perf_counter() - t0, file_size)
-                    fids.append(ar.fid)
-                    seeds[ar.fid] = i
-                except Exception:
-                    stats.failed += 1
+            async def fetch_lease(count: int):
+                return await http_assign(http, master, count, collection)
 
-        stats.start = time.perf_counter()
-        await asyncio.gather(*(writer() for _ in range(concurrency)))
-        stats.end = time.perf_counter()
-        if stats_out is not None:
-            stats_out["write_qps"] = stats.completed / max(
-                stats.end - stats.start, 1e-9
+            lease = (
+                AssignLease(fetch=fetch_lease, batch=assign_batch)
+                if assign_batch > 1
+                else None
             )
-            stats_out["write_failed"] = stats.failed
-            stats_out["write_stats"] = stats
-        out.append(stats.report(concurrency))
+            assigns = [0]
+
+            async def writer() -> None:
+                while True:
+                    try:
+                        i = queue.popleft()
+                    except IndexError:
+                        return
+                    t0 = time.perf_counter()
+                    try:
+                        if lease is not None:
+                            ar = await lease.take()
+                        else:
+                            assigns[0] += 1
+                            ar = await fetch_lease(1)
+                        payload, ctype = build_multipart(
+                            "file", fake_payload(i, file_size)
+                        )
+                        headers = (
+                            {"Authorization": "Bearer " + ar.auth}
+                            if ar.auth
+                            else None
+                        )
+                        st, rbody = await http.request(
+                            "POST",
+                            ar.url,
+                            "/" + ar.fid,
+                            body=payload,
+                            content_type=ctype,
+                            headers=headers,
+                        )
+                        if st >= 300:
+                            raise RuntimeError(
+                                f"upload: {st} {rbody[:120]!r}"
+                            )
+                        stats.record(time.perf_counter() - t0, file_size)
+                        fids.append(ar.fid)
+                        seeds[ar.fid] = i
+                    except Exception:
+                        stats.failed += 1
+
+            stats.start = time.perf_counter()
+            await asyncio.gather(*(writer() for _ in range(concurrency)))
+            stats.end = time.perf_counter()
+            if stats_out is not None:
+                stats_out["write_qps"] = stats.completed / max(
+                    stats.end - stats.start, 1e-9
+                )
+                stats_out["write_failed"] = stats.failed
+                stats_out["write_stats"] = stats
+                stats_out["assign_rpcs"] = (
+                    lease.assign_rpcs if lease is not None else assigns[0]
+                )
+                stats_out["assign_batch"] = assign_batch
+            out.append(stats.report(concurrency))
 
         if do_read and fids:
             stats = Stats("Randomly Reading Benchmark")
             reads = deque(random.choice(fids) for _ in range(num_files))
+            fan = None
+            if read_fanout:
+                from ..client.read_fanout import ReplicaReader
+
+                fan = ReplicaReader(http, mc.vid_map)
 
             async def reader() -> None:
                 while True:
@@ -183,21 +228,38 @@ async def run_benchmark(
                         return
                     t0 = time.perf_counter()
                     try:
-                        # cache hit normally; falls back to a master RPC
-                        # when the vid cache hasn't learned a
-                        # freshly-grown volume yet. The hit path picks the
-                        # hostport straight from the vid map — building and
-                        # re-splitting a full URL string per read was
-                        # measurable at serving QPS rates.
-                        hostport = mc.vid_map.pick(int(fid.split(",")[0]))
-                        if hostport is None:
-                            url = await mc.lookup_file_id_async(fid)
-                            hostport = url.removeprefix("http://").partition(
-                                "/"
-                            )[0]
-                        st, data = await http.request(
-                            "GET", hostport, "/" + fid
-                        )
+                        if fan is not None:
+                            # replica fan-out: round-robin + p99 hedging
+                            try:
+                                st, data = await fan.read(fid)
+                            except LookupError:
+                                # the vid cache hasn't learned a freshly
+                                # grown volume yet: the same master RPC
+                                # fallback as the plain path, which also
+                                # teaches the vid map for next time
+                                url = await mc.lookup_file_id_async(fid)
+                                hp = url.removeprefix(
+                                    "http://"
+                                ).partition("/")[0]
+                                st, data = await http.request(
+                                    "GET", hp, "/" + fid
+                                )
+                        else:
+                            # cache hit normally; falls back to a master
+                            # RPC when the vid cache hasn't learned a
+                            # freshly-grown volume yet. The hit path picks
+                            # the hostport straight from the vid map.
+                            hostport = mc.vid_map.pick(
+                                int(fid.split(",")[0])
+                            )
+                            if hostport is None:
+                                url = await mc.lookup_file_id_async(fid)
+                                hostport = url.removeprefix(
+                                    "http://"
+                                ).partition("/")[0]
+                            st, data = await http.request(
+                                "GET", hostport, "/" + fid
+                            )
                         if st != 200:
                             raise RuntimeError(f"read {fid}: {st}")
                         if data != fake_payload(seeds[fid], file_size):
@@ -216,8 +278,11 @@ async def run_benchmark(
                 )
                 stats_out["read_failed"] = stats.failed
                 stats_out["read_stats"] = stats
+                if fan is not None:
+                    stats_out["read_fanout"] = fan.stats()
         if stats_out is not None:
             stats_out["fids"] = fids
+            stats_out["seeds"] = seeds
         await http.close()
     finally:
         await mc.stop()

@@ -3,8 +3,9 @@
 Ported from the JAX package's command/cli.py with the commands
 `master`, `volume`, `server` (a master and a volume server in one process,
 on one event loop), `shell` (the semicolon-separated one-shot commands
-given as arguments, else a prompt), `benchmark` and `compact` (an offline
-vacuum of one volume). `-storageBackend` takes `cuda` (the default: the
+given as arguments, else a prompt), `benchmark` (with `-assignBatch`
+leases), `upload` (with `-maxMB` chunking), `download` and `compact` (an
+offline vacuum of one volume). `-storageBackend` takes `cuda` (the default: the
 card, which must be present), `cpu` and `numpy` (the host); `adaptive`
 raises as not ported. `-index` takes `memory`, `leveldb`, `sorted` and
 `lsm`. `-batchLookup` takes `off`, `auto`, `host`, `device` and `arena`.
@@ -22,6 +23,7 @@ from __future__ import annotations
 
 import argparse
 import asyncio
+import os
 import signal
 import sys
 import threading
@@ -272,6 +274,12 @@ def cmd_benchmark(argv: list[str]) -> int:
     p.add_argument("-c", type=int, default=16)
     p.add_argument("-collection", default="")
     p.add_argument("-skipRead", action="store_true")
+    p.add_argument(
+        "-assignBatch", type=int, default=1,
+        help="lease file ids in count=N assign batches (amortizes the "
+        "per-write master round-trip; keep 1 against JWT-secured "
+        "clusters — upload tokens cover the base fid only)",
+    )
     args = p.parse_args(argv)
     from .benchmark import run_benchmark
 
@@ -283,9 +291,84 @@ def cmd_benchmark(argv: list[str]) -> int:
             concurrency=args.c,
             collection=args.collection,
             do_read=not args.skipRead,
+            assign_batch=args.assignBatch,
         )
     )
     print(out, flush=True)
+    return 0
+
+
+def cmd_upload(argv: list[str]) -> int:
+    p = argparse.ArgumentParser(prog="seaweedfs_tpu_torch upload")
+    p.add_argument("-master", default="127.0.0.1:9333")
+    p.add_argument("-collection", default="")
+    p.add_argument("-replication", default="")
+    p.add_argument("-ttl", default="")
+    p.add_argument(
+        "-maxMB",
+        type=int,
+        default=0,
+        help="split larger files into chunks + manifest (0 = never split)",
+    )
+    p.add_argument("files", nargs="+")
+    args = p.parse_args(argv)
+
+    from ..client.operation import submit_file
+    from ..util.fasthttp import FastHTTPClient
+
+    async def go() -> None:
+        http = FastHTTPClient()
+        try:
+            for path in args.files:
+                with open(path, "rb") as f:
+                    data = f.read()
+                fid, result = await submit_file(
+                    http,
+                    args.master,
+                    data,
+                    filename=os.path.basename(path),
+                    collection=args.collection,
+                    replication=args.replication,
+                    ttl=args.ttl,
+                    chunk_size=args.maxMB * 1024 * 1024,
+                )
+                print(f"{path} -> fid {fid} ({result.get('size')} bytes)",
+                      flush=True)
+        finally:
+            await http.close()
+
+    asyncio.run(go())
+    return 0
+
+
+def cmd_download(argv: list[str]) -> int:
+    p = argparse.ArgumentParser(prog="seaweedfs_tpu_torch download")
+    p.add_argument("-master", default="127.0.0.1:9333")
+    p.add_argument("-dir", default=".")
+    p.add_argument("fids", nargs="+")
+    args = p.parse_args(argv)
+
+    from ..client.operation import lookup, read_url
+    from ..util.fasthttp import FastHTTPClient
+
+    async def go() -> None:
+        http = FastHTTPClient()
+        try:
+            for fid in args.fids:
+                vid = int(fid.split(",")[0])
+                locs = await lookup(args.master, vid)
+                if not locs:
+                    print(f"{fid}: volume not found", file=sys.stderr)
+                    continue
+                data = await read_url(http, f"http://{locs[0]}/{fid}")
+                out = os.path.join(args.dir, fid.replace(",", "_"))
+                with open(out, "wb") as f:
+                    f.write(data)
+                print(f"{fid} -> {out} ({len(data)} bytes)", flush=True)
+        finally:
+            await http.close()
+
+    asyncio.run(go())
     return 0
 
 
@@ -315,6 +398,8 @@ COMMANDS = {
     "server": cmd_server,
     "shell": cmd_shell,
     "benchmark": cmd_benchmark,
+    "upload": cmd_upload,
+    "download": cmd_download,
     "compact": cmd_compact,
 }
 

@@ -2,17 +2,21 @@
 
 HTTP (ref: weed/server/volume_server_handlers_{read,write}.go):
   GET/HEAD /{vid},{fid}[/name][.ext]  read (EC volumes with shards
-                                      missing decode on the card)
-  POST/PUT /{vid},{fid}               write
-  DELETE   /{vid},{fid}               delete
+                                      missing decode on the card; a
+                                      chunk manifest reads as its file)
+  POST/PUT /{vid},{fid}               write (`?cm=true` stores a chunk
+                                      manifest, `?fsync=true` goes
+                                      through the group-commit worker)
+  POST     /!batch/put                many needles in one frame
+  DELETE   /{vid},{fid}               delete (a manifest's chunks too)
   GET      /status, /metrics, /debug/needle_map
 
 RPC "volume" service (pb/rpc.py; ref: weed/server/volume_grpc_*.go):
 AllocateVolume, VolumeMount, VolumeUnmount, VolumeDelete,
 VolumeMarkReadonly, VolumeMarkWritable, DeleteCollection, the four
 Vacuum calls (VacuumVolumeCheck, Compact, Commit, Cleanup), BatchDelete,
-BulkLookup, VolumeServerStatus, the CopyFile stream and the EC calls of
-volume_ec.py.
+BulkLookup, VolumeServerStatus, the CopyFile and BatchRead streams and
+the EC calls of volume_ec.py.
 
 Heartbeat loop (ref: weed/server/volume_grpc_client_to_master.go): with
 a master (`master`, the `-mserver` flag) the server keeps a bidi
@@ -36,12 +40,14 @@ is never served around from the host.
 One HTTP server answers every request (util/fasthttp.py): where the JAX
 package's fast tier hands a shape to its aiohttp application, the port
 serves it here, with the same status codes, bodies, Etags and
-Content-Range. Request shapes a later slice ports answer 501
-`{"error": "not ported: ..."}`: chunked manifests, `/!batch/put` and
-`/ui`. Not ported either: the group-commit worker (`?fsync=true` writes
-sync the append itself), tiering, scrub and the lifecycle RPCs,
-the BatchRead, Query, VolumeIncrementalCopy and tier-move streams, and
-the overload, tenancy and fault seams.
+Content-Range. A chunked file's GET is assembled whole (the port's HTTP
+tier writes each response as one piece) from the chunks its range
+covers, local ones through the lookup gate when the server has one.
+`/ui` answers 501 `{"error": "not ported: ..."}`. Not ported either:
+tiering, scrub and the lifecycle RPCs, the Query,
+VolumeIncrementalCopy and tier-move streams, and the overload admission
+gate, tenancy and fault seams: `/!batch/put` reads a tenant-tagged frame
+but charges no quota.
 """
 
 from __future__ import annotations
@@ -49,8 +55,10 @@ from __future__ import annotations
 import asyncio
 import functools as _functools
 import gzip
+import json
 import logging
 import os
+import struct
 import time
 from concurrent.futures import ThreadPoolExecutor
 from typing import Optional
@@ -60,6 +68,7 @@ from ..pb import grpc_address
 from ..pb.rpc import EOF, Service, Stub, serve
 from ..storage import vacuum as vacuum_mod
 from ..storage.file_id import FileId
+from ..storage.group_commit import GroupCommitWorker
 from ..storage.needle import Needle, NotFoundError
 from ..storage.store import Store
 from ..storage.volume import AlreadyDeleted, CookieMismatch, NotFound, Volume
@@ -74,6 +83,7 @@ from ..util.fasthttp import (
     parse_multipart,
     render_response,
 )
+from ..util.http_range import parse_range
 from .serving_core import ServingCore, json_body, not_ported
 from .volume_ec import EcHandlers
 
@@ -242,6 +252,25 @@ def _json(
                            content_type=content_type)
 
 
+def _head_response(length: int, content_type: bytes, extra: bytes) -> bytes:
+    """A 200 answer to HEAD whose Content-Length is what a GET would send
+    (a chunked file's size, not fetched for a HEAD)."""
+    return b"".join((
+        b"HTTP/1.1 200 OK\r\nContent-Type: ", content_type,
+        b"\r\nContent-Length: %d\r\n" % length, extra,
+        b"Connection: keep-alive\r\n\r\n",
+    ))
+
+
+class _ChunkReadFailed(Exception):
+    """A local chunk's lookup answered 404 or 500 (a failed device
+    probe): the chunked file's GET answers with that response."""
+
+    def __init__(self, response: bytes):
+        super().__init__("chunk lookup failed")
+        self.response = response
+
+
 def _make_needle_map_debug(store, arena=None, gate=None, errors=None):
     """/debug/needle_map: per-volume and aggregate bloom-filter economics
     of every LSM map, the arena's residency and dispatch counters, the
@@ -397,6 +426,9 @@ class VolumeServer(EcHandlers):
                 ],
             )
         self.read_cache = HotNeedleCache()
+        # vid -> the group-commit worker of its ?fsync=true writes and
+        # /!batch/put frames, started on first use
+        self._group_committers: dict[int, GroupCommitWorker] = {}
         # vid -> set when its vacuum commit has swapped the new volume in:
         # the commit closes the old volume before the new one opens, so a
         # read of it waits (the reference's reads wait on the volume's
@@ -418,6 +450,32 @@ class VolumeServer(EcHandlers):
         if self._codec is None:
             self._codec = self.make_codec()
         return self._codec
+
+    async def _group_committer(self, vid: int) -> GroupCommitWorker:
+        """vid's worker on the volume the store holds once no vacuum
+        commit is in flight. A worker pinned to a volume the store no
+        longer holds is retired and replaced, so no write or delete goes
+        to a volume a commit closed."""
+        while True:
+            await self._wait_commit(vid)
+            v = self.store.find_volume(vid)
+            if v is None:
+                raise LookupError(f"volume {vid} not found")
+            gc = self._group_committers.get(vid)
+            if gc is None:
+                gc = GroupCommitWorker(v)
+                gc.start()
+                self._group_committers[vid] = gc
+            if gc.volume is v:
+                return gc
+            await self._retire_group_committer(vid)
+
+    async def _retire_group_committer(self, vid: int) -> None:
+        """Stop vid's worker: it is pinned to the volume object a swap
+        closes (the next write starts a worker on the new one)."""
+        gc = self._group_committers.pop(vid, None)
+        if gc is not None:
+            await gc.stop()
 
     def note_device_error(self, op: str, exc: BaseException) -> None:
         """Count a request that failed because device work raised."""
@@ -462,6 +520,7 @@ class VolumeServer(EcHandlers):
         svc.unary("BulkLookup")(self._grpc_bulk_lookup)
         svc.unary("VolumeServerStatus")(self._grpc_status)
         svc.server_stream("CopyFile")(self._grpc_copy_file)
+        svc.server_stream("BatchRead")(self._grpc_batch_read)
         self.register_ec_rpcs(svc)
         self._rpc_server = await serve(grpc_address(self.address), svc)
         self._http_client = FastHTTPClient()
@@ -483,6 +542,8 @@ class VolumeServer(EcHandlers):
                 pass
         if self.lookup_gate is not None:
             self.lookup_gate.close()
+        for vid in list(self._group_committers):
+            await self._retire_group_committer(vid)
         if self._rpc_server is not None:
             await self._rpc_server.stop()
         if self._core is not None:
@@ -586,9 +647,7 @@ class VolumeServer(EcHandlers):
             return await self._answer(self._read(req), head_only)
         if method in ("POST", "PUT"):
             if path == "/!batch/put":
-                return not_ported(
-                    "/!batch/put (batched chunk writes from the filer)"
-                )
+                return await self._batch_put(req)
             return await self._answer(self._write(req))
         if method == "DELETE":
             return await self._answer(self._delete(req))
@@ -787,24 +846,13 @@ class VolumeServer(EcHandlers):
         vid = fid.volume_id
         q = _query(req)
         if self.store.has_volume(vid):
-            await self._wait_commit(vid)
-            v = self.store.find_volume(vid)
-            try:
-                n = await self._read_local(v, vid, fid, head_only)
-            except Exception:
-                if not self._vacuum_swapping(vid, v):
-                    raise
-                # a commit closed this volume mid-read: read the new one
-                await self._wait_commit(vid)
-                n = Needle(id=fid.key)
-                self.store.read_volume_needle(vid, n)
+            n = await self._read_mounted(vid, fid, head_only)
             if isinstance(n, bytes):
                 return n  # the gate's 404, or a device error's 500
             if n.cookie != fid.cookie:
                 return _json(404, {"error": "cookie mismatch"}, head_only)
             if n.is_chunked_manifest() and q.get("cm") != "false":
-                return not_ported("chunked manifests (the chunks may live "
-                                  "on other servers)", head_only)
+                return await self._chunked_manifest_response(req, q, n, ext)
             return self._needle_response(req, q, n, ext)
 
         ev = self.store.find_ec_volume(vid)
@@ -820,8 +868,7 @@ class VolumeServer(EcHandlers):
             if n.cookie != fid.cookie:
                 return _json(404, {"error": "cookie mismatch"}, head_only)
             if n.is_chunked_manifest() and q.get("cm") != "false":
-                return not_ported("chunked manifests (the chunks may live "
-                                  "on other servers)", head_only)
+                return await self._chunked_manifest_response(req, q, n, ext)
             return self._needle_response(req, q, n, ext)
         # not local: redirect via a master lookup (ref :41-53)
         result = await self._lookup_volume(vid)
@@ -834,6 +881,22 @@ class VolumeServer(EcHandlers):
                     head_only=head_only,
                 )
         return _json(404, {"error": "volume not found"}, head_only)
+
+    async def _read_mounted(self, vid: int, fid: FileId, head_only: bool):
+        """`_read_local` of a mounted volume, across a vacuum commit that
+        swaps the volume mid-read."""
+        await self._wait_commit(vid)
+        v = self.store.find_volume(vid)
+        try:
+            return await self._read_local(v, vid, fid, head_only)
+        except Exception:
+            if not self._vacuum_swapping(vid, v):
+                raise
+            # a commit closed this volume mid-read: read the new one
+            await self._wait_commit(vid)
+            n = Needle(id=fid.key)
+            self.store.read_volume_needle(vid, n)
+            return n
 
     async def _read_local(self, v, vid: int, fid: FileId, head_only: bool):
         """The needle of a local volume, or the response bytes of a gate
@@ -921,6 +984,137 @@ class VolumeServer(EcHandlers):
             )
         return respond(200, body, extra)
 
+    # ---------------- chunked-file manifests ----------------
+    @staticmethod
+    def _load_manifest(n: Needle) -> dict:
+        """Manifest JSON from a cm-flagged needle
+        (ref: operation/chunked_file.go LoadChunkManifest)."""
+        body = bytes(n.data)
+        if n.is_compressed():
+            body = gzip.decompress(body)
+        m = json.loads(body)
+        m["chunks"] = sorted(m.get("chunks", []), key=lambda c: c["offset"])
+        return m
+
+    async def _fetch_chunk(
+        self, fid: str, start: int = 0, end: Optional[int] = None
+    ) -> bytes:
+        """Bytes [start, end] (inclusive; None = to the end) of one chunk
+        needle: the local store first (through the lookup gate when the
+        server has one), else via a master lookup with the range
+        forwarded so only the needed slice crosses the network."""
+        f = FileId.parse(fid)
+        vid = f.volume_id
+        if self.store.has_volume(vid):
+            n = await self._read_mounted(vid, f, False)
+            if isinstance(n, bytes):
+                raise _ChunkReadFailed(n)  # the gate's 404 or 500
+            if n.cookie != f.cookie:
+                raise LookupError(f"chunk {fid}: cookie mismatch")
+            body = bytes(n.data)
+            if n.is_compressed():
+                body = gzip.decompress(body)
+            return body[start : None if end is None else end + 1]
+        locs = await self._lookup_volume(vid)
+        if not locs:
+            raise LookupError(f"chunk {fid}: volume not found")
+        headers = None
+        if start != 0 or end is not None:
+            headers = {
+                "Range": f"bytes={start}-{'' if end is None else end}"
+            }
+        status, body, _head = await self._http_client.request_full(
+            "GET", locs[0], "/" + fid, headers=headers
+        )
+        if status not in (200, 206):
+            raise LookupError(f"chunk {fid}: status {status}")
+        if status == 200 and headers:
+            # the server ignored the range: slice locally
+            body = body[start : None if end is None else end + 1]
+        return body
+
+    async def _chunked_manifest_response(
+        self, req, q: dict, n: Needle, ext: str = ""
+    ) -> bytes:
+        """Resolve a chunk manifest into file bytes, honoring single ranges
+        by fetching only the chunks they cover
+        (ref: volume_server_handlers_read.go:170-207 tryHandleChunkedFile)."""
+        try:
+            manifest = self._load_manifest(n)
+        except (ValueError, KeyError, TypeError, OSError):
+            # unreadable manifest: serve the raw needle (ref
+            # tryHandleChunkedFile returns false on a load error)
+            return self._needle_response(req, q, n, ext)
+        total = int(manifest.get("size", 0))
+        ctype = (manifest.get("mime") or "application/octet-stream").encode(
+            "latin1"
+        )
+        extra = (b"Accept-Ranges: bytes\r\nX-File-Store: chunked\r\n"
+                 b'Etag: "%s"\r\n' % n.etag().encode())
+        if req.method == "HEAD":
+            return _head_response(total, ctype, extra)
+        span = parse_range(_header(req, b"range"), total)
+        if span == "invalid-range":
+            return render_response(
+                416, b"", content_type=None,
+                extra=b"Content-Range: bytes */%d\r\n" % total,
+            )
+        start, end = span if span is not None else (0, total - 1)
+        parts = []
+        try:
+            for c in manifest["chunks"]:
+                c_start, c_size = int(c["offset"]), int(c["size"])
+                c_end = c_start + c_size - 1
+                if c_end < start or c_start > end:
+                    continue
+                lo = max(start, c_start) - c_start
+                hi = min(end, c_end) - c_start
+                parts.append(await self._fetch_chunk(c["fid"], lo, hi))
+        except _ChunkReadFailed as e:
+            return e.response
+        if span is not None:
+            extra += b"Content-Range: bytes %d-%d/%d\r\n" % (start, end, total)
+        return render_response(206 if span is not None else 200,
+                               b"".join(parts), content_type=ctype,
+                               extra=extra)
+
+    async def _delete_manifest_chunks(self, n: Needle) -> None:
+        """Fan out deletes of a manifest's chunk needles
+        (ref: volume_server_handlers_write.go DeleteHandler + DeleteChunks)."""
+        try:
+            manifest = self._load_manifest(n)
+        except (ValueError, KeyError, TypeError, OSError):
+            return
+        for c in manifest.get("chunks", []):
+            try:
+                f = FileId.parse(c["fid"])
+                # always through an HTTP DELETE, so the owning server's
+                # replication fan-out runs (a direct store delete would
+                # leave other replicas serving the chunk)
+                locs = await self._lookup_volume(f.volume_id)
+                if self.address in locs or self.public_url in locs:
+                    target = self.address
+                elif locs:
+                    target = locs[0]
+                elif self.store.has_volume(f.volume_id):
+                    target = self.address
+                else:
+                    continue
+                headers = None
+                if self.jwt_signing_key:
+                    # the cascade is server-initiated: sign its own token
+                    from ..util.security import gen_jwt
+
+                    headers = {"Authorization": "Bearer " + gen_jwt(
+                        self.jwt_signing_key, 10, c["fid"]
+                    )}
+                await self._http_client.request(
+                    "DELETE", target, "/" + c["fid"], headers=headers
+                )
+            except Exception as e:
+                # best-effort, matching the reference's async delete
+                _LOG.debug("chunk delete %s failed: %s", c.get("fid"), e)
+
     # ---------------- write (ref volume_server_handlers_write.go) ----------------
     async def _check_write_auth(
         self, req, fid: FileId, q: dict, ctype: bytes = JSON_FULL
@@ -954,8 +1148,6 @@ class VolumeServer(EcHandlers):
         if v is None:
             return _json(404, {"error": f"volume {vid} not found"},
                          content_type=ctype)
-        if q.get("cm") == "true":
-            return not_ported("chunk manifest uploads")
         ct = req.headers.get(b"content-type", b"")
         if ct.startswith(b"multipart/form-data"):
             parsed = parse_multipart(req.body, ct)
@@ -976,6 +1168,9 @@ class VolumeServer(EcHandlers):
             from ..storage.ttl import TTL
 
             n.set_ttl(TTL.read(q["ttl"]))
+        if q.get("cm") == "true":
+            # chunk manifest upload (ref needle_parse_upload.go:177)
+            n.set_is_chunk_manifest()
         needs_fanout = (
             q.get("type") != "replicate"
             and v.super_block.replica_placement.copy_count() > 1
@@ -989,25 +1184,37 @@ class VolumeServer(EcHandlers):
             rep_task = asyncio.ensure_future(
                 self._replicate(req, q, vid, "POST", bytes(n.data))
             )
-        sync = q.get("fsync") == "true"
+        t0 = time.perf_counter()
         try:
-            if rep_task is not None:
+            if q.get("fsync") == "true":
+                # group-commit path: one fsync amortized over concurrent
+                # writers
+                gc = await self._group_committer(vid)
+                _off, size, _unchanged = await gc.write(n)
+            elif rep_task is not None:
                 # off the loop, so the replica POSTs progress meanwhile
                 _off, size, _unchanged = await self.run_blocking(
-                    lambda: self.store.write_volume_needle(vid, n, sync=sync)
+                    self.store.write_volume_needle, vid, n
                 )
             else:
                 _off, size, _unchanged = self.store.write_volume_needle(
-                    vid, n, sync=sync
+                    vid, n
                 )
         except Exception as e:
             # the append may or may not have landed: report, never retry
             if rep_task is not None:
                 rep_task.cancel()
             return _json(500, {"error": str(e)}, content_type=ctype)
+        metrics.WRITE_STAGE_SECONDS.observe(
+            time.perf_counter() - t0, stage="local_append"
+        )
         self.read_cache.invalidate_key(vid, fid.key)
         if rep_task is not None:
+            t1 = time.perf_counter()
             err = await rep_task
+            metrics.WRITE_STAGE_SECONDS.observe(
+                time.perf_counter() - t1, stage="replicate_wait"
+            )
             if err:
                 return _json(500, {"error": err})
         if q or (filename and (
@@ -1021,6 +1228,115 @@ class VolumeServer(EcHandlers):
                 % (filename, size, n.etag())
             ).encode()
         return render_response(201, body, content_type=ctype)
+
+    async def _batch_put(self, req):
+        """Batched multipart-free chunk PUT (POST /!batch/put): one
+        request appends N needles — the write-side sibling of
+        BatchLookupGate/BatchDelete, fed by the filer's chunk-upload
+        gate so concurrent gateway PUTs amortize the per-request HTTP
+        machinery instead of paying a full hop per chunk.
+
+        Plain frame: [u32 count] then per item [u16 fid_len]
+        [u32 body_len][fid][body]. Tenant-tagged frame (high bit of the
+        count word): per item [u16 fid_len][u16 tenant_len]
+        [u32 body_len][fid][tenant][body]. The port has no admission
+        gate, so a member's tenant is read (and must be UTF-8, as the
+        JAX server requires) but no quota is charged to it. Bodies are
+        handed to the needle append as memoryviews into the request
+        body (zero-copy).
+
+        The per-volume groups append through the group-commit worker as
+        whole frames: each frame lands as ONE coalesced .dat extent +
+        ONE .idx extent (Volume.write_needle_batch) inside a shared
+        fsync batch.
+
+        Response: JSON list of {"f": fid, "s": size, "e": etag} or
+        {"f": fid, "err": reason} — items this server can't serve on
+        the fast path (missing volume, replicated placement, read-only
+        volume) report per-item errors and the CLIENT retries them
+        through the single-needle path, so semantics never diverge."""
+        if not self.guard.check_whitelist(req.peer):
+            return render_response(403, b'{"error": "forbidden"}')
+        if self.jwt_signing_key:
+            # per-item tokens can't ride one batch request: a batch
+            # against a signing server must not bypass auth
+            return render_response(401, b'{"error": "unauthorized"}')
+        body = req.body
+        mv = memoryview(body)
+        out: list = []
+        # vid -> [(out slot, fid, needle)] for its group committer
+        groups: dict[int, list] = {}
+        try:
+            (word,) = struct.unpack_from("<I", body, 0)
+            tagged = bool(word & 0x80000000)
+            count = word & 0x7FFFFFFF
+            pos = 4
+            if count > 4096:
+                raise ValueError("batch too large")
+            for _ in range(count):
+                if tagged:
+                    fl, tl, bl = struct.unpack_from("<HHI", body, pos)
+                    pos += 8
+                else:
+                    fl, bl = struct.unpack_from("<HI", body, pos)
+                    tl = 0
+                    pos += 6
+                fid_s = bytes(mv[pos : pos + fl]).decode("latin1")
+                pos += fl
+                if tl:
+                    bytes(mv[pos : pos + tl]).decode("utf-8")
+                pos += tl
+                if pos + bl > len(body):
+                    raise ValueError("truncated batch frame")
+                payload = mv[pos : pos + bl]
+                pos += bl
+                slot = len(out)
+                out.append({"f": fid_s, "err": "unprocessed"})
+                try:
+                    fid = FileId.parse(fid_s)
+                except ValueError as e:
+                    out[slot]["err"] = str(e)
+                    continue
+                vid = fid.volume_id
+                v = self.store.find_volume(vid)
+                if v is None:
+                    out[slot]["err"] = "no volume"
+                    continue
+                if v.super_block.replica_placement.copy_count() > 1:
+                    # the replication fan-out is the single-needle
+                    # path's job; the client retries item-wise
+                    out[slot]["err"] = "replicated"
+                    continue
+                if v.is_read_only():
+                    out[slot]["err"] = "read only"
+                    continue
+                n = Needle(cookie=fid.cookie, id=fid.key, data=payload)
+                groups.setdefault(vid, []).append((slot, fid, n))
+        except (struct.error, ValueError):
+            return render_response(400, b'{"error": "bad batch frame"}')
+
+        async def write_group(vid: int, members: list) -> None:
+            try:
+                gc = await self._group_committer(vid)
+                results = await gc.write_many([n for _s, _f, n in members])
+            except Exception as e:
+                for slot, _fid, _n in members:
+                    out[slot] = {"f": out[slot]["f"], "err": str(e)}
+                return
+            for (slot, fid, n), res in zip(members, results):
+                if isinstance(res, Exception):
+                    out[slot] = {"f": out[slot]["f"], "err": str(res)}
+                    continue
+                _off, size, _unchanged = res
+                self.read_cache.invalidate_key(vid, fid.key)
+                out[slot] = {"f": out[slot]["f"], "s": size, "e": n.etag()}
+
+        if groups:
+            await asyncio.gather(
+                *(write_group(vid, m) for vid, m in groups.items())
+            )
+        metrics.CHUNK_BATCH_PUT_SIZE.observe(count)
+        return render_response(200, json.dumps(out).encode())
 
     async def _delete(self, req):
         fid, _, _ = self._parse_fid_path(req.path)
@@ -1040,12 +1356,24 @@ class VolumeServer(EcHandlers):
                 return _json(404, {"size": 0})
             if check.cookie != fid.cookie:
                 return _json(403, {"error": "cookie mismatch"})
-            if check.is_chunked_manifest():
-                return not_ported("deletes of chunked manifests (their "
-                                  "chunks may live on other servers)")
-            size = self.store.delete_volume_needle(
-                vid, Needle(id=fid.key, cookie=fid.cookie)
-            )
+            if check.is_chunked_manifest() and not is_replicate:
+                # deleting a manifest also deletes its chunk needles; only
+                # the primary fans out, or every replica would re-issue the
+                # whole cascade (ref volume_server_handlers_write.go)
+                await self._delete_manifest_chunks(check)
+                # a vacuum commit may have begun during the cascade's
+                # round trips: the tombstone goes to the volume it swaps in
+                await self._wait_commit(vid)
+                if self.store.find_volume(vid) is None:
+                    return _json(404, {"error": "volume not found"})
+            tomb = Needle(id=fid.key, cookie=fid.cookie)
+            if q.get("fsync") == "true":
+                # the tombstone rides the group commit's fsync, as a
+                # ?fsync=true write does
+                gc = await self._group_committer(vid)
+                size = await gc.delete(tomb)
+            else:
+                size = self.store.delete_volume_needle(vid, tomb)
             self.read_cache.invalidate_key(vid, fid.key)
             if not is_replicate:
                 # as in the JAX package, a replica that fails the delete
@@ -1061,9 +1389,13 @@ class VolumeServer(EcHandlers):
                 return _json(500, {"error": f"{type(e).__name__}: {e}"})
             if check is not None and check.cookie != fid.cookie:
                 return _json(403, {"error": "cookie mismatch"})
-            if check is not None and check.is_chunked_manifest():
-                return not_ported("deletes of chunked manifests (their "
-                                  "chunks may live on other servers)")
+            if (
+                check is not None
+                and check.is_chunked_manifest()
+                and not is_replicate
+            ):
+                # a manifest on an EC volume still owns its chunk needles
+                await self._delete_manifest_chunks(check)
             size = await self.delete_ec_needle(ev, fid.key)
             return _json(202, {"size": size})
         return _json(404, {"error": "volume not found"})
@@ -1213,12 +1545,14 @@ class VolumeServer(EcHandlers):
 
     async def _grpc_volume_unmount(self, req, context) -> dict:
         vid = int(req["volume_id"])
+        await self._retire_group_committer(vid)
         self.store.unmount_volume(vid)
         self.read_cache.invalidate_volume(vid)
         return {}
 
     async def _grpc_volume_delete(self, req, context) -> dict:
         vid = int(req["volume_id"])
+        await self._retire_group_committer(vid)
         # keep_ec_files: EC conversion retires the source volume but the
         # shards at the same base name still need the .vif
         self.store.delete_volume(
@@ -1294,6 +1628,10 @@ class VolumeServer(EcHandlers):
         old_msg = self.store._volume_message(v)
         swapped = self._commits[vid] = asyncio.Event()
         try:
+            # a group committer pinned to the old volume object would
+            # fsync a closed fd after the swap: retire it first (writes
+            # arriving now wait for the swap, then start a new one)
+            await self._retire_group_committer(vid)
             new_v = await self.run_blocking(vacuum_mod.commit_compact, v)
             self._swap_volume(vid, new_v)
             # the swap rewrote the .dat: cached responses must not outlive
@@ -1383,6 +1721,117 @@ class VolumeServer(EcHandlers):
             "sizes": np.ascontiguousarray(sizes, dtype="<u4").tobytes(),
             "found": np.ascontiguousarray(found, dtype=np.uint8).tobytes(),
         }
+
+    async def _grpc_batch_read(self, req, context):
+        """Bulk needle reads: one batched index probe (on the card for 64
+        keys or more, kernel index_search.cu; a failed probe ends the
+        stream with its error, never answered from the host map), then
+        record preads. Yields {key, found[, cookie, data, size]} per
+        probe in order.
+
+        req: {volume_id, keys: <u8-LE bytes | list[int]}
+        """
+        vid = int(req["volume_id"])
+        keys = _decode_keys(req)
+        v = self.store.find_volume(vid)
+        if v is not None:
+            try:
+                offsets, sizes, found = await self.run_blocking(
+                    v.bulk_lookup, keys
+                )
+            except Exception as e:
+                self.note_device_error("batch_read", e)
+                raise
+
+            def read_slice(idxs: list[int]) -> list:
+                # one executor hop per slice of preads, not per needle; a
+                # vacuum commit racing the stream surfaces as a per-key
+                # miss, not a dead stream
+                out = []
+                for i in idxs:
+                    try:
+                        out.append(
+                            v.read_needle_at(int(offsets[i]), int(sizes[i]))
+                        )
+                    except Exception as e:
+                        out.append(e)
+                return out
+
+            # slices are capped by accumulated payload bytes AND key count
+            # so neither large needles nor huge key lists can pile up
+            # unbounded work before the first yield
+            max_slice_bytes = 8 << 20
+            max_slice_keys = 256
+            lo = 0
+            while lo < len(keys):
+                hi = lo
+                span_bytes = 0
+                while (
+                    hi < len(keys)
+                    and hi - lo < max_slice_keys
+                    and (
+                        hi == lo
+                        or span_bytes + int(sizes[hi]) <= max_slice_bytes
+                    )
+                ):
+                    if found[hi]:
+                        span_bytes += int(sizes[hi])
+                    hi += 1
+                idxs = [i for i in range(lo, hi) if found[i]]
+                results = (
+                    await self.run_blocking(read_slice, idxs) if idxs else []
+                )
+                by_idx = dict(zip(idxs, results))
+                for i in range(lo, hi):
+                    key = int(keys[i])
+                    n = by_idx.get(i)
+                    if n is None:
+                        yield {"key": key, "found": False}
+                    elif isinstance(n, Exception):
+                        yield {"key": key, "found": False, "error": str(n)}
+                    else:
+                        yield {
+                            "key": key,
+                            "found": True,
+                            "cookie": n.cookie,
+                            "size": int(sizes[i]),
+                            "data": bytes(n.data),
+                        }
+                lo = hi
+            return
+        ev = self.store.find_ec_volume(vid)
+        if ev is None:
+            yield {"error": f"volume {vid} not found"}
+            return
+        try:
+            offsets, sizes, found = await self.run_blocking(
+                ev.bulk_locate, keys
+            )
+        except Exception as e:
+            self.note_device_error("batch_read", e)
+            raise
+        for i, key in enumerate(keys):
+            if not found[i]:
+                yield {"key": int(key), "found": False}
+                continue
+            try:
+                n = await self.read_ec_needle_at(
+                    ev, int(key), int(offsets[i]), int(sizes[i])
+                )
+            except Exception as e:
+                # one corrupt needle must not kill the whole stream
+                yield {"key": int(key), "found": False, "error": str(e)}
+                continue
+            if n is None:
+                yield {"key": int(key), "found": False}
+                continue
+            yield {
+                "key": int(key),
+                "found": True,
+                "cookie": n.cookie,
+                "size": len(n.data),
+                "data": bytes(n.data),
+            }
 
     async def _grpc_copy_file(self, req, context):
         """Stream a volume file's bytes (ref volume_grpc_copy.go doCopyFile).

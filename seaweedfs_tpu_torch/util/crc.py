@@ -5,14 +5,18 @@ The reference computes CRC32C over the needle data and stores a *masked* value:
 (ref: weed/storage/needle/crc.go:12-25 — klauspost/crc32 Castagnoli table,
 Value() = (c>>15 | c<<17) + 0xa282ead8).
 
-Uses the C-accelerated google-crc32c when present. Without it, short inputs
-take a pure-Python table loop and long ones a lane-parallel numpy form of
-the same table CRC (see _crc32c_lanes), so reading back megabyte needles
-stays in milliseconds on hosts that lack the native package.
+Uses the C-accelerated google-crc32c when present. Without it, the port's
+own host library (ops/csrc/host_crc32c.cu, slicing-by-8, built by nvcc on
+first use like the kernels' libraries) computes it; where that cannot be
+built (no nvcc), short inputs take a pure-Python table loop and long ones
+a lane-parallel numpy form of the same table CRC (see _crc32c_lanes), so
+reading back megabyte needles stays in milliseconds. `route()` says which
+of the three this process uses.
 """
 
 from __future__ import annotations
 
+import ctypes
 import threading
 
 import numpy as np
@@ -117,6 +121,34 @@ def _crc32c_lanes(data, init: int = 0) -> int:
     return (reg ^ int(start[0])) ^ 0xFFFFFFFF
 
 
+def _crc32c_python(data, init: int = 0) -> int:
+    if len(data) < _LANES_MIN_BYTES:
+        return _crc32c_loop(data, init)
+    return _crc32c_lanes(data, init)
+
+
+_NATIVE = None  # crc32c_extend once loaded; False where it cannot be built
+_NATIVE_LOCK = threading.Lock()
+
+
+def _native():
+    """The host library's crc32c_extend, built on first use; False when
+    it cannot be built here (no nvcc), which leaves the Python forms."""
+    global _NATIVE
+    with _NATIVE_LOCK:
+        if _NATIVE is None:
+            try:
+                from ..ops import _build
+
+                fn = _build.load_library("host_crc32c").crc32c_extend
+                fn.restype = ctypes.c_uint32
+                fn.argtypes = [ctypes.c_uint32, ctypes.c_void_p, ctypes.c_size_t]
+                _NATIVE = fn
+            except Exception:
+                _NATIVE = False
+        return _NATIVE
+
+
 try:
     import google_crc32c as _gcrc
 
@@ -128,12 +160,22 @@ try:
             data = np.frombuffer(data, np.uint8)
         return _gcrc.extend(init, data)
 
+    def route() -> str:
+        return "google_crc32c"
+
 except ImportError:
 
     def crc32c(data, init: int = 0) -> int:
-        if len(data) < _LANES_MIN_BYTES:
-            return _crc32c_loop(data, init)
-        return _crc32c_lanes(data, init)
+        fn = _NATIVE if _NATIVE is not None else _native()
+        if not fn:
+            return _crc32c_python(data, init)
+        if type(data) is bytes:
+            return fn(init, data, len(data))
+        view = np.frombuffer(data, np.uint8)  # zero-copy for any buffer
+        return fn(init, view.ctypes.data, view.size)
+
+    def route() -> str:
+        return "native" if (_NATIVE if _NATIVE is not None else _native()) else "python"
 
 
 class CRC:

@@ -11,10 +11,12 @@ bodies, `render_response`, `parse_multipart` and the `DETACHED` /
 `finish_detached` continuation a batch flush writes its responses from.
 Left out with the fallback: the proxy to the second app; the overload
 admission, tenancy and fault seams. The outbound keep-alive client
-(`FastHTTPClient`) is the JAX one without its circuit breakers,
-Retry-After bookkeeping, retry budget deposits and trace and tenant
-headers: the replication fan-out, the not-local redirect's clients, the
-`client/` operations and `benchmark` ride it.
+(`FastHTTPClient`) is the JAX one with its per-peer circuit breakers
+(util/overload.py), Retry-After bookkeeping (`parse_retry_after`,
+`retry_after_remaining`) and retry budget deposits, without its trace
+and tenant headers: the replication fan-out, the not-local redirect's
+clients, the `client/` operations, the replica read fan-out and
+`benchmark` ride it.
 
 Design rules:
 - parsing is bytes-only and allocation-light: no multidicts, no URL
@@ -30,6 +32,7 @@ import time
 from collections import deque
 from typing import Awaitable, Callable, Optional
 
+from . import overload
 from .backoff import shared_retry_budget
 
 DETACHED = object()  # sentinel: "the handler will write the response itself
@@ -747,6 +750,30 @@ def response_header(head: bytes, name: bytes) -> str:
     return ""
 
 
+def parse_retry_after(raw: bytes) -> Optional[float]:
+    """Seconds from a Retry-After header value: the delta-seconds form,
+    or the IMF-fixdate form (RFC 9110 §10.2.3). None when unparseable.
+    Only consulted on 503/429 responses."""
+    try:
+        return float(raw)
+    except ValueError:
+        pass
+    try:
+        from email.utils import parsedate_to_datetime
+
+        dt = parsedate_to_datetime(raw.decode("latin1").strip())
+    except (TypeError, ValueError, IndexError, UnicodeDecodeError):
+        return None
+    if dt is None:
+        return None
+    if dt.tzinfo is None:
+        # obsolete asctime form carries no zone: the RFC says GMT
+        from datetime import timezone
+
+        dt = dt.replace(tzinfo=timezone.utc)
+    return max(0.0, dt.timestamp() - time.time())
+
+
 class FastHTTPClient:
     """Keep-alive HTTP/1.1 client pool. request() -> (status, body).
 
@@ -754,11 +781,41 @@ class FastHTTPClient:
     by Content-Length. Responses without a Content-Length are read to EOF
     and the connection retired. Every request carries a deadline (default
     30 s; timeout=None only for streaming shapes); a stale pooled
-    connection gets one retry on a fresh one within the same deadline."""
+    connection gets one retry on a fresh one within the same deadline.
+
+    Every request consults the peer's circuit breaker (util/overload.py:
+    an open breaker raises CircuitOpenError in microseconds instead of
+    burning the timeout) and records its outcome there; 503/429
+    ``Retry-After`` hints are kept for `retry_after_remaining(hostport)`,
+    so retry loops sleep at least as long as the peer asked."""
 
     def __init__(self, pool_per_host: int = 32):
         self._pool: dict = {}
         self._limit = pool_per_host
+        self._breakers: dict = {}  # hostport -> CircuitBreaker | None
+        self._retry_after: dict = {}  # hostport -> monotonic deadline
+
+    def _breaker(self, hostport: str):
+        try:
+            return self._breakers[hostport]
+        except KeyError:
+            br = self._breakers[hostport] = overload.peer_breaker(hostport)
+            return br
+
+    def note_retry_after(self, hostport: str, seconds: float) -> None:
+        self._retry_after[hostport] = time.monotonic() + seconds
+
+    def retry_after_remaining(self, hostport: str) -> float:
+        """Seconds the peer asked us to stay away (0 when none/expired)
+        — retry loops pass this as retry_async's delay_floor."""
+        t = self._retry_after.get(hostport)
+        if t is None:
+            return 0.0
+        rem = t - time.monotonic()
+        if rem <= 0:
+            del self._retry_after[hostport]
+            return 0.0
+        return rem
 
     async def _get(
         self, hostport: str, timeout: Optional[float] = None
@@ -819,13 +876,27 @@ class FastHTTPClient:
     ) -> tuple[int, bytes, bytes]:
         """(status, body, response head) of one request."""
         t0 = time.monotonic()
+        br = self._breaker(hostport)
+        if br is not None and not br.allow():
+            raise overload.CircuitOpenError(
+                f"circuit open to {hostport} (peer failing/shedding)"
+            )
         left = timeout
         try:
             conn = await self._get(hostport, left)
-        except asyncio.TimeoutError as e:
-            raise TimeoutError(
-                f"connect to {hostport} exceeded {timeout}s deadline"
-            ) from e
+        except asyncio.CancelledError:
+            if br is not None:
+                br.record_cancelled()
+            raise
+        except (OSError, asyncio.TimeoutError) as e:
+            # connect refused or timed out: the dead-peer signal
+            if br is not None:
+                br.record_failure()
+            if not isinstance(e, OSError):
+                raise TimeoutError(
+                    f"connect to {hostport} exceeded {timeout}s deadline"
+                ) from e
+            raise
         if (
             not body and not content_type and not headers
             and method == "GET"
@@ -857,19 +928,33 @@ class FastHTTPClient:
                 th = conn._loop.call_later(left, _fire_timeout, conn, left)
             status, resp_body, reusable, head = await fut
         except asyncio.CancelledError:
+            # a cancelled request (a hedged read losing its race) leaves
+            # the response half-read: the connection dies, and a held
+            # half-open probe slot goes back to the breaker
             conn.transport.close()
+            if br is not None:
+                br.record_cancelled()
             raise
         except TimeoutError:
+            # the deadline fired (TimeoutError is an OSError: this arm
+            # comes first); not retried
+            if br is not None:
+                br.record_failure()
             raise
         except (ConnectionError, asyncio.IncompleteReadError, OSError):
             conn.transport.close()
             if retried:
+                if br is not None:
+                    br.record_failure()
                 raise
             # stale pooled connection: one retry on a fresh one, within
-            # the remaining deadline
+            # the remaining deadline; a held half-open probe slot goes
+            # back first so the retry becomes the probe
             if th is not None:
                 th.cancel()
                 th = None
+            if br is not None:
+                br.record_cancelled()
             if timeout is not None:
                 left = max(0.001, timeout - (time.monotonic() - t0))
             return await self.request_full(
@@ -883,11 +968,23 @@ class FastHTTPClient:
             self._put(hostport, conn)
         else:
             conn.transport.close()
-        # every completed response is successful traffic for the shared
-        # retry budget: successes deposit its ratio and failures withdraw
-        # one, so retries stay capped at a fraction of real throughput
-        # and the budget refills as soon as peers answer again
-        shared_retry_budget().on_success()
+        if status in (503, 429):
+            raw = response_header(head, b"retry-after")
+            retry_after = parse_retry_after(raw.encode("latin1")) if raw else None
+            if retry_after is not None:
+                self.note_retry_after(hostport, retry_after)
+            if br is not None:
+                br.record_shed(retry_after)
+        else:
+            if br is not None:
+                # any completed response (404s included) proves the peer
+                # is up; only transport failures and sheds count against it
+                br.record_success()
+            # every completed response is successful traffic for the
+            # shared retry budget: successes deposit its ratio and
+            # failures withdraw one, so retries stay capped at a fraction
+            # of real throughput and the budget refills as peers answer
+            shared_retry_budget().on_success()
         return status, resp_body, head
 
     async def close(self):

@@ -116,8 +116,9 @@ class Registry:
     def gauge(self, name: str, help_text: str = "") -> Gauge:
         return self._add(Gauge(name, help_text))
 
-    def histogram(self, name: str, help_text: str = "") -> Histogram:
-        return self._add(Histogram(name, help_text))
+    def histogram(self, name: str, help_text: str = "",
+                  buckets=None) -> Histogram:
+        return self._add(Histogram(name, help_text, buckets))
 
 
 REGISTRY = Registry()
@@ -200,6 +201,38 @@ DEVICE_ERRORS = REGISTRY.counter(
 EC_RECONSTRUCTIONS = REGISTRY.counter(
     "seaweedfs_tpu_ec_reconstructions_total",
     "EC degraded-read interval reconstructions by kind (cold/cache_hit)",
+)
+
+# the write path (storage/group_commit.py, server/volume.py): per-stage
+# walls and the group-commit worker's batches
+WRITE_STAGE_SECONDS = REGISTRY.histogram(
+    "seaweedfs_tpu_write_stage_seconds",
+    "volume write path stage wall time, by stage",
+)
+GROUP_COMMIT_BATCH_SIZE = REGISTRY.histogram(
+    "seaweedfs_tpu_group_commit_batch_size",
+    "requests per group-commit fsync batch",
+    buckets=[1, 2, 4, 8, 16, 32, 64, 128],
+)
+GROUP_COMMIT_FSYNCS = REGISTRY.counter(
+    "seaweedfs_tpu_group_commit_fsyncs_total",
+    "group-commit batches flushed (one fsync each)",
+)
+CHUNK_BATCH_PUT_SIZE = REGISTRY.histogram(
+    "seaweedfs_tpu_chunk_batch_put_size",
+    "needles per batched fast-tier chunk PUT (POST /!batch/put — the "
+    "filer upload gate's same-tick coalescing width)",
+    buckets=[1, 2, 4, 8, 16, 32, 64],
+)
+
+# per-peer circuit breakers (util/overload.py)
+CIRCUIT_TRANSITIONS = REGISTRY.counter(
+    "seaweedfs_tpu_circuit_transitions_total",
+    "circuit-breaker state transitions, by peer and target state",
+)
+CIRCUIT_OPEN = REGISTRY.gauge(
+    "seaweedfs_tpu_circuit_open",
+    "1 while a peer's circuit breaker is open (calls fail fast)",
 )
 
 # retries (util/backoff.py): attempts by operation, and the retries the

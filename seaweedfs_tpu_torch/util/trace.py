@@ -1,12 +1,13 @@
-"""The two tracing hooks the lookup gate calls, from the JAX package's
+"""The tracing hooks the ported modules call, from the JAX package's
 util/trace.py.
 
 `current_sampled()` returns the sampled span context of the running
-request, and `batch_span()` the span a batch flush records linked to its
-members. The port has no request entry point that starts a trace yet
-(that comes with its servers), so no request is ever sampled:
-`current_sampled` returns None and `batch_span` the shared no-op span,
-which costs the gate nothing.
+request, `batch_span()` the span a batch flush records linked to its
+members, and `flag()` marks the running trace for the tail sampler (a
+hedge, a retry). The port has no request entry point that starts a
+trace yet, so no request is ever sampled: `current_sampled` returns
+None, `batch_span` the shared no-op span and `flag` does nothing, which
+costs the gate, the group-commit worker and the read fan-out nothing.
 """
 
 from __future__ import annotations
@@ -25,6 +26,17 @@ class _NullSpan:
 
 
 NULL_SPAN = _NullSpan()
+
+# promotion flags (the JAX module's values)
+FLAG_ERROR = 1
+FLAG_RETRY = 2
+FLAG_HEDGE = 4
+FLAG_FAULT = 8
+FLAG_SHED = 16
+
+
+def flag(bits: int) -> None:
+    """Mark the running trace for the tail sampler; nothing samples yet."""
 
 
 def current_sampled():

@@ -459,8 +459,6 @@ def test_not_ported_shapes_answer_501(tmp_path):
             assert await stub.call("AllocateVolume", {"volume_id": 9}) == {}
             out = []
             for method, path, data, q in (
-                ("POST", "/" + str(FileId(9, 1, 1)), b"x", "?cm=true"),
-                ("POST", "/!batch/put", b"", ""),
                 ("GET", "/ui", b"", ""),
                 ("GET", "/debug/pprof/profile", b"", ""),
                 ("GET", "/debug/traces", b"", ""),
@@ -477,7 +475,7 @@ def test_not_ported_shapes_answer_501(tmp_path):
         finally:
             await pvs.stop()
 
-    assert _run(body()) == [(501, True)] * 6
+    assert _run(body()) == [(501, True)] * 4
 
 
 def test_device_failure_is_a_counted_500(tmp_path, monkeypatch):
