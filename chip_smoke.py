@@ -3,7 +3,7 @@
 
 Drives the port's paths through the entry points a volume server
 calls, at full width, then through the port's volume server, its cluster,
-its mesh plane and the volume tier under the filer, and holds each CUDA
+its mesh plane, the volume tier under the filer and the filer, and holds each CUDA
 kernel against its plain PyTorch version: warm-storage erasure coding
 (gf_matmul, and gf_verify for the mesh's parity check) and the
 needle-index lookup (index_search, ragged_lookup, and the mesh lookup's
@@ -47,8 +47,8 @@ index_buckets and bucket_search):
   8  index_kernel (one full volume's index, 29,565,112 entries): 10,000,000
      probes through index_search against its plain version and
      torch.searchsorted, with times and the bound; edge-case tables too
-  9  arena_gate: 4 LSM maps of 1,048,576 entries (5 runs + a memtable tail
-     each) resident in the arena; >= 200,000 probes through
+  9  arena_gate: 4 LSM maps of 262,144 entries (5 runs + a memtable tail
+     each; cut from 1,048,576, the line says why) resident in the arena; >= 200,000 probes through
      BatchLookupGate at concurrency 256 with the identity check; then
      ragged_lookup against its plain version at the gate's batch and at
      65,536 probes
@@ -129,7 +129,8 @@ index_buckets and bucket_search):
      of its needles deleted (garbage level >= 0.3). 13a: compact2 and
      commit on clones of it: the memory map on each copy route (pread,
      mmap) and through `python -m seaweedfs_tpu_torch compact`, lsm and
-     leveldb; each new .dat and .idx held to the script's own plain
+     leveldb (the first clone of the whole volume, the others of a prefix
+     of it: its first eighth of .idx rows with their later tombstones); each new .dat and .idx held to the script's own plain
      reference (the old .idx folded with numpy, the live records read at
      their old offsets: the super block with revision + 1, then the
      padded live records in offset order; the .idx in key order);
@@ -139,9 +140,10 @@ index_buckets and bucket_search):
      probe on the memory map, the first 16,384 on the others); 65,536
      probes through index_search against its plain version on the card.
      13b: `server -index lsm -batchLookup arena -storageBackend cuda
-     -garbageThreshold 0.3` on a copy of the volume before the deletes,
-     10,000 warm-up GETs at concurrency 512, the same deletes through
-     BatchDelete RPCs of 10,000 fids, then `shell "lock; volume.vacuum
+     -garbageThreshold 0.3` on a copy of the volume taken before the last
+     40,000 deletes (the cut is in the line), 10,000 warm-up GETs at
+     concurrency 512, those deletes through BatchDelete RPCs of 10,000
+     fids, then `shell "lock; volume.vacuum
      -garbageThreshold 0.3; unlock"` while a child client keeps GETs at
      concurrency 256 running over live, deleted and absent keys (0 wrong
      bodies, 0 5xx); after the commit a re-warm and 50,000 GETs with the
@@ -172,6 +174,39 @@ index_buckets and bucket_search):
      every chunk answers 404. Children of this script (`--tier-client
      MODE`) are the load clients. The counts of (a) and (c) are cut from
      `weed benchmark -n 1048576`, and the line says why.
+ 15  the filer on the card: `filer -store <work>/filer.lsm -metaLog
+     <work>/mlog -replication 000` through the CLI's entry function on its
+     own event-loop thread (its meta gate at the default, `device`: K2 on
+     the process's arena, the identity check on), over `server -index lsm
+     -batchLookup arena` in a child process started during phase 14 (its
+     own interpreter, so the filer keeps this one);
+     `weed benchmark -size 1024` bodies as files /bench/d<i // 1024>/f<i>
+     (one 4 MiB chunk each). (b) PUTs at c=16 (chunks through the
+     ChunkUploadGate and /!batch/put, creates through MetaWriteGate, their
+     spines through the meta gate), 1 % of them again (the old chunks are
+     freed), a multipart POST and a 2-chunk file; (c) 4,096 warm-up GETs,
+     then every file plus 10 % absent paths at c=256, each body held to
+     what was written and each absent path to 404 (K2 must launch; from the
+     warm-up's end no host fallback, identity mismatch, arena or device
+     error; memtable hits are counted apart); (d) every directory listed
+     through the directory JSON and ListEntries, paged, against the
+     script's record, then AtomicRenameEntry of a directory and GETs of its
+     files under the new path; (e) DELETE of 1 % of the files and of one
+     directory recursively: the paths answer 404, and once the GC loop has
+     drained every freed chunk (overwritten ones too) answers 404 at the
+     volume; (f) the filer stopped within 10 s and started again on the
+     same store and meta-log (a copy of the store taken while it served
+     replays its WAL), 10,000 GETs equal to the record after a warm-up (K2
+     must launch), SubscribeMetadata from 0 with one event per create,
+     update, rename and delete above; (g) ragged_lookup against its plain
+     version on the filer's own generation at the meta gate's largest flush
+     and at 65,536 probes (hits, misses, paths deleted in the memtable),
+     its device ms from the profiler beside its bytes bound (the phase fails
+     if the profiler records none; these launches are not the path's and
+     are not counted); then 4,096 GETs under the profiler (K2's device ms a
+     launch, the card's busy share; their launches are counted). Children of this script
+     (`--filer-client MODE`) are the load clients; the file count is cut
+     from 1,048,576, and the line says why.
 
 Each phase prints one JSON line; any mismatch or exception exits non-zero
 without the final line. The line before last but one is the kernels
@@ -226,7 +261,14 @@ DEGRADED_LOST = (1, 5, 11, 12)
 SAMPLED_READS = 1000  # seeded needles read with DEGRADED_LOST gone
 
 
+T_START = time.perf_counter()
+
+
 def emit(obj: dict) -> None:
+    """One JSON line; a phase's line also says when it ended (`at_s`, the
+    seconds since this script started)."""
+    if "phase" in obj:
+        obj = {**obj, "at_s": time.perf_counter() - T_START}
     print(json.dumps(obj), flush=True)
 
 
@@ -539,38 +581,46 @@ def cuda_median_ms(torch, fn, reps: int, warm: int = 3) -> float:
     return times[len(times) // 2]
 
 
-def profile_device(torch, fn) -> dict:
-    """Run fn() under torch.profiler (device activity only) and read the
-    device's busy time: the sum of the self device times of every kernel
-    and copy, and per kernel name its launches and mean device ms. Keys
-    are None when the profiler records no device time."""
+def profile_device(torch, fn, cpu: bool = False) -> dict:
+    """Run fn() under torch.profiler (device activity only, or host and
+    device with `cpu`) and read the device's busy time: the sum of the self
+    device times of every kernel and copy, and per kernel name its launches
+    and mean device ms. Keys are None when the profiler records no device
+    time; `top` names the events of most device time either way."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA] if cpu else [ProfilerActivity.CUDA]
+    with profile(activities=acts) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     busy_us = 0.0
     kernels = {}
+    top = []
     for ev in prof.key_averages():
         self_us = getattr(ev, "self_device_time_total", None)
         if self_us is None:
             self_us = getattr(ev, "self_cuda_time_total", 0.0)
         busy_us += self_us
+        if self_us > 0:
+            top.append((self_us, ev.key[:80], ev.count))
         for name in ("index_search_kernel", "ragged_lookup_kernel", "gf_matmul_kernel"):
             if name in ev.key and ev.count:
                 k = kernels.setdefault(name, [0, 0.0])
                 k[0] += ev.count
                 k[1] += self_us / 1e3
+    top = [{"name": k, "count": c, "us": us} for us, k, c in sorted(top, reverse=True)[:4]]
     if busy_us <= 0:
-        return {"wall_s": wall, "device_busy_s": None, "busy_share": None, "kernels": None}
+        return {"wall_s": wall, "device_busy_s": None, "busy_share": None, "kernels": None,
+                "top": top}
     return {
         "wall_s": wall,
         "device_busy_s": busy_us / 1e6,
         "busy_share": busy_us / 1e6 / wall,
         "kernels": {k: {"launches": c, "mean_ms": ms / c} for k, (c, ms) in kernels.items()},
+        "top": top,
     }
 
 
@@ -586,6 +636,58 @@ def kernel_device_ms(torch, fn, name: str, reps: int):
         return None
     k = (prof["kernels"] or {}).get(name)
     return k["mean_ms"] if k else None
+
+
+def _on_worker_stream(torch, fn, reps: int) -> None:
+    """reps calls of fn() from a new thread on a stream of its own (as a
+    server's executor thread launches), joined."""
+    err = []
+
+    def run():
+        try:
+            s = torch.cuda.Stream()
+            with torch.cuda.stream(s):
+                for _ in range(reps):
+                    fn()
+            s.synchronize()
+        except BaseException as e:  # raised again on the caller's thread
+            err.append(e)
+
+    t = threading.Thread(target=run)
+    t.start()
+    t.join()
+    if err:
+        raise err[0]
+
+
+def profiled_kernel_ms(torch, fn, name: str, reps: int) -> tuple:
+    """Mean device ms of one launch of kernel `name`, from the profiler,
+    over `reps` calls of fn(): launched from this thread, then from a
+    worker thread on its own stream, then from this thread with host
+    activity recorded too, until one reading names the kernel. -> (ms,
+    the way that read it, the readings that did not); fails when none
+    does, so that no other clock stands in for the profiler's. (A short
+    reading can come back empty: late in a whole run, 50 launches of
+    ragged_lookup left no record where 1,000 did.)"""
+    ways = (
+        ("this thread", lambda: profile_device(torch, lambda: [fn() for _ in range(reps)])),
+        ("a worker thread's stream",
+         lambda: profile_device(torch, lambda: _on_worker_stream(torch, fn, reps))),
+        ("this thread, host activity too",
+         lambda: profile_device(torch, lambda: [fn() for _ in range(reps)], cpu=True)),
+    )
+    missed = []
+    for way, read in ways:
+        try:
+            prof = read()
+        except Exception as e:
+            missed.append({"way": way, "error": str(e)[:300]})
+            continue
+        k = (prof["kernels"] or {}).get(name)
+        if k:
+            return k["mean_ms"], way, missed
+        missed.append({"way": way, "device_busy_s": prof["device_busy_s"], "top": prof["top"]})
+    fail(f"the profiler recorded no {name} launch: {missed}")
 
 
 def unique_sector_bytes(torch, rows, row_bytes: int) -> int:
@@ -961,8 +1063,17 @@ def phase_index_kernel(torch, seed: int, keep: dict) -> dict:
 
 # --- phase 9 -----------------------------------------------------------------
 ARENA_VOLUMES = 4
-ARENA_ENTRIES = 1 << 20
-ARENA_MEMTABLE = 200_000  # entries: 5 sealed runs and a 48,576-entry tail
+ARENA_ENTRIES = 1 << 18
+ARENA_MEMTABLE = 50_000  # entries: 5 sealed runs and a 12,144-entry tail
+ARENA_CUTS = {
+    "entries_per_volume": {
+        "from": 1 << 20, "to": ARENA_ENTRIES,
+        "why": "time for phase 15 within the script's 1,200 s, with room for a host 1.36x slower: the build of the four maps "
+               "took 34.2 s of a run of the whole script on an NVIDIA H100 80GB HBM3 at "
+               "700.00 W; each map "
+               "keeps 5 sealed runs (now of 50,000 entries) and a memtable tail, and the "
+               "gate's probes, the identity check and K2's two comparisons stay"},
+}
 GATE_PROBES = 200_000
 GATE_CONCURRENCY = 256
 
@@ -1159,6 +1270,7 @@ def phase_arena_gate(torch, work: str, seed: int) -> dict:
             v.nm.close()
     res = {
         "phase": "arena_gate",
+        "cuts": ARENA_CUTS,
         "volumes": ARENA_VOLUMES,
         "entries_per_volume": ARENA_ENTRIES,
         "runs": runs,
@@ -1212,11 +1324,11 @@ SERVER_STOP_S = 10
 AB_READS = 25_000  # GETs per pass of --gate-cut-ab
 
 
-def _port_pair(taken: set) -> int:
-    """A free port whose +10000 (the RPC port) is free too."""
+def _port_pair(taken: set, start: int = 20000) -> int:
+    """A free port whose +10000 (the RPC port) is free too, from `start`."""
     import socket
 
-    for cand in range(20000, 30000):
+    for cand in range(start, 30000):
         if cand in taken:
             continue
         try:
@@ -3040,6 +3152,9 @@ VACUUM_STASH = "vacuum-src"  # phase 7's volume, kept for phase 13
 VACUUM_THRESHOLD = 0.3
 VACUUM_DELETE_SHARE = 0.35
 BATCH_DELETE_FIDS = 10_000
+# 13b: the last 40,000 of the deletes go through BatchDelete, the others
+# are on the copy the server opens (VACUUM_CUTS)
+VACUUM_RPC_DELETES = 4 * BATCH_DELETE_FIDS
 VACUUM_RACE_CONCURRENCY = 256
 VACUUM_AFTER_READS = 50_000
 VACUUM_PLAIN_PROBES = 65_536
@@ -3049,6 +3164,28 @@ VACUUM_PLAIN_PROBES = 65_536
 # answers are held to all of them and to the plain reference
 HOST_MAP_SAMPLE = 16_384
 VACUUM_READ_BACK = 1_000
+# 13a: the first clone compacts the whole volume; the others a prefix of
+# it (its first eighth of the .idx rows and their later tombstones)
+VACUUM_PREFIX_SHARE = 1 / 8
+VACUUM_CUTS = {
+    "clones_after_the_first": {
+        "from": "the whole volume (1,048,576 needles, 35 % deleted)",
+        "to": "its first 131,072 .idx rows and their later tombstones",
+        "why": "time for phase 15 within the script's 1,200 s, with room for a host 1.36x slower: in a run of the whole script "
+               "on an NVIDIA H100 80GB HBM3 at 700.00 W 13a took 136.6 s, 62.5 s of it the leveldb "
+               "clone (its map's load 33.5 s) and 25.5 s the mmap, cli and lsm clones; "
+               "every kind, route, check and kernel launch stays"},
+    "batch_delete_fids": {
+        "from": "every delete (367,001 fids)",
+        "to": f"the last {VACUUM_RPC_DELETES:,}, in {VACUUM_RPC_DELETES // BATCH_DELETE_FIDS} "
+              "BatchDelete RPCs of 10,000; the others are made on the volume before "
+              "the server opens it, as 13a makes them",
+        "why": "time for phase 15 within the script's 880 s: in a run of the whole script on "
+               "an NVIDIA H100 80GB HBM3 at 700.00 W the RPCs took 39.2 s (9,400 deletes/s, "
+               "the server's per-fid Python), 13a's deletes on the volume 14.2 s; the "
+               "server still holds the same tombstones, the same garbage level and every "
+               "check after them"},
+}
 # (clone, needle map kind, copy route): "cli" is `python -m
 # seaweedfs_tpu_torch compact`, None the calibrated route
 VACUUM_CLONES = (("memory_pread", "memory", "pread"), ("memory_mmap", "memory", "mmap"),
@@ -3111,6 +3248,40 @@ def _expected_compaction(base: str) -> dict:
     return {"keys": keys, "old_units": old_units, "new_units": new_units, "sizes": sizes,
             "dat_size": len(sb) + int(rec.sum()), "dat_sha1": h.hexdigest(),
             "idx_bytes": idx.tobytes(), "live_bytes": int(rec.sum())}
+
+
+def _prefix_volume(base: str, dst: str, rows: int) -> int:
+    """A smaller volume of the same shape at `dst`, with numpy alone: the
+    first `rows` .idx rows of `base` and the .dat up to the record of the
+    next row (records and rows are appended in the same order), then the
+    tombstone records `base` appended later for keys of that prefix, copied
+    after it with their rows. -> (the prefix's distinct keys, those of
+    them written again after the prefix: their bodies differ there)."""
+    import numpy as np
+
+    raw = np.fromfile(base + ".idx", dtype=np.uint8).reshape(-1, 16)
+    offs = raw[:, 8:12].copy().view(">u4").ravel().astype(np.int64)
+    sizes = raw[:, 12:].copy().view(">u4").ravel().astype(np.int64)
+    keys = raw[:, :8].copy().view(">u8").ravel()
+    end = int(offs[rows]) * 8
+    later = np.arange(rows, len(keys))
+    tomb = later[(sizes[later] == 0xFFFFFFFF) & np.isin(keys[later], keys[:rows])]
+    tomb_rec = 32  # a version-3 record of no data: 16 + 4 + 8, padded to 8
+    mm = np.memmap(base + ".dat", dtype=np.uint8, mode="r")
+    with open(dst + ".dat", "wb") as f:
+        f.write(mm[:end].tobytes())
+        for r in tomb.tolist():
+            f.write(mm[offs[r] * 8: offs[r] * 8 + tomb_rec].tobytes())
+    del mm
+    moved = raw[tomb].copy()
+    moved[:, 8:12] = ((end + tomb_rec * np.arange(len(tomb))) // 8).astype(">u4") \
+        .view(np.uint8).reshape(-1, 4)
+    with open(dst + ".idx", "wb") as f:
+        f.write(raw[:rows].tobytes())
+        f.write(moved.tobytes())
+    again = later[(sizes[later] != 0xFFFFFFFF) & np.isin(keys[later], keys[:rows])]
+    return (np.unique(keys[:rows]).astype(np.uint64),
+            np.unique(keys[again]).astype(np.uint64))
 
 
 def _expect_lookup(exp: dict, units_key: str, probes):
@@ -3178,8 +3349,8 @@ def phase_vacuum(torch, work: str, seed: int, keep: dict, needle_mod) -> dict:
     bulk_lookup before and after the commit (and on a read-only sorted
     load) held to it and to the host map. 13b, the server: `server -index
     lsm -batchLookup arena -storageBackend cuda -garbageThreshold 0.3` on
-    a copy of the volume before the deletes, the same deletes through
-    BatchDelete, `shell volume.vacuum` under GETs at concurrency 256, the
+    a copy of the volume taken before the last 40,000 deletes, those
+    through BatchDelete, `shell volume.vacuum` under GETs at concurrency 256, the
     gate re-warmed and checked after the commit, BulkLookup, a second
     /vol/vacuum with no candidate."""
     import asyncio
@@ -3205,14 +3376,17 @@ def phase_vacuum(torch, work: str, seed: int, keep: dict, needle_mod) -> dict:
     os.rename(keep["dir"], src)
     srv = os.path.join(root, "server")
     os.makedirs(srv)
-    for ext in (".dat", ".idx"):  # 13b's volume: a copy before the deletes
-        shutil.copyfile(os.path.join(src, f"{vid}{ext}"), os.path.join(srv, f"{vid}{ext}"))
     pool, pool_crc = keep["pool"], keep["pool_crc"]
     ids, cookies, blob_of, live0 = (keep[k] for k in ("ids", "cookies", "blob_of", "live"))
     doomed = rng.choice(np.nonzero(live0)[0], int(VACUUM_DELETE_SHARE * len(ids)),
                         replace=False)
     live = live0.copy()
     live[doomed] = False
+    # 13b's volume: a copy with all but the last VACUUM_RPC_DELETES deletes
+    # made, the rest sent through BatchDelete
+    by_rpc = doomed[len(doomed) - VACUUM_RPC_DELETES:]
+    live_srv = live.copy()
+    live_srv[by_rpc] = True
     absent = rng.integers(1 << 49, 1 << 50, size=len(ids) // 10, dtype=np.uint64)
     probes = rng.permutation(np.concatenate([ids, absent]))
     fid = lambda k, c: "/" + str(FileId(vid, int(k), int(c)))  # noqa: E731
@@ -3224,10 +3398,19 @@ def phase_vacuum(torch, work: str, seed: int, keep: dict, needle_mod) -> dict:
     base = os.path.join(src, str(vid))
     t0 = time.perf_counter()
     v = Volume(src, "", vid)
-    for i in doomed.tolist():
-        if v.delete_needle(needle_mod.Needle(cookie=int(cookies[i]), id=int(ids[i]))) <= 0:
-            fail(f"needle {int(ids[i]):x} was not live")
-    delete_s = time.perf_counter() - t0
+    copy_s = 0.0
+    for part in (doomed[:len(doomed) - len(by_rpc)], by_rpc):
+        for i in part.tolist():
+            if v.delete_needle(needle_mod.Needle(cookie=int(cookies[i]), id=int(ids[i]))) <= 0:
+                fail(f"needle {int(ids[i]):x} was not live")
+        if part is not by_rpc:
+            t1 = time.perf_counter()
+            v.sync()  # the files as they stand, for 13b's copy
+            for ext in (".dat", ".idx"):
+                shutil.copyfile(os.path.join(src, f"{vid}{ext}"),
+                                os.path.join(srv, f"{vid}{ext}"))
+            copy_s = time.perf_counter() - t1
+    delete_s = time.perf_counter() - t0 - copy_s
     garbage = v.garbage_level()
     v.close()
     if garbage < VACUUM_THRESHOLD:
@@ -3241,8 +3424,28 @@ def phase_vacuum(torch, work: str, seed: int, keep: dict, needle_mod) -> dict:
     want_new = _expect_lookup(exp, "new_units", probes)
     live_idx = np.nonzero(live)[0]
     sample = rng.choice(live_idx, VACUUM_READ_BACK, replace=False)
+    full = {"base": base, "exp": exp, "probes": probes, "want_old": want_old,
+            "want_new": want_new, "sample": sample}
+    # the clones after the first compact a prefix of the volume (VACUUM_CUTS)
+    t0 = time.perf_counter()
+    pdir = os.path.join(root, "prefix")
+    os.makedirs(pdir)
+    pbase = os.path.join(pdir, str(vid))
+    pkeys, rewritten = _prefix_volume(base, pbase, int(VACUUM_PREFIX_SHARE * len(ids)))
+    pexp = _expected_compaction(pbase)
+    in_prefix = np.isin(ids, pkeys)
+    pprobes = rng.permutation(np.concatenate([pkeys, absent[:len(pkeys) // 10]]))
+    prefix = {"base": pbase, "exp": pexp, "probes": pprobes,
+              "want_old": _expect_lookup(pexp, "old_units", pprobes),
+              "want_new": _expect_lookup(pexp, "new_units", pprobes),
+              "sample": rng.choice(np.nonzero(live & in_prefix & ~np.isin(ids, rewritten))[0],
+                                   VACUUM_READ_BACK, replace=False)}
+    prefix_s = time.perf_counter() - t0
+    if len(pexp["keys"]) != int((live & in_prefix).sum()):
+        fail(f"the prefix volume holds {len(pexp['keys'])} live needles, expected "
+             f"{int((live & in_prefix).sum())}")
 
-    def read_back(v, what):
+    def read_back(v, what, sample=sample):
         for i in sample.tolist():
             n = v.read_needle_by_key(int(ids[i]))
             data = pool[int(blob_of[i])]
@@ -3253,13 +3456,19 @@ def phase_vacuum(torch, work: str, seed: int, keep: dict, needle_mod) -> dict:
     kinds = {}
     plain_err = 0
     dat_sums = {}
-    for name, kind, route in VACUUM_CLONES:
+    clone_exp = {}
+    for k, (name, kind, route) in enumerate(VACUUM_CLONES):
         t_clone = time.perf_counter()
+        c = full if k == 0 else prefix
+        exp, probes, want_old, want_new = (c[x] for x in ("exp", "probes", "want_old",
+                                                           "want_new"))
         d = os.path.join(root, name)
         os.makedirs(d)
         for ext in (".dat", ".idx"):  # compaction only reads them
-            os.link(base + ext, os.path.join(d, f"{vid}{ext}"))
-        row = {"map": kind}
+            os.link(c["base"] + ext, os.path.join(d, f"{vid}{ext}"))
+        clone_exp[name] = exp
+        row = {"map": kind, "volume": "whole" if k == 0 else "prefix",
+               "live_needles": len(exp["keys"])}
         if route == "cli":
             out, row["cli_s"] = _port_cli(["compact", "-dir", d, "-volumeId", str(vid)])
             if f"compacted volume {vid}: {exp['dat_size']} bytes" not in out:
@@ -3308,7 +3517,7 @@ def phase_vacuum(torch, work: str, seed: int, keep: dict, needle_mod) -> dict:
                 row["host_map_after_s"] = time.perf_counter() - t0
                 plain_err = max(plain_err, _k1_against_plain(
                     torch, v, probes[:VACUUM_PLAIN_PROBES]))
-                read_back(v, name)
+                read_back(v, name, c["sample"])
             v.close()
         paths = [os.path.join(d, f"{vid}{e}") for e in (".dat", ".idx")]
         if os.path.getsize(paths[0]) != exp["dat_size"]:
@@ -3322,8 +3531,9 @@ def phase_vacuum(torch, work: str, seed: int, keep: dict, needle_mod) -> dict:
         kinds[name] = row
     sums = sha1_files(list(dat_sums.values()))
     for name, path in dat_sums.items():
-        if sums[path] != exp["dat_sha1"]:
+        if sums[path] != clone_exp[name]["dat_sha1"]:
             fail(f"{name}: the new .dat differs from the plain reference's")
+    exp, probes, want_new = full["exp"], full["probes"], full["want_new"]
     # a read-only sorted load of the compacted volume
     d = os.path.join(root, "memory_pread")
     t0 = time.perf_counter()
@@ -3341,7 +3551,7 @@ def phase_vacuum(torch, work: str, seed: int, keep: dict, needle_mod) -> dict:
     sorted_row["s"] = time.perf_counter() - t0
     ik_13a = IK.KERNEL_LAUNCHES
     t13a = time.perf_counter() - t_phase
-    for name in list(dat_sums) + ["src"]:
+    for name in list(dat_sums) + ["src", "prefix"]:
         shutil.rmtree(os.path.join(root, name))
 
     # --- 13b: through the server ---
@@ -3384,12 +3594,12 @@ def phase_vacuum(torch, work: str, seed: int, keep: dict, needle_mod) -> dict:
 
         vs.lookup_gate.identity_check = True
         warm = _drive(root, "vacuum_warmup", vport,
-                      dict(base_plan, requests=gets(WARMUP_READS, live0)),
+                      dict(base_plan, requests=gets(WARMUP_READS, live_srv)),
                       WARMUP_CONCURRENCY, 600)
-        # the deletes: BatchDelete RPCs of BATCH_DELETE_FIDS fids each
+        # the last deletes: BatchDelete RPCs of BATCH_DELETE_FIDS fids each
         t0 = time.perf_counter()
-        for c0 in range(0, len(doomed), BATCH_DELETE_FIDS):
-            part = doomed[c0:c0 + BATCH_DELETE_FIDS].tolist()
+        for c0 in range(0, len(by_rpc), BATCH_DELETE_FIDS):
+            part = by_rpc[c0:c0 + BATCH_DELETE_FIDS].tolist()
             reply = asyncio.run(stub.call("BatchDelete", {"file_ids": [
                 fid(ids[i], cookies[i])[1:] for i in part]}, timeout=600))
             bad = [r for r in reply["results"] if r["status"] != 202 or r["size"] <= 0]
@@ -3491,12 +3701,17 @@ def phase_vacuum(torch, work: str, seed: int, keep: dict, needle_mod) -> dict:
         "phase": "vacuum",
         "needles": len(ids),
         "deleted": len(doomed),
+        "deleted_through_batch_delete": len(by_rpc),
+        "server_copy_s": copy_s,
         "deleted_before": int((~live0).sum()),
         "garbage_level": garbage,
         "threshold": VACUUM_THRESHOLD,
         "delete_s": delete_s,
         "reference_s": reference_s,
         "13a_s": t13a,
+        "cuts": VACUUM_CUTS,
+        "prefix_volume": {"needles": int(in_prefix.sum()), "live": len(pexp["keys"]),
+                          "dat_bytes": pexp["dat_size"], "build_s": prefix_s},
         "live_needles": len(exp["keys"]),
         "live_bytes": exp["live_bytes"],
         "new_dat_bytes": exp["dat_size"],
@@ -4070,6 +4285,667 @@ def phase_volume_tier(torch, work: str, seed: int) -> dict:
     return res
 
 
+# --- phase 15 ----------------------------------------------------------------
+# `weed benchmark -size 1024` (cli.py:746-747) as filer files: paths
+# /bench/d<i // 1024>/f<i>, 1,024 files a directory, the filer's -maxMB 4
+# default (cli.py:444): one chunk a file. n cut from 1,048,576 (FILER_CUTS)
+FILER_FILES = 1 << 16
+FILER_DIR_FILES = 1024
+FILER_PUT_C = 16
+FILER_GET_C = 256
+FILER_ABSENT_SHARE = 0.1
+FILER_OVERWRITE_SHARE = 0.01
+FILER_DELETE_SHARE = 0.01
+FILER_WARMUP_GETS = 4_096
+FILER_RESTART_GETS = 10_000
+FILER_RESTART_WARMUP = 1_000
+FILER_LIST_PAGE = 1000  # the directory JSON's default limit (server/filer.py:1032)
+FILER_RPC_PAGE = 1024  # ListEntries' default limit (server/filer.py:1253)
+FILER_LIST_C = 8
+FILER_DELETE_C = 16
+FILER_PLAIN_PROBES = 65_536
+FILER_MEMTABLE_DELETES = 64  # (g): deleted after the restart, tombstones in the memtable
+FILER_PROFILED_GETS = 4_096  # the last pass, under the profiler
+FILER_PROFILED_LAUNCHES = 1_000  # (g)'s profiler reading (50 came back empty)
+FILER_GC_S = 60  # the GC loop's drain, bounded
+_FILER_RATES = ("a calibration run of the whole script on an NVIDIA H100 80GB HBM3 at "
+                "700.00 W put 851.9 files/s at c=16 (p50 15.8 ms a PUT: the write gate's "
+                "5 ms linger and two fsyncs, not the card) and read 2,508.5 files/s at "
+                "c=256, and took 148.1 s for this phase at 65,536 files")
+FILER_CUTS = {
+    "files": {
+        "from": 1 << 20, "to": FILER_FILES,
+        "why": "65,536 is the floor the phase keeps (several sealed runs of more than "
+               "4,096 rows, so K2 runs its bucketed search); " + _FILER_RATES
+               + ": 1,048,576 files would take over 30 minutes"},
+}
+
+
+def filer_client_main(argv: list) -> int:
+    """Child mode of this script (`--filer-client MODE`): the load clients
+    of phase 15, each in its own process so the filer keeps this script's
+    interpreter to itself. Writes its result as JSON.
+
+    put:       the plan's [path, blob]: PUT of the pool's blob, the reply
+               checked
+    get:       the plan's [path, blob]: GET, the body held to the blob
+               (blob -1: 404 {"error": "not found"})
+    status:    the plan's [method, path, status]: only the status checked
+               (DELETEs, GETs of freed chunks at a volume server)
+    list:      the plan's [directory, names]: the directory JSON paged by
+               lastFileName and ListEntries paged by start_from_file_name,
+               each equal to the names
+    subscribe: SubscribeMetadata from 0 until the plan's last ts, the
+               events counted by type and held to the plan's counts"""
+    import asyncio
+
+    import numpy as np
+
+    sys.path.insert(0, HERE)
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--filer-client", required=True,
+                    choices=["put", "get", "status", "list", "subscribe"])
+    ap.add_argument("--addr", required=True)
+    ap.add_argument("--plan", required=True)
+    ap.add_argument("--pool", default="")
+    ap.add_argument("--out", required=True)
+    ap.add_argument("--concurrency", type=int, default=FILER_PUT_C)
+    a = ap.parse_args(argv)
+    from seaweedfs_tpu_torch.pb import grpc_address
+    from seaweedfs_tpu_torch.pb.rpc import Stub
+    from seaweedfs_tpu_torch.util.fasthttp import FastHTTPClient
+
+    with open(a.plan) as f:
+        plan = json.load(f)
+    pool = [b.tobytes() for b in np.load(a.pool)] if a.pool else []
+    res: dict = {}
+    mode = a.filer_client
+
+    async def request(http, item):
+        if mode == "put":
+            path, blob = item
+            st, got = await http.request("PUT", a.addr, path, pool[blob],
+                                         "application/octet-stream", timeout=120)
+            return st == 201 and json.loads(got) == {
+                "name": path.rsplit("/", 1)[1], "size": len(pool[blob])}, st
+        if mode == "get":
+            path, blob = item
+            st, got = await http.request("GET", a.addr, path, timeout=120)
+            if blob < 0:
+                return st == 404 and json.loads(got) == {"error": "not found"}, st
+            return st == 200 and got == pool[blob], st
+        if mode == "status":
+            method, path, want = item
+            st, _got = await http.request(method, a.addr, path, timeout=120)
+            return st == want, st
+        dpath, names = item  # list
+        stub = Stub(grpc_address(a.addr), "filer")
+        got, last, n = [], "", 0
+        while True:
+            q = f"?limit={FILER_LIST_PAGE}" + (f"&lastFileName={last}" if last else "")
+            st, body = await http.request("GET", a.addr, dpath + q, timeout=120)
+            n += 1
+            page = json.loads(body)["Entries"] if st == 200 else []
+            if st != 200 or any(e["Size"] != NEEDLE_BYTES or e["IsDirectory"] for e in page):
+                return False, st
+            got += [e["FullPath"].rsplit("/", 1)[1] for e in page]
+            if len(page) < FILER_LIST_PAGE:
+                break
+            last = got[-1]
+        rgot, start, incl = [], "", True
+        while True:
+            r = await stub.call("ListEntries", {"directory": dpath, "start_from_file_name": start,
+                                                "inclusive_start_from": incl,
+                                                "limit": FILER_RPC_PAGE}, timeout=120)
+            n += 1
+            rgot += [e["full_path"].rsplit("/", 1)[1] for e in r["entries"]]
+            if len(r["entries"]) < FILER_RPC_PAGE:
+                break
+            start, incl = rgot[-1], False
+        res["requests"] = res.get("requests", 0) + n - 1  # the caller counts one
+        return got == names and rgot == names, 200
+
+    async def run() -> None:
+        http = FastHTTPClient(pool_per_host=a.concurrency + 4)
+        todo = list(reversed(plan))
+        lat, bad = [], []
+
+        async def one() -> None:
+            while todo:
+                item = todo.pop()
+                t0 = time.perf_counter()
+                ok, st = await request(http, item)
+                lat.append(time.perf_counter() - t0)
+                if not ok:
+                    bad.append((item if mode != "list" else item[0], st))
+
+        t0 = time.perf_counter()
+        await asyncio.gather(*(one() for _ in range(a.concurrency)))
+        wall = time.perf_counter() - t0
+        await http.close()
+        srt = sorted(lat)
+        res["requests"] = res.get("requests", 0) + len(lat)
+        res.update(items=len(lat), concurrency=a.concurrency, wall_s=wall,
+                   per_s=len(lat) / wall, p50_ms=srt[len(srt) // 2] * 1e3,
+                   p99_ms=srt[min(len(srt) - 1, int(len(srt) * 0.99))] * 1e3,
+                   bad=len(bad), bad_examples=[str(b)[:200] for b in bad[:5]])
+
+    async def subscribe() -> None:
+        want, last_ts = plan
+        seen: dict = {}
+        t0 = time.perf_counter()
+        async for ev in Stub(grpc_address(a.addr), "filer").server_stream(
+                "SubscribeMetadata", {"since_ns": 0}):
+            t = ev["event_notification"]["event_type"]
+            seen[t] = seen.get(t, 0) + 1
+            if ev["ts_ns"] >= last_ts:
+                break
+        wall = time.perf_counter() - t0
+        res.update(events=sum(seen.values()), by_type=seen, wall_s=wall,
+                   events_per_s=sum(seen.values()) / wall,
+                   bad=int(seen != want),
+                   bad_examples=[f"got {seen}, expected {want}"] if seen != want else [])
+
+    asyncio.run(subscribe() if mode == "subscribe" else run())
+    with open(a.out, "w") as f:
+        json.dump(res, f)
+    return 0
+
+
+def _filer_child(work: str, mode: str, addr: str, plan, pool_path: str = "",
+                 concurrency: int = FILER_PUT_C, timeout: float = 600) -> dict:
+    plan_path = os.path.join(work, f"filer-{mode}.plan.json")
+    out = os.path.join(work, f"filer-{mode}.json")
+    with open(plan_path, "w") as f:
+        json.dump(plan, f)
+    proc = subprocess.run(
+        [sys.executable, os.path.abspath(__file__), "--filer-client", mode, "--addr", addr,
+         "--plan", plan_path, "--pool", pool_path, "--out", out,
+         "--concurrency", str(concurrency)],
+        capture_output=True, text=True, timeout=timeout)
+    if proc.returncode != 0:
+        fail(f"filer client {mode} exited {proc.returncode}: {proc.stderr[-2000:]}")
+    with open(out) as f:
+        res = json.load(f)
+    os.remove(out)
+    os.remove(plan_path)
+    if res["bad"]:
+        fail(f"filer client {mode}: {res['bad']} wrong answers, e.g. {res['bad_examples']}")
+    return res
+
+
+def _filer_rpc(addr: str, method: str, req: dict):
+    import asyncio
+
+    from seaweedfs_tpu_torch.pb import grpc_address
+    from seaweedfs_tpu_torch.pb.rpc import Stub
+
+    return asyncio.run(Stub(grpc_address(addr), "filer").call(method, req, timeout=120))
+
+
+def _filer_fids(store, paths: list) -> dict:
+    """path -> its chunks' fids, read from the filer's store (the script's
+    bookkeeping; the store is thread-safe)."""
+    found = store.find_many(paths)
+    if len(found) != len(paths):
+        fail(f"{len(paths) - len(found)} of {len(paths)} paths are not in the filer's store")
+    return {p: [c.fid for c in e.chunks] for p, e in found.items()}
+
+
+def _gate_counts(port: int) -> dict:
+    g = _http_json(port, "/debug/meta_gate")
+    return {"gate": g["gate"], "fallback_reasons": g["fallback_reasons"],
+            "arena_errors": g["arena"]["errors"], "arena_last_error": g["arena"]["last_error"],
+            "device_errors": g["device_errors"], "segments": g.get("segments"),
+            "memtable": g.get("memtable"), "write_gate": g.get("write_gate"),
+            "upload_gate": g.get("upload_gate"),
+            "chunk_delete_rounds": g["chunk_delete_rounds"],
+            "chunk_delete_pending": g["chunk_delete_pending"],
+            "chunk_delete_inflight": g["chunk_delete_inflight"]}
+
+
+def _gate_delta(before: dict, after: dict) -> dict:
+    return {k: after["gate"][k] - before["gate"].get(k, 0) for k in after["gate"]
+            if k != "largest_batch"}
+
+
+def _check_clean(before: dict, after: dict, what: str) -> dict:
+    """No host fallback (memtable hits have their own counter), identity
+    mismatch, arena error or device error between two readings."""
+    d = _gate_delta(before, after)
+    if d["host_fallbacks"] or d["identity_mismatches"] or \
+            after["arena_errors"] != before["arena_errors"] or after["device_errors"]:
+        fail(f"{what}: gate {d}, fallbacks {after['fallback_reasons']}, arena errors "
+             f"{after['arena_errors']} ({after['arena_last_error']}), device errors "
+             f"{after['device_errors']}")
+    return d
+
+
+def _start_server_child(root: str, taken: set) -> dict:
+    """Start `python -m seaweedfs_tpu_torch server -index lsm -batchLookup
+    arena -storageBackend cuda` as a child process over a fresh directory
+    (its own interpreter: the filer under test keeps this one); -> its
+    Popen, master address and volume port. `_await_server_child` waits
+    until the master knows its volume server."""
+    sdir = os.path.join(root, "server")
+    os.makedirs(sdir)
+    # clear of the ports phase 14 picks while this child is still starting
+    mport, vport = _port_pair(taken, 25000), _port_pair(taken, 25000)
+    argv = ["server", "-ip", "127.0.0.1", "-port", str(mport), "-volumePort", str(vport),
+            "-dir", sdir, "-max", "30", "-index", "lsm", "-batchLookup", "arena",
+            "-storageBackend", "cuda"]
+    env = dict(os.environ)
+    env["PYTHONPATH"] = HERE + os.pathsep + env.get("PYTHONPATH", "")
+    log = open(os.path.join(root, "server.log"), "wb")
+    t0 = time.perf_counter()
+    proc = subprocess.Popen([sys.executable, "-m", "seaweedfs_tpu_torch", *argv], cwd=HERE,
+                            env=env, stdout=log, stderr=subprocess.STDOUT)
+    return {"proc": proc, "log": log, "argv": argv, "maddr": f"127.0.0.1:{mport}",
+            "mport": mport, "vport": vport, "t0": t0, "taken": taken}
+
+
+def _await_server_child(held: dict) -> None:
+    proc, log, mport = held["proc"], held["log"], held["mport"]
+    while True:
+        if proc.poll() is not None:
+            fail(f"the server exited {proc.returncode}: {_tail(log.name)}")
+        try:
+            st = _http_json(mport, "/dir/status")
+            nodes = [dn for dc in st["Topology"]["data_centers"] for rack in dc["racks"]
+                     for dn in rack["data_nodes"]]
+            if nodes:
+                break
+        except (OSError, SystemExit):
+            pass
+        if time.perf_counter() - held["t0"] > SERVER_START_S:
+            fail(f"the server did not register its volume server in {SERVER_START_S} s")
+        time.sleep(0.2)
+    held["ready_s"] = time.perf_counter() - held["t0"]
+
+
+def _tail(path: str) -> str:
+    with open(path, "rb") as f:
+        return f.read()[-2000:].decode("latin1")
+
+
+def _stop_server_child(held: dict) -> float:
+    import signal
+
+    t0 = time.perf_counter()
+    proc = held["proc"]
+    if proc.poll() is None:
+        proc.send_signal(signal.SIGTERM)
+        try:
+            proc.wait(SERVER_STOP_S)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+            fail(f"the server did not stop in {SERVER_STOP_S} s")
+    held["log"].close()
+    if proc.returncode != 0:
+        fail(f"the server exited {proc.returncode}: {_tail(held['log'].name)}")
+    return time.perf_counter() - t0
+
+
+def phase_filer(torch, work: str, seed: int, server: dict) -> dict:
+    """The filer on the card. `filer -store <work>/filer.lsm -metaLog
+    <work>/mlog -replication 000` through the CLI's entry function on an
+    event-loop thread of this script (the meta gate at its default,
+    `device`, on the process's arena), over `server -index lsm
+    -batchLookup arena` in a child process; the load clients are children
+    too (`--filer-client`). (b) PUTs, an overwrite of 1 %, a multipart
+    POST and a 2-chunk file; (c) a warm-up, then the GETs of every file
+    plus 10 % absent paths, K2 in each pass (`server` is the child the
+    caller started during phase 14, so that it is up by now; this phase
+    stops it); (d) every directory listed
+    through the JSON and ListEntries, paged, and a directory renamed; (e)
+    1 % of the files and one directory deleted, their chunks freed; (f) a
+    restart on the same store and meta-log (and the WAL of a copy taken
+    while it served), GETs, SubscribeMetadata from 0; (g) ragged_lookup
+    against its plain version on the filer's own generation."""
+    import numpy as np
+
+    from seaweedfs_tpu_torch.command import cli
+    from seaweedfs_tpu_torch.filer.filer_store import _split
+    from seaweedfs_tpu_torch.filer.lsm_store import LsmFilerStore, path_hash64
+    from seaweedfs_tpu_torch.ops import index_kernel as IK
+    from seaweedfs_tpu_torch.ops import ragged_lookup as RL
+    from seaweedfs_tpu_torch.util.fasthttp import build_multipart
+
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(seed + 15)
+    root = os.path.join(work, "filer")
+    os.makedirs(root)
+    n = FILER_FILES
+    pool = rng.integers(0, 256, (256, NEEDLE_BYTES), dtype=np.uint8)
+    pool_path = os.path.join(root, "pool.npy")
+    np.save(pool_path, pool)
+    path_of = [f"/bench/d{i // FILER_DIR_FILES}/f{i}" for i in range(n)]
+    blob = rng.integers(0, len(pool), n)
+    res: dict = {"phase": "filer", "files": n, "file_bytes": NEEDLE_BYTES,
+                 "files_a_directory": FILER_DIR_FILES, "cuts": FILER_CUTS}
+    # the path: every count at 0 now, read at the phase's end (the K2
+    # launches of this process: the filer's meta gate)
+    IK.KERNEL_LAUNCHES = RL.KERNEL_LAUNCHES = 0
+    taken = server["taken"]
+    try:
+        t_wait = time.perf_counter()
+        _await_server_child(server)
+    except BaseException:
+        _stop_server_child(server)
+        raise
+    res["server"] = {"argv": server["argv"], "process": "child",
+                     "ready_s_after_its_start": server["ready_s"],
+                     "waited_s": time.perf_counter() - t_wait}
+    maddr, vport = server["maddr"], server["vport"]
+    fport = _port_pair(taken)
+    faddr = f"127.0.0.1:{fport}"
+    filer_argv = ["-ip", "127.0.0.1", "-port", str(fport), "-master", maddr,
+                  "-store", os.path.join(root, "filer.lsm"), "-metaLog", os.path.join(root, "mlog"),
+                  "-replication", "000"]
+    res["filer_argv"] = filer_argv
+    held = None
+    try:
+        t0 = time.perf_counter()
+        held = _start_served(cli.cmd_filer, filer_argv, "filer")
+        fs = held["servers"][0]
+        res["filer_start_s"] = time.perf_counter() - t0
+        if fs.meta_gate_mode != "device" or fs.meta_gate.arena is None \
+                or fs.meta_gate.arena.device.type != "cuda" or not fs.meta_gate.identity_check:
+            fail(f"the filer's meta gate is {fs.meta_gate_mode}, arena "
+                 f"{getattr(fs.meta_gate, 'arena', None)}")
+        arena = fs.meta_gate.arena
+
+        # --- (b) PUTs, the overwrite, a multipart POST, a 2-chunk file ---
+        t0 = time.perf_counter()
+        put = _filer_child(root, "put", faddr, [[path_of[i], int(blob[i])] for i in range(n)],
+                           pool_path, FILER_PUT_C, timeout=900)
+        g_put = _gate_counts(fport)
+        res["put"] = {**put, "meta_gate": g_put["gate"], "fallback_reasons": g_put["fallback_reasons"],
+                      "write_gate": g_put["write_gate"], "upload_gate": g_put["upload_gate"]}
+        ow = np.sort(rng.choice(n, int(n * FILER_OVERWRITE_SHARE), replace=False))
+        old_fids = _filer_fids(fs.filer.store, [path_of[i] for i in ow.tolist()])
+        blob[ow] = (blob[ow] + 1) % len(pool)
+        res["overwrite"] = _filer_child(root, "put", faddr,
+                                        [[path_of[i], int(blob[i])] for i in ow.tolist()],
+                                        pool_path, FILER_PUT_C)
+        extra = {}
+        mp_body, mp_ct = build_multipart("file", pool[3].tobytes(), "mp.bin", "text/plain")
+        st, _, got = _http_get_body(fport, "/bench/d2/", "POST", mp_body, {"Content-Type": mp_ct})
+        if st != 201 or json.loads(got) != {"name": "mp.bin", "size": NEEDLE_BYTES}:
+            fail(f"multipart POST: {st} {got[:200]!r}")
+        extra["/bench/d2/mp.bin"] = pool[3].tobytes()
+        big = rng.integers(0, 256, 4 * MIB + NEEDLE_BYTES, dtype=np.uint8).tobytes()
+        st, _, got = _http_get_body(fport, "/bench/big.bin", "PUT", big)
+        if st != 201:
+            fail(f"2-chunk PUT: {st} {got[:200]!r}")
+        big_fids = _filer_fids(fs.filer.store, ["/bench/big.bin"])["/bench/big.bin"]
+        if len(big_fids) != 2:
+            fail(f"the 4 MiB + 1 KiB file has {len(big_fids)} chunks, not 2")
+        extra["/bench/big.bin"] = big
+        for p, want in extra.items():
+            st, hd, got = _http_get_body(fport, p)
+            if st != 200 or got != want:
+                fail(f"GET {p}: {st}, {len(got)} bytes")
+        res["b_s"] = time.perf_counter() - t0
+
+        # --- (c) GETs: a warm-up, then every file plus 10 % absent ---
+        t0 = time.perf_counter()
+        warm = rng.integers(0, n, FILER_WARMUP_GETS)
+        res["warmup"] = _filer_child(root, "get", faddr,
+                                     [[path_of[i], int(blob[i])] for i in warm.tolist()],
+                                     pool_path, FILER_GET_C)
+        g0 = _gate_counts(fport)
+        n_absent = int(n * FILER_ABSENT_SHARE)
+        absent = [f"/bench/d{int(i) // FILER_DIR_FILES}/g{int(i)}"
+                  for i in rng.integers(0, n, n_absent)]
+        plan = [[path_of[i], int(blob[i])] for i in range(n)] + [[p, -1] for p in absent]
+        plan = [plan[i] for i in rng.permutation(len(plan)).tolist()]
+        rl0 = RL.KERNEL_LAUNCHES
+        get = _filer_child(root, "get", faddr, plan, pool_path, FILER_GET_C)
+        k2 = RL.KERNEL_LAUNCHES - rl0
+        g1 = _gate_counts(fport)
+        d = _check_clean(g0, g1, "the GETs after the warm-up")
+        if k2 <= 0:
+            fail(f"the GET pass launched ragged_lookup no time: {d}")
+        res["get"] = {**get, "absent": n_absent, "identity_check": True,
+                      "ragged_lookup_launches": k2, "meta_gate": d,
+                      "largest_batch": g1["gate"]["largest_batch"],
+                      "segments": g1["segments"], "memtable": g1["memtable"]}
+        res["c_s"] = time.perf_counter() - t0
+
+        # --- (d) listings, then a rename ---
+        t0 = time.perf_counter()
+        dirs = {}
+        for i in range(n):
+            dirs.setdefault(f"/bench/d{i // FILER_DIR_FILES}", []).append(f"f{i}")
+        dirs["/bench/d2"].append("mp.bin")
+        lst = _filer_child(root, "list", faddr, [[d_, sorted(names)] for d_, names in dirs.items()],
+                           concurrency=FILER_LIST_C)
+        res["listings"] = {"directories": len(dirs), "requests": lst["requests"],
+                           "concurrency": FILER_LIST_C, "wall_s": lst["wall_s"],
+                           "listings_per_s": 2 * len(dirs) / lst["wall_s"],
+                           "requests_per_s": lst["requests"] / lst["wall_s"],
+                           "note": "a listing is one directory through one API, all its pages"}
+        t1 = time.perf_counter()
+        r = _filer_rpc(faddr, "AtomicRenameEntry", {"old_directory": "/bench", "old_name": "d0",
+                                                    "new_directory": "/bench", "new_name": "r0"})
+        if r.get("error"):
+            fail(f"AtomicRenameEntry: {r}")
+        renamed = list(range(min(n, FILER_DIR_FILES)))
+        for i in renamed:
+            path_of[i] = f"/bench/r0/f{i}"
+        res["rename"] = {"files": len(renamed), "rename_s": time.perf_counter() - t1,
+                         **_filer_child(root, "get", faddr,
+                                        [[path_of[i], int(blob[i])] for i in renamed]
+                                        + [[f"/bench/d0/f{i}", -1] for i in renamed[:100]],
+                                        pool_path, FILER_GET_C)}
+        res["d_s"] = time.perf_counter() - t0
+
+        # --- (e) deletes: 1 % of the files and one directory ---
+        t0 = time.perf_counter()
+        gone_dir = "/bench/d1"
+        in_gone = [i for i in range(n) if path_of[i].startswith(gone_dir + "/")]
+        pickable = np.arange(2 * FILER_DIR_FILES, n)  # not in the renamed or the deleted directory
+        dels = np.sort(rng.choice(pickable, int(n * FILER_DELETE_SHARE), replace=False)).tolist()
+        fids = _filer_fids(fs.filer.store, [path_of[i] for i in dels + in_gone])
+        rounds0 = _gate_counts(fport)["chunk_delete_rounds"]
+        res["delete"] = {"files": len(dels), "directory": gone_dir, "directory_files": len(in_gone),
+                         "deletes": _filer_child(root, "status", faddr,
+                                                 [["DELETE", path_of[i], 204] for i in dels]
+                                                 + [["DELETE", gone_dir + "?recursive=true", 204]],
+                                                 concurrency=FILER_DELETE_C)}
+        deleted = set(dels) | set(in_gone)
+        check = _filer_child(root, "get", faddr, [[path_of[i], -1] for i in sorted(deleted)],
+                             pool_path, FILER_GET_C)
+        t_gc = time.perf_counter()
+        while True:
+            g = _gate_counts(fport)
+            if (g["chunk_delete_pending"] == 0 and not g["chunk_delete_inflight"]
+                    and g["chunk_delete_rounds"] > rounds0):
+                break
+            if time.perf_counter() - t_gc > FILER_GC_S:
+                fail(f"the chunk GC did not drain in {FILER_GC_S} s: {g}")
+            time.sleep(0.05)
+        gc_s = time.perf_counter() - t_gc
+        freed = [f for fl in fids.values() for f in fl] + [f for fl in old_fids.values() for f in fl]
+        gone = _filer_child(root, "status", f"127.0.0.1:{vport}",
+                            [["GET", "/" + fid, 404] for fid in freed], concurrency=FILER_DELETE_C)
+        res["delete"].update(gets_404=check["items"], gc_wait_s=gc_s, chunks_freed_404=gone["items"],
+                             overwritten_chunks_freed=sum(len(v) for v in old_fids.values()),
+                             gc_rounds=g["chunk_delete_rounds"])
+        res["e_s"] = time.perf_counter() - t0
+
+        # --- (f) the restart ---
+        t0 = time.perf_counter()
+        store_dir = os.path.join(root, "filer.lsm")
+        crash = os.path.join(root, "crash.lsm")
+        os.makedirs(crash)
+        for fn in os.listdir(store_dir):  # the files as they stand while it serves
+            if fn != "LOCK":
+                shutil.copyfile(os.path.join(store_dir, fn), os.path.join(crash, fn))
+        wal_n = len(fs.filer.store._mem)
+        stop_s = _stop_served(held, SERVER_STOP_S)
+        held = None
+        t1 = time.perf_counter()
+        held = _start_served(cli.cmd_filer, filer_argv, "filer-restarted")
+        fs = held["servers"][0]
+        res["restart"] = {"stop_s": stop_s, "start_s": time.perf_counter() - t1,
+                          "wall_s": time.perf_counter() - t0}
+        # the crash image: its WAL replays into the memtable
+        t1 = time.perf_counter()
+        cs = LsmFilerStore(crash, fsync=False)
+        replayed = len(cs._mem)
+        sample = rng.choice(n, 1000, replace=False).tolist()
+        for i in sample:
+            e = cs.find_entry(path_of[i])
+            if (e is None) != (i in deleted):
+                fail(f"the crash image's {path_of[i]}: {e}")
+        cs._flush_memtable = lambda: None  # a crash image: nothing written back
+        cs.close()
+        if replayed != wal_n:
+            fail(f"the crash image's WAL replayed {replayed} entries, the memtable held {wal_n}")
+        res["restart"]["crash_image"] = {"memtable_entries_replayed": replayed,
+                                         "segments": sum(fn.startswith("seg-")
+                                                         for fn in os.listdir(crash)),
+                                         "checked": len(sample), "s": time.perf_counter() - t1}
+        live = [i for i in range(n) if i not in deleted]
+        rw = rng.choice(live, FILER_RESTART_WARMUP).tolist()
+        res["restart"]["warmup"] = _filer_child(
+            root, "get", faddr, [[path_of[i], int(blob[i])] for i in rw], pool_path, FILER_GET_C)
+        g0 = _gate_counts(fport)
+        pick = rng.choice(n, FILER_RESTART_GETS, replace=False).tolist()
+        rplan = [[path_of[i], -1 if i in deleted else int(blob[i])] for i in pick]
+        rl0 = RL.KERNEL_LAUNCHES
+        rget = _filer_child(root, "get", faddr, rplan, pool_path, FILER_GET_C)
+        g1 = _gate_counts(fport)
+        d = _check_clean(g0, g1, "the GETs after the restart's warm-up")
+        if RL.KERNEL_LAUNCHES - rl0 <= 0:
+            fail(f"the GETs after the restart launched ragged_lookup no time: {d}")
+        res["restart"]["get"] = {**rget, "ragged_lookup_launches": RL.KERNEL_LAUNCHES - rl0,
+                                 "meta_gate": d}
+        # SubscribeMetadata from 0: one event per create, update, rename, delete
+        last_ts = _filer_rpc(faddr, "GetFilerConfiguration", {})["last_ts_ns"]
+        want = {"create": n + 2, "update": len(ow), "rename": len(renamed) + 1,
+                "delete": len(dels) + len(in_gone) + 1}
+        res["restart"]["subscribe"] = _filer_child(root, "subscribe", faddr, [want, last_ts])
+        res["f_s"] = time.perf_counter() - t0
+
+        # --- (g) ragged_lookup against its plain version on the filer's generation ---
+        t0 = time.perf_counter()
+        store = fs.filer.store
+        # paths deleted now: their tombstones sit in the memtable, their
+        # rows in the sealed runs the kernel searches
+        mem_dead = [path_of[i] for i in rng.choice(live, FILER_MEMTABLE_DELETES, replace=False).tolist()]
+        for p in mem_dead:
+            st, _, body = _http_get_body(fport, p, "DELETE")
+            if st != 204 or fs.filer.store.find_entry(p) is not None:
+                fail(f"DELETE {p}: {st} {body[:200]!r}")
+        # the path's launches so far; the comparisons and timings below are
+        # not the path's, and the count is put back after them
+        counted = RL.KERNEL_LAUNCHES
+        largest = max(res["get"]["largest_batch"], 1)
+        mem_set = set(mem_dead)
+        hits = [path_of[i] for i in live if path_of[i] not in mem_set]
+        misses = [f"/bench/d{i % 64}/none{i}" for i in range(len(hits))]
+        dead = [path_of[i] for i in sorted(deleted)] + mem_dead
+        timing, worst = {}, 0
+        for n_probes in (largest, FILER_PLAIN_PROBES):
+            k_dead = max(1, n_probes // 20)
+            k_miss = max(1, n_probes // 10)
+            k_hit = max(0, n_probes - k_dead - k_miss)
+            paths = ([hits[i] for i in rng.integers(0, len(hits), k_hit)]
+                     + [misses[i] for i in rng.integers(0, len(misses), k_miss)]
+                     + [dead[i] for i in rng.integers(0, len(dead), k_dead)])[:n_probes]
+            keys = np.fromiter((path_hash64(*_split(p)) for p in paths), dtype=np.uint64,
+                               count=len(paths))
+            mem_hits, segs = store.arena_view(paths)
+            gen = arena.ensure(segs)
+            if gen is None:
+                arena.refresh_sync()
+                gen = arena.ensure(segs)
+            if gen is None:
+                fail("the filer's segments are not resident after a refresh")
+            u32_d, i32_d, slots = _pack(torch, np, RL, gen, [(0, segs, keys)])
+            cols = (gen.keys, gen.offs, gen.sizes, gen.bloom)
+            kern = lambda: RL._ragged_lookup_cuda(*cols, u32_d, i32_d)  # noqa: E731
+            plain = lambda: RL._ragged_dispatch_torch(gen.steps, *cols, u32_d, i32_d)  # noqa: E731
+            a, b = kern(), plain()
+            torch.cuda.synchronize()
+            if not (torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+                    and torch.equal(a[2].bool(), b[2])):
+                fail(f"ragged_lookup != plain on the filer's generation at {n_probes} probes")
+            worst = max(worst, max_abs_diff(torch, zip(a[:2], b[:2])))
+            _o, _s, f, rows, present = RL._ragged_dispatch_torch(
+                gen.steps, *cols, u32_d, i32_d, with_index=True)
+            nbytes = (slots * (4 * 4 + 5 * 4 + 4 + 4 + 1)
+                      + unique_sector_bytes(torch, rows[present], 8)
+                      + 2 * unique_sector_bytes(torch, rows[f], 4))
+            events_ms = cuda_median_ms(torch, kern, 50)
+            device_ms, way, missed = profiled_kernel_ms(torch, kern, "ragged_lookup_kernel",
+                                                        FILER_PROFILED_LAUNCHES)
+            timing[str(n_probes)] = {
+                "probes": len(paths), "slots": slots,
+                "memtable_tombstones": sum(v is None for v in mem_hits.values()),
+                "segments": [s.count for s in segs],
+                "ms": device_ms, "ms_from": f"profiler, launched from {way}",
+                "profiler_missed": missed, "ms_events": events_ms,
+                "plain_ms": cuda_median_ms(torch, plain, 10, warm=1),
+                "bound_bytes": nbytes, "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+            }
+        res["ragged_lookup"] = {"on": "the filer's generation", "equal_to_plain": True,
+                                "max_abs_err": worst, **timing}
+        res["g_s"] = time.perf_counter() - t0
+        RL.KERNEL_LAUNCHES = counted
+        res["path_launches_before_g"] = counted
+
+        # a last GET pass under the profiler: K2's device ms a launch and the
+        # card's busy share while the filer serves
+        g0 = _gate_counts(fport)
+        rl0 = RL.KERNEL_LAUNCHES
+        pick = rng.choice(live, FILER_PROFILED_GETS).tolist()
+        prof: dict = {}
+
+        def profiled_gets():
+            prof["res"] = _filer_child(root, "get", faddr, [
+                [path_of[i], -1 if path_of[i] in mem_set else int(blob[i])] for i in pick],
+                pool_path, FILER_GET_C)
+
+        dev = profile_device(torch, profiled_gets)
+        d = _check_clean(g0, _gate_counts(fport), "the profiled GETs")
+        if RL.KERNEL_LAUNCHES - rl0 <= 0:
+            fail(f"the profiled GETs launched ragged_lookup no time: {d}")
+        kern = (dev["kernels"] or {}).get("ragged_lookup_kernel") or {}
+        res["profiled_get"] = {**prof["res"], "ragged_lookup_launches": RL.KERNEL_LAUNCHES - rl0,
+                               "profiler_ragged_lookup": kern or None,
+                               "device_busy_s": dev["device_busy_s"],
+                               "busy_share": dev["busy_share"], "meta_gate": d}
+        res["store"] = {"segments": [len(s.keys) for s in store._segments],
+                        "memtable": len(store._mem), "arena": arena.stats()}
+    finally:
+        if held is not None:
+            res["stop_s"] = _stop_served(held, SERVER_STOP_S)
+        res["server"]["stop_s"] = _stop_server_child(server)
+    res["kernel_launches"] = {"index_search": IK.KERNEL_LAUNCHES, "ragged_lookup": RL.KERNEL_LAUNCHES}
+    res["phase_s"] = time.perf_counter() - t_phase
+    shutil.rmtree(root, ignore_errors=True)
+    emit(res)
+    return res
+
+
+def _http_get_body(port: int, path: str, method: str = "GET", body: bytes = b"",
+                   headers: dict | None = None):
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
+    try:
+        conn.request(method, path, body=body or None, headers=headers or {})
+        resp = conn.getresponse()
+        return resp.status, dict(resp.getheaders()), resp.read()
+    finally:
+        conn.close()
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--volume-gib", type=float, default=11.0)
@@ -4187,6 +5063,7 @@ def main() -> int:
     work = tempfile.mkdtemp(prefix="chip_smoke-", dir=args.workdir)
     launches = {}
     ik_launches = {}
+    fserver = None  # phase 15's `server` child
     try:
         # --- phase 3 ---
         target = int(args.volume_gib * GIB)
@@ -4461,9 +5338,20 @@ def main() -> int:
                 shutil.rmtree(path)
             else:
                 os.remove(path)
+        # phase 15's `server` child starts now and comes up during phase 14
+        froot = os.path.join(work, "filer-server")
+        os.makedirs(froot)
+        fserver = _start_server_child(froot, set())
         tres = phase_volume_tier(torch, work, args.seed)
         ik_launches["volume_tier"] = tres["kernel_launches"]["index_search"]
+
+        # --- phase 15 ---
+        fres = phase_filer(torch, work, args.seed, server=fserver)
+        ik_launches["filer"] = fres["kernel_launches"]["index_search"]
     finally:
+        if fserver is not None and fserver["proc"].poll() is None:
+            fserver["proc"].kill()  # a phase failed before phase 15 stopped it
+            fserver["proc"].wait()
         shutil.rmtree(work, ignore_errors=True)
         try:
             os.rmdir(args.workdir)  # only when nothing else is in it
@@ -4540,16 +5428,22 @@ def main() -> int:
             "launches": ares["kernel_launches"] + sres["kernel_launches"]["ragged_lookup"]
             + cres["kernel_launches"]["ragged_lookup"]
             + vacres["kernel_launches"]["ragged_lookup"]
-            + tres["kernel_launches"]["ragged_lookup"],
+            + tres["kernel_launches"]["ragged_lookup"]
+            + fres["kernel_launches"]["ragged_lookup"],
             "launches_by_path": {
                 "arena_gate": ares["kernel_launches"],
                 "volume_server": sres["kernel_launches"]["ragged_lookup"],
                 "cluster": cres["kernel_launches"]["ragged_lookup"],
                 "vacuum": vacres["kernel_launches"]["ragged_lookup"],
                 "volume_tier": tres["kernel_launches"]["ragged_lookup"],
+                "filer": fres["kernel_launches"]["ragged_lookup"],
             },
+            "filer_generation": {k: {kk: v[kk] for kk in ("probes", "ms", "ms_from",
+                                                          "plain_ms", "bound_ms")}
+                                 for k, v in fres["ragged_lookup"].items()
+                                 if isinstance(v, dict)},
             "equal_to_plain": True,
-            "max_abs_err": ares["max_abs_err"],
+            "max_abs_err": max(ares["max_abs_err"], fres["ragged_lookup"]["max_abs_err"]),
             "shape": f"65536 probes, {k2['slots']} slots over "
                      f"{ares['arena']['resident_segments']} segments",
             "ms": k2["ms"],
@@ -4612,4 +5506,6 @@ if __name__ == "__main__":
         sys.exit(client_main(sys.argv[1:]))
     if "--tier-client" in sys.argv[1:]:
         sys.exit(tier_client_main(sys.argv[1:]))
+    if "--filer-client" in sys.argv[1:]:
+        sys.exit(filer_client_main(sys.argv[1:]))
     sys.exit(main())

@@ -2,7 +2,7 @@
 
 Ported from the JAX package's command/cli.py with the commands
 `master`, `volume`, `server` (a master and a volume server in one process,
-on one event loop), `shell` (the semicolon-separated one-shot commands
+on one event loop; `-filer` adds a filer), `filer`, `shell` (the semicolon-separated one-shot commands
 given as arguments, else a prompt), `benchmark` (with `-assignBatch`
 leases), `upload` (with `-maxMB` chunking), `download` and `compact` (an
 offline vacuum of one volume). `-storageBackend` takes `cuda` (the default: the
@@ -13,8 +13,13 @@ raises as not ported. `-index` takes `memory`, `leveldb`, `sorted` and
 is the master's vacuum threshold. `-pulseSeconds` sets the volume
 server's heartbeat cadence (the JAX package reads it from
 SEAWEEDFS_TPU_PULSE_SECONDS). The flags of the parts still to port
-(`-tierConfig`, `-config`, the profilers, the filer and S3 of `server`)
-are not declared, so argparse refuses them. SIGINT and SIGTERM stop the
+(`-tierConfig`, `-config`, the profilers, `-s3` of `server`; the filer's
+`-shards`, `-peers`, `-fleetMap`, `-fleetSelf`, `-followSource`,
+`-geoSource`, `-geoState`, `-encryptVolumeData`, `-notifySink` and the
+other `-notify*` flags) are not declared, so argparse refuses them. The
+filer's meta gate runs its lookups on the card unless
+SEAWEEDFS_TPU_META_GATE says otherwise (server/filer.py); in `server
+-filer` it shares the volume server's arena (`-batchLookup arena`). SIGINT and SIGTERM stop the
 servers: the heartbeat ends, the gate, the arena, the executor and the
 sockets close, and the process exits with 0.
 """
@@ -215,15 +220,83 @@ def cmd_server(argv: list[str], started=None) -> int:
         "-pulseSeconds", type=float, default=1.0,
         help="seconds between the volume server's heartbeats",
     )
+    p.add_argument("-filer", action="store_true", help="also run a filer")
+    p.add_argument("-filerPort", type=int, default=8888)
     _add_backend_flags(p)
     args = p.parse_args(argv)
     peers = [x for x in args.peers.split(",") if x]
     ms = _build_master_server(args)
     vs = _build_volume_server(args, peers or f"{args.ip}:{args.port}",
                               args.volumePort)
-    print(f"server: master on {args.ip}:{args.port}, volume on "
-          f"{args.ip}:{args.volumePort} (device {vs.device})", flush=True)
-    asyncio.run(_run_forever(ms, vs, started=started))
+    servers = [ms, vs]
+    desc = (f"server: master on {args.ip}:{args.port}, volume on "
+            f"{args.ip}:{args.volumePort} (device {vs.device})")
+    if args.filer:
+        from ..server.filer import FilerServer
+
+        # one arena in the process: the filer's meta gate takes the volume
+        # server's (its byte budget and residency plane) when it has one
+        servers.append(FilerServer(
+            master=f"{args.ip}:{args.port}",
+            host=args.ip,
+            port=args.filerPort,
+            jwt_signing_key=args.jwtSigningKey,
+            arena=vs.lookup_arena,
+        ))
+        desc += f", filer on {args.ip}:{args.filerPort}"
+    print(desc, flush=True)
+    asyncio.run(_run_forever(*servers, started=started))
+    return 0
+
+
+def cmd_filer(argv: list[str], started=None) -> int:
+    """A filer over a master and its volume servers (ref
+    command/filer.go)."""
+    p = argparse.ArgumentParser(prog="seaweedfs_tpu_torch filer")
+    p.add_argument("-ip", default="127.0.0.1")
+    p.add_argument("-port", type=int, default=8888)
+    p.add_argument("-master", default="127.0.0.1:9333")
+    p.add_argument(
+        "-store",
+        default="",
+        help="metadata store: '' = memory, *.flog = append-log, "
+        "*.lsm = LSM segments+WAL, anything else = sqlite",
+    )
+    p.add_argument("-maxMB", type=int, default=4, help="chunk size in MB")
+    p.add_argument(
+        "-metaLog",
+        default="",
+        help="directory for the durable segmented meta-log change "
+        "feed (resumable per-subscriber cursors); '' = in-memory ring",
+    )
+    p.add_argument("-collection", default="")
+    p.add_argument("-replication", default="")
+    p.add_argument("-jwtSigningKey", default="")
+    p.add_argument(
+        "-dataCenter",
+        default="",
+        help="this filer's data center label: reads prefer same-DC "
+        "replicas",
+    )
+    args = p.parse_args(argv)
+    from ..server.filer import FilerServer
+
+    fs = FilerServer(
+        master=args.master,
+        host=args.ip,
+        port=args.port,
+        store_path=args.store,
+        chunk_size=args.maxMB * 1024 * 1024,
+        collection=args.collection,
+        replication=args.replication,
+        jwt_signing_key=args.jwtSigningKey,
+        meta_log_path=args.metaLog,
+        data_center=args.dataCenter,
+    )
+    print(f"filer listening on {args.ip}:{args.port} (store "
+          f"{args.store or 'memory'}, meta gate {fs.meta_gate_mode})",
+          flush=True)
+    asyncio.run(_run_forever(fs, started=started))
     return 0
 
 
@@ -396,6 +469,7 @@ COMMANDS = {
     "master": cmd_master,
     "volume": cmd_volume,
     "server": cmd_server,
+    "filer": cmd_filer,
     "shell": cmd_shell,
     "benchmark": cmd_benchmark,
     "upload": cmd_upload,

@@ -1,0 +1,55 @@
+"""Filer: a directory/file namespace over the object store
+(ref: weed/filer2/). Entries carry chunk lists pointing at needle fids;
+stores are pluggable (memory, sqlite standing in for the reference's
+leveldb/sql family, an append-only log, and the LSM store whose path
+lookups the meta gate answers on the card's ragged_lookup kernel).
+
+Ported from the JAX package's filer/ without its sharded store, fleet,
+meta aggregator and follower (the filer's scale-out, still to port)."""
+
+from .entry import Attr, Entry, FileChunk, new_directory_entry
+from .filechunks import (
+    VisibleInterval,
+    etag,
+    non_overlapping_visible_intervals,
+    read_from_visible_intervals,
+    total_size,
+    view_from_visibles,
+)
+from .filer import Filer
+from .filer_store import (
+    FilerStore,
+    LogFilerStore,
+    MemoryFilerStore,
+    SqliteFilerStore,
+    scan_subtree,
+)
+from .lsm_store import LsmFilerStore, path_hash64
+from .meta_gate import MetaLookupGate, MetaWriteGate
+from .meta_log import DurableMetaLog, MetaLog, MetaLogTrimmed
+
+__all__ = [
+    "Attr",
+    "Entry",
+    "FileChunk",
+    "new_directory_entry",
+    "VisibleInterval",
+    "etag",
+    "non_overlapping_visible_intervals",
+    "read_from_visible_intervals",
+    "total_size",
+    "view_from_visibles",
+    "Filer",
+    "FilerStore",
+    "LogFilerStore",
+    "MemoryFilerStore",
+    "SqliteFilerStore",
+    "scan_subtree",
+    "LsmFilerStore",
+    "path_hash64",
+    "MetaLookupGate",
+    "MetaWriteGate",
+    "DurableMetaLog",
+    "MetaLog",
+    "MetaLogTrimmed",
+]

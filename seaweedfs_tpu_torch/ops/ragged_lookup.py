@@ -419,25 +419,33 @@ class DeviceColumnArena:
             "errors": 0,
         }
         self.last_error: Optional[str] = None
-        # a refresh that raised, waiting to be raised again by the next
-        # probe_groups or refresh_sync
+        # a refresh (or a flush-path prefetch) that raised, waiting to be
+        # raised again by the next probe_groups or refresh_sync
         self._refresh_error: Optional[BaseException] = None
+        self._error_what = "refresh"
 
-    def note_error(self, exc: BaseException) -> None:
-        """Count a refresh or dispatch that raised."""
+    def note_error(self, exc: BaseException, defer: str = "") -> None:
+        """Count a refresh, prefetch or dispatch that raised. With `defer`
+        (what failed: "refresh", "prefetch"), also hold the error for the
+        next probe_groups or refresh_sync to raise, unless one is held
+        already."""
         with self._lock:
             self.counters["errors"] += 1
             self.last_error = f"{type(exc).__name__}: {exc}"
+            if defer and self._refresh_error is None:
+                self._refresh_error = exc
+                self._error_what = defer
         _metrics().NEEDLE_MAP_DEVICE_ERRORS.inc()
         _LOG.warning("lookup arena error: %s", self.last_error, exc_info=exc)
 
     def _raise_refresh_error(self) -> None:
-        """Raise (once) the error of a refresh that failed since the last
-        call; the next ensure() queues a fresh attempt."""
+        """Raise (once) the error of a refresh or prefetch that failed
+        since the last call; the next ensure() queues a fresh attempt."""
         with self._lock:
             err, self._refresh_error = self._refresh_error, None
+            what = self._error_what
         if err is not None:
-            raise RuntimeError(f"lookup arena refresh failed: {err}") from err
+            raise RuntimeError(f"lookup arena {what} failed: {err}") from err
 
     # ---------------- residency ----------------
     def ensure(self, segments) -> Optional[_Generation]:
@@ -511,8 +519,7 @@ class DeviceColumnArena:
             # never served around from the host maps
             with self._lock:
                 self._refresh_queued = False
-                self._refresh_error = e
-            self.note_error(e)
+            self.note_error(e, defer="refresh")
 
     def prefetch(self, segment: ArenaSegment) -> str:
         """Flush-path residency hint: an LSM store offers a NEWLY SEALED

@@ -283,6 +283,42 @@ REPAIR_SECONDS = REGISTRY.histogram(
 )
 
 
+# the filer (filer/, server/filer.py): the durable meta-log, the write
+# gate, the LSM store's arena prefetch hints and the chunk GC's rounds
+META_FEED_EVENTS = REGISTRY.counter(
+    "seaweedfs_tpu_meta_feed_events_total",
+    "namespace change events appended to the durable meta-log "
+    "change feed (segmented on-disk log)",
+)
+META_FEED_SEGMENTS = REGISTRY.gauge(
+    "seaweedfs_tpu_meta_feed_segment_count",
+    "on-disk segments currently retained by the durable meta log",
+)
+META_WRITE_GATE_BATCHES = REGISTRY.counter(
+    "seaweedfs_tpu_meta_write_gate_batches_total",
+    "write-gate flushes: each one is ONE store round (insert_many) "
+    "carrying every create/update enqueued in the same event-loop tick",
+)
+META_WRITE_GATE_WRITES = REGISTRY.counter(
+    "seaweedfs_tpu_meta_write_gate_writes_total",
+    "individual entry writes that rode a write-gate flush (writes / "
+    "batches = the measured coalescing factor)",
+)
+ARENA_PREFETCH = REGISTRY.counter(
+    "seaweedfs_tpu_arena_prefetch_total",
+    "LSM flush-path arena residency hints, by result (queued = this "
+    "hint scheduled the refresh, piggybacked = one was already queued, "
+    "resident = already uploaded, no_arena = no arena live, "
+    "unavailable = arena killed, error = the hint raised: handed to the "
+    "arena, which raises it at its next probe; never the flush itself)",
+)
+FILER_CHUNK_DELETE_BATCHES = REGISTRY.counter(
+    "seaweedfs_tpu_filer_chunk_delete_batches_total",
+    "batched per-host chunk-delete RPC rounds drained by the filer GC, "
+    "by result (ok/retry)",
+)
+
+
 def render() -> str:
     """Every family in the Prometheus text exposition format (the
     /metrics body)."""

@@ -2,12 +2,14 @@
 util/trace.py.
 
 `current_sampled()` returns the sampled span context of the running
-request, `batch_span()` the span a batch flush records linked to its
-members, and `flag()` marks the running trace for the tail sampler (a
+request, `span()` a child span of it, `span_root()` a root span for a
+background plane, `batch_span()` the span a batch flush records linked to
+its members, and `flag()` marks the running trace for the tail sampler (a
 hedge, a retry). The port has no request entry point that starts a
 trace yet, so no request is ever sampled: `current_sampled` returns
-None, `batch_span` the shared no-op span and `flag` does nothing, which
-costs the gate, the group-commit worker and the read fan-out nothing.
+None, the three span functions the shared no-op span and `flag` does
+nothing, which costs the gates, the group-commit worker, the read
+fan-out and the filer's chunk writes nothing.
 """
 
 from __future__ import annotations
@@ -45,4 +47,16 @@ def current_sampled():
 
 def batch_span(name: str, members, **tags):
     """Flush span for a batch seam; the no-op span while nothing samples."""
+    return NULL_SPAN
+
+
+def span(name: str, **tags):
+    """Child span of the running request; the no-op span while nothing
+    samples."""
+    return NULL_SPAN
+
+
+def span_root(name: str, **tags):
+    """Root span of a background plane; the no-op span while nothing
+    records."""
     return NULL_SPAN
