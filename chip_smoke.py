@@ -11,7 +11,8 @@ index_buckets and bucket_search):
 
   0  identity: nvidia-smi name and power limit, torch and CUDA versions
   1  build the kernels from the checkout's four sources (one nvcc each,
-     all at once; sm_90a), with ptxas's registers and spills for gf256.cu,
+     all at once; sm_90a), with ptxas's registers and spills for gf256.cu
+     and ragged_lookup.cu,
      and beside them host_crc32c.cu (host code only: the needle CRC32C
      where google-crc32c is missing), held to the Python table CRC on
      0 B to 1 MiB and timed on a 1 KiB needle
@@ -50,17 +51,21 @@ index_buckets and bucket_search):
   9  arena_gate: 4 LSM maps of 262,144 entries (5 runs + a memtable tail
      each; cut from 1,048,576, the line says why) resident in the arena; >= 200,000 probes through
      BatchLookupGate at concurrency 256 with the identity check; then
-     ragged_lookup against its plain version at the gate's batch and at
-     65,536 probes
+     ragged_lookup (K2) against its plain version and against the plane
+     kernel it replaced (on contiguous copies of the columns,
+     folded newest-wins on the host) at the gate's median batch and at
+     65,536 probes, both kernels' device ms from the profiler beside both
+     forms' bytes bounds
  10  volume_server (`weed benchmark` scale): volume 1 (LSM map, 1,048,576
-     needles of 1 KiB, 1 % deleted, 1 % overwritten) written, then the
+     needles of 1 KiB, 1 % deleted, 1 % overwritten) written (by a child
+     of this script, `--prep volume1`, while phases 7-9 run), then the
      server started through the CLI's entry function (`volume -index lsm
      -batchLookup arena -storageBackend cuda`) on its own event-loop
      thread; a load client in a child process (this script with
-     --client): AllocateVolume, 65,536 POSTs at concurrency 16, 10,000
+     --client): AllocateVolume, 32,768 POSTs at concurrency 16, 10,000
      warm-up GETs at concurrency 512 through which the server uploads its
      own arena (its host fallbacks reported; any after the warm-up fail),
-     100,000 GETs at concurrency 256 over both volumes (10 % absent, 1 %
+     50,000 GETs at concurrency 256 over both volumes (10 % absent, 1 %
      wrong cookie) with the gate's identity check on (as in the warm-up),
      then off; BulkLookup of
      every key of volume 1 plus 10 % absent against the host map; EC
@@ -74,10 +79,10 @@ index_buckets and bucket_search):
      beside three `volume -mserver ... -storageBackend cuda`, each through
      the CLI's entry function on its own event-loop thread; 10,000
      warm-up GETs of A at concurrency 512 through which the `server`
-     uploads its own arena, then 50,000 GETs of A at concurrency 256 with
+     uploads its own arena, then 25,000 GETs of A at concurrency 256 with
      the gate's identity check on (ragged_lookup must launch); from the
      warm-up's end on, any host fallback, identity mismatch or device
-     error on the `server`'s gate fails; `benchmark -n 32768 -c 16` (cut
+     error on the `server`'s gate fails; `benchmark -n 16384 -c 16` (cut
      from -n 1048576 for time) and `shell` as child processes: benchmark
      writes and reads (every body checked), 5,000 /dir/assign, `ec.encode
      -volumeId A` (generate and spread timed by the shell) spread 4/4/3/3
@@ -86,7 +91,7 @@ index_buckets and bucket_search):
      on its .ecx, `ec.encode` of two benchmark volumes of one server
      through VolumeEcShardsGenerateBatch (equal to the plain version's),
      2,000 GETs of A over all four servers (remote shards, 10 % absent),
-     then a 4-shard server stopped and 2,000 degraded GETs through the
+     then a 4-shard server stopped and 1,000 degraded GETs through the
      other three (each must decode on the card), `ec.rebuild` (the lost
      shards come back identical), 100 EC deletes answering 404 from every
      live server, and every server stopped within 10 s. The servers sit
@@ -126,7 +131,8 @@ index_buckets and bucket_search):
      L2 size, the bounds and the probes B bisects after its first group.
  13  vacuum (`weed benchmark` scale, the master's default -garbageThreshold
      0.3): phase 7's volume (kept through hard links) with a seeded 35 %
-     of its needles deleted (garbage level >= 0.3). 13a: compact2 and
+     of its needles deleted (garbage level >= 0.3; by a child of this
+     script, `--prep deletes`, while phases 10-12 run). 13a: compact2 and
      commit on clones of it: the memory map on each copy route (pread,
      mmap) and through `python -m seaweedfs_tpu_torch compact`, lsm and
      leveldb (the first clone of the whole volume, the others of a prefix
@@ -137,7 +143,7 @@ index_buckets and bucket_search):
      bulk_lookup of every key plus 10 % absent before the commit, and
      after it in batches of 64 .. all on every kind and on a read-only
      sorted load, equal to the reference, and to the host map (every
-     probe on the memory map, the first 16,384 on the others); 65,536
+     probe on the memory map, the first 4,096 on the others); 65,536
      probes through index_search against its plain version on the card.
      13b: `server -index lsm -batchLookup arena -storageBackend cuda
      -garbageThreshold 0.3` on a copy of the volume taken before the last
@@ -146,7 +152,7 @@ index_buckets and bucket_search):
      fids, then `shell "lock; volume.vacuum
      -garbageThreshold 0.3; unlock"` while a child client keeps GETs at
      concurrency 256 running over live, deleted and absent keys (0 wrong
-     bodies, 0 5xx); after the commit a re-warm and 50,000 GETs with the
+     bodies, 0 5xx); after the commit a re-warm and 25,000 GETs with the
      identity check on (ragged_lookup must launch in them; no host
      fallback, mismatch or device error after the re-warm), BulkLookup
      equal to the reference and the
@@ -156,9 +162,10 @@ index_buckets and bucket_search):
      `weed benchmark -size 1024` needles as /!batch/put frames of 64 (the
      filer's ChunkUploadGate) at concurrency 16 through its group-commit
      worker, every reply item checked (fsyncs, mean and largest batch);
-     (b) the BatchRead stream of every key plus 10 % absent in requests
-     of 65,536 keys, every body held to what was written and every absent
-     key to None; index_search must launch at least once a request
+     (b) the BatchRead stream of a seeded half of the keys and of 10 %
+     absent ones in requests of 65,536 keys, every body held to what was
+     written and every absent key to None; index_search must launch at
+     least once a request
      (launches and device ms from the profiler); (c) `server
      -defaultReplication 001` over (a)'s directory and a `volume
      -mserver`, both `-index lsm -batchLookup arena`: run_benchmark with -assignBatch 128 and the replica read
@@ -178,10 +185,10 @@ index_buckets and bucket_search):
      <work>/mlog -replication 000` through the CLI's entry function on its
      own event-loop thread (its meta gate at the default, `device`: K2 on
      the process's arena, the identity check on), over `server -index lsm
-     -batchLookup arena` in a child process started during phase 14 (its
-     own interpreter, so the filer keeps this one);
+     -batchLookup arena` in a child process started once phase 14 has
+     ended (its own interpreter, so the filer keeps this one);
      `weed benchmark -size 1024` bodies as files /bench/d<i // 1024>/f<i>
-     (one 4 MiB chunk each). (b) PUTs at c=16 (chunks through the
+     (one 4 MiB chunk each). (b) PUTs at c=64 (chunks through the
      ChunkUploadGate and /!batch/put, creates through MetaWriteGate, their
      spines through the meta gate), 1 % of them again (the old chunks are
      freed), a multipart POST and a 2-chunk file; (c) 4,096 warm-up GETs,
@@ -199,11 +206,12 @@ index_buckets and bucket_search):
      replays its WAL), 10,000 GETs equal to the record after a warm-up (K2
      must launch), SubscribeMetadata from 0 with one event per create,
      update, rename and delete above; (g) ragged_lookup against its plain
-     version on the filer's own generation at the meta gate's largest flush
-     and at 65,536 probes (hits, misses, paths deleted in the memtable),
-     its device ms from the profiler beside its bytes bound (the phase fails
-     if the profiler records none; these launches are not the path's and
-     are not counted); then 4,096 GETs under the profiler (K2's device ms a
+     version and the plane kernel it replaced, as in phase 9, on the
+     filer's own generation at the meta gate's largest flush and at 65,536
+     probes (hits, misses, paths deleted in the memtable), device ms from
+     the profiler beside the bytes bounds (the phase fails if the profiler
+     records none; these launches are not the path's and are not counted),
+     and a flush's stage walls through probe_groups at both sizes; then 4,096 GETs under the profiler (K2's device ms a
      launch, the card's busy share; their launches are counted). Children of this script
      (`--filer-client MODE`) are the load clients; the file count is cut
      from 1,048,576, and the line says why.
@@ -228,6 +236,7 @@ smallest wakeup it sends to ragged_lookup): phases 0-1, phase 10's server
 and warm-up, then ROUNDS passes of 25,000 GETs with the cut at 128 and 64
 in turns (128, 64, 64, 128, ...), reads/s, p50, p99 and the arena's share
 of batches per pass and their medians per cut; it prints no result line.
+The whole run's "done" line gives each phase's wall.
 """
 
 from __future__ import annotations
@@ -606,7 +615,8 @@ def profile_device(torch, fn, cpu: bool = False) -> dict:
         busy_us += self_us
         if self_us > 0:
             top.append((self_us, ev.key[:80], ev.count))
-        for name in ("index_search_kernel", "ragged_lookup_kernel", "gf_matmul_kernel"):
+        for name in ("index_search_kernel", "ragged_probe_kernel", "ragged_lookup_kernel",
+                     "gf_matmul_kernel"):
             if name in ev.key and ev.count:
                 k = kernels.setdefault(name, [0, 0.0])
                 k[0] += ev.count
@@ -660,15 +670,16 @@ def _on_worker_stream(torch, fn, reps: int) -> None:
         raise err[0]
 
 
-def profiled_kernel_ms(torch, fn, name: str, reps: int) -> tuple:
-    """Mean device ms of one launch of kernel `name`, from the profiler,
-    over `reps` calls of fn(): launched from this thread, then from a
-    worker thread on its own stream, then from this thread with host
-    activity recorded too, until one reading names the kernel. -> (ms,
-    the way that read it, the readings that did not); fails when none
-    does, so that no other clock stands in for the profiler's. (A short
-    reading can come back empty: late in a whole run, 50 launches of
-    ragged_lookup left no record where 1,000 did.)"""
+def profiled_kernel_ms(torch, fn, names: tuple, reps: int) -> tuple:
+    """Mean device ms of one launch of each kernel in `names`, from the
+    profiler, over `reps` calls of fn() (which launches each once):
+    launched from this thread, then from a worker thread on its own stream,
+    then from this thread with host activity recorded too, until one
+    reading names every kernel. -> ({name: ms}, the way that read it, the
+    readings that did not); fails when none does, so that no other clock
+    stands in for the profiler's. (A short reading can come back empty:
+    late in a whole run, 50 launches of ragged_lookup left no record where
+    1,000 did.)"""
     ways = (
         ("this thread", lambda: profile_device(torch, lambda: [fn() for _ in range(reps)])),
         ("a worker thread's stream",
@@ -683,11 +694,11 @@ def profiled_kernel_ms(torch, fn, name: str, reps: int) -> tuple:
         except Exception as e:
             missed.append({"way": way, "error": str(e)[:300]})
             continue
-        k = (prof["kernels"] or {}).get(name)
-        if k:
-            return k["mean_ms"], way, missed
+        got = prof["kernels"] or {}
+        if all(n in got for n in names):
+            return {n: got[n]["mean_ms"] for n in names}, way, missed
         missed.append({"way": way, "device_busy_s": prof["device_busy_s"], "top": prof["top"]})
-    fail(f"the profiler recorded no {name} launch: {missed}")
+    fail(f"the profiler recorded no {names} launch: {missed}")
 
 
 def unique_sector_bytes(torch, rows, row_bytes: int) -> int:
@@ -1075,6 +1086,7 @@ ARENA_CUTS = {
                "gate's probes, the identity check and K2's two comparisons stay"},
 }
 GATE_PROBES = 200_000
+ARENA_PROFILED_LAUNCHES = 1_000  # K2's profiler reading at each shape
 GATE_CONCURRENCY = 256
 
 
@@ -1100,13 +1112,123 @@ class _Vol:
 
 
 def _pack(torch, np, rl, gen, members):
+    """pack_members' planes of `members` on gen's device -> (u32p, i32p,
+    slots, pack_members' blocks)."""
     total = sum(len(k) * len(s) for _g, s, k in members)
     u32 = np.zeros((4, total), dtype=np.uint32)
     i32 = np.zeros((5, total), dtype=np.int32)
-    rl.pack_members(gen, members, u32, i32)
+    blocks = rl.pack_members(gen, members, u32, i32)
     dev = gen.keys.device
     return (torch.from_numpy(u32.view(np.int32)).to(dev),
-            torch.from_numpy(i32).to(dev), total)
+            torch.from_numpy(i32).to(dev), total, blocks)
+
+
+PLANE_FLUSHES = 11  # flushes of the replaced plane form, for its stage walls
+K2_DESIGN = ("16-byte rows; a bucket table of about 2 rows a bucket per run of 4,096 "
+             "rows or more and bloom addressing from the key on the card; R lanes a "
+             "key: the bloom test, then the bucket's bounds where it passes, then a "
+             "4-row window; the newest run's answer reduced by a warp ballot; one "
+             "launch a flush")
+
+
+def k2_against_plain(torch, np, rl, gen, members, what: str, reps: int) -> dict:
+    """K2 at one flush's shape over `gen`: the kernel against its plain
+    version on the same launch inputs (exact), and against the plane kernel
+    it replaced folded newest-wins on the host (exact); the three timed,
+    the two kernels by the profiler in one session; the bytes bound of
+    both forms. None of these launches is the path's: the caller puts the
+    counts back."""
+    plan = rl.LaunchPlan(members)
+    keys, blocks, descs = plan.tensors(gen)
+    args = (gen.rows, gen.tables, gen.bloom, keys, blocks, descs)
+    kern = lambda: rl._ragged_probe_cuda(*args)  # noqa: E731
+    plain = lambda: rl._ragged_probe_torch(*args)  # noqa: E731
+    a, b = kern(), plain()
+    torch.cuda.synchronize()
+    if not all(torch.equal(x, y) for x, y in zip(a, b)):
+        fail(f"ragged_lookup != plain {what}")
+    worst = max_abs_diff(torch, zip(a[1:], b[1:]))
+    # the plane kernel on contiguous copies of the columns, made for this
+    # comparison only
+    u32_d, i32_d, slots, pblocks = _pack(torch, np, rl, gen, members)
+    cols = (gen.keys.contiguous(), gen.offs.contiguous(), gen.sizes.contiguous(), gen.bloom)
+    old = lambda: rl._ragged_lookup_cuda(*cols, u32_d, i32_d)  # noqa: E731
+    o_off, o_size, o_found = old()
+    torch.cuda.synchronize()
+    folded = dict(rl.fold_newest(o_found.cpu().numpy().view(bool), o_off.cpu().numpy(),
+                                 o_size.cpu().numpy(), pblocks))
+    got = [t.cpu().numpy() for t in a]
+    for gi, k0, n in plan.spans:
+        f = folded[gi]
+        if not (np.array_equal(got[0][k0:k0 + n].astype(bool), f["found"])
+                and np.array_equal(got[1][k0:k0 + n], f["rank"])
+                and np.array_equal(got[2][k0:k0 + n], f["off"])
+                and np.array_equal(got[3][k0:k0 + n], f["size"])):
+            fail(f"ragged_lookup != the plane kernel folded newest-wins {what}, group {gi}")
+    # bounds: the probe's inputs and answers once, and the distinct sectors
+    # of the bucket starts, bloom words and final rows its slots need
+    *_a, slot = rl._ragged_probe_torch(*args, with_index=True)
+    t = slot["table"][slot["present"] & (slot["table"] >= 0)]
+    bw = torch.cat([slot["bloom0"][slot["bloom0"] >= 0], slot["bloom1"][slot["bloom1"] >= 0]])
+    need = slot["present"] & (slot["lo"] < slot["hi"])
+    parts = {
+        "launch_in": plan.words * 8, "answers_out": 13 * plan.n_keys,
+        "bucket_starts": unique_sector_bytes(torch, torch.cat([t, t + 1]), 4),
+        "bloom_words": unique_sector_bytes(torch, bw, 4),
+        "rows": unique_sector_bytes(torch, slot["row"][need], 16),
+    }
+    nbytes = sum(parts.values())
+    # the plane form's bound: planes in, per-slot answers out,
+    # bloom words, the key column at each present slot's final row, and the
+    # offset and size at each found slot's
+    _o, _s, f, prow, present = rl._ragged_dispatch_torch(
+        gen.steps, *cols, u32_d, i32_d, with_index=True)
+    pbw = torch.cat([i32_d[3][u32_d[2] != 0], i32_d[4][u32_d[3] != 0]])
+    plane_bytes = (slots * (4 * 4 + 5 * 4 + 4 + 4 + 1) + unique_sector_bytes(torch, pbw, 4)
+                   + unique_sector_bytes(torch, prow[present], 8)
+                   + 2 * unique_sector_bytes(torch, prow[f], 4))
+    ms, way, missed = profiled_kernel_ms(
+        torch, lambda: (kern(), old()), ("ragged_probe_kernel", "ragged_lookup_kernel"), reps)
+    # the plane form's flush, as the path ran it before: pack_members into
+    # pinned planes, one copy each way, the plane kernel, the host's fold
+    pin_u32 = torch.empty((4, slots), dtype=torch.int32, pin_memory=True)
+    pin_i32 = torch.empty((5, slots), dtype=torch.int32, pin_memory=True)
+    pin_out = [torch.empty(slots, dtype=dt, pin_memory=True)
+               for dt in (torch.int32, torch.int32, torch.uint8)]
+    walls = []
+    for _ in range(PLANE_FLUSHES):
+        t0 = time.perf_counter()
+        pb = rl.pack_members(gen, members, pin_u32.numpy().view(np.uint32), pin_i32.numpy())
+        t1 = time.perf_counter()
+        u32_d.copy_(pin_u32, non_blocking=True)
+        i32_d.copy_(pin_i32, non_blocking=True)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        o = old()
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        for h, d in zip(pin_out, o):
+            h.copy_(d, non_blocking=True)
+        torch.cuda.synchronize()
+        rl.fold_newest(pin_out[2].numpy().view(bool), pin_out[0].numpy(), pin_out[1].numpy(), pb)
+        walls.append((t1 - t0, t2 - t1, t3 - t2, time.perf_counter() - t3))
+    plane_walls = {k: sorted(w[i] for w in walls)[len(walls) // 2]
+                   for i, k in enumerate(("pack_s", "upload_s", "dispatch_s", "readback_s"))}
+    return {
+        "keys": plan.n_keys, "groups": len(members), "runs": plan.n_runs,
+        "blocks": plan.n_blocks, "slots": plan.slots,
+        "found": int(a[0].sum()), "generation_bytes": gen.nbytes,
+        "generation_built_s": gen.built_s,
+        "ms": ms["ragged_probe_kernel"], "ms_from": f"profiler, launched from {way}",
+        "profiler_missed": missed, "ms_events": cuda_median_ms(torch, kern, 50),
+        "plain_ms": cuda_median_ms(torch, plain, 10, warm=1),
+        "bound_bytes": nbytes, "bound_parts": parts, "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+        "plane_ms": ms["ragged_lookup_kernel"], "plane_ms_events": cuda_median_ms(torch, old, 50),
+        "plane_bound_bytes": plane_bytes, "plane_bound_ms": plane_bytes / HBM_BYTES_PER_S * 1e3,
+        "plane_flush_walls_s": plane_walls,
+        "plane_flush_walls_from": f"median of {PLANE_FLUSHES} flushes of the plane form",
+        "max_abs_err": worst,
+    }
 
 
 def phase_arena_gate(torch, work: str, seed: int) -> dict:
@@ -1214,11 +1336,12 @@ def phase_arena_gate(torch, work: str, seed: int) -> dict:
         flushes = sorted(b for b, c in hist.items() for _ in range(c))
         median_batch = flushes[len(flushes) // 2]
 
-        # ragged_lookup against its plain version, at the gate's median
-        # batch and at 65,536 probes, on packed planes of this generation
+        # ragged_lookup against its plain version and the plane kernel it
+        # replaced, at the gate's median batch and at 65,536 probes
         gen = arena.ensure(segs)
         timing = {}
         worst = 0
+        counted = rl.KERNEL_LAUNCHES
         for n_probes in (median_batch, 65_536):
             idx = rng.integers(0, len(plan), size=n_probes)
             by_vid = {}
@@ -1226,34 +1349,10 @@ def phase_arena_gate(torch, work: str, seed: int) -> dict:
                 by_vid.setdefault(plan[i][0], []).append(plan[i][1])
             members = [(vid, vols[vid].nm.arena_view([])[1], np.asarray(ks, dtype=np.uint64))
                        for vid, ks in sorted(by_vid.items())]
-            u32_d, i32_d, slots = _pack(torch, np, rl, gen, members)
-            cols = (gen.keys, gen.offs, gen.sizes, gen.bloom)
-            kern = lambda: rl._ragged_lookup_cuda(*cols, u32_d, i32_d)  # noqa: E731
-            plain = lambda: rl._ragged_dispatch_torch(gen.steps, *cols, u32_d, i32_d)  # noqa: E731
-            a, b = kern(), plain()
-            torch.cuda.synchronize()
-            if not (torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
-                    and torch.equal(a[2].bool(), b[2])):
-                fail(f"ragged_lookup != plain at {n_probes} probes")
-            worst = max(worst, max_abs_diff(torch, zip(a[:2], b[:2])))
-            _o, _s, f, rows, present = rl._ragged_dispatch_torch(
-                gen.steps, *cols, u32_d, i32_d, with_index=True)
-            bw = torch.cat([i32_d[3][u32_d[2] != 0], i32_d[4][u32_d[3] != 0]])
-            nbytes = (slots * (4 * 4 + 5 * 4 + 4 + 4 + 1)
-                      + unique_sector_bytes(torch, bw, 4)
-                      + unique_sector_bytes(torch, rows[present], 8)
-                      + 2 * unique_sector_bytes(torch, rows[f], 4))
-            events_ms = cuda_median_ms(torch, kern, 50)
-            device_ms = kernel_device_ms(torch, kern, "ragged_lookup_kernel", 50)
-            timing[n_probes] = {
-                "slots": slots,
-                "ms": device_ms if device_ms is not None else events_ms,
-                "ms_from": "profiler" if device_ms is not None else "events",
-                "ms_events": events_ms,
-                "plain_ms": cuda_median_ms(torch, plain, 10, warm=1),
-                "bound_bytes": nbytes,
-                "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
-            }
+            timing[n_probes] = k2_against_plain(torch, np, rl, gen, members,
+                                                f"at {n_probes} probes", ARENA_PROFILED_LAUNCHES)
+            worst = max(worst, timing[n_probes]["max_abs_err"])
+        rl.KERNEL_LAUNCHES = counted
         # and one probe_groups of 65,536 probes through the entry point
         res65 = arena.probe_groups([(s, k) for _v, s, k in members])
         for (vid, _s, ks), r in zip(members, res65):
@@ -1304,11 +1403,10 @@ def phase_arena_gate(torch, work: str, seed: int) -> dict:
 
 # --- phase 10 ----------------------------------------------------------------
 SERVER_NEEDLES = 1 << 20  # weed benchmark -n 1048576 -size 1024 -c 16
-SERVER_WRITES = 1 << 16
+SERVER_WRITES = 1 << 15  # POSTs into volume 2, cut (SERVER_CUTS)
 WRITE_CONCURRENCY = 16
-# GETs of each read pass (identity check on, then off): cut from 200,000
-# to keep the whole script inside its time limit on a slow host
-SERVER_READS = 100_000
+# GETs of each read pass (identity check on, then off), cut (SERVER_CUTS)
+SERVER_READS = 50_000
 READ_CONCURRENCY = 256
 WARMUP_READS = 10_000
 # the warm-up's concurrency: at 256 a wakeup holds 65-128 GETs, which the
@@ -1322,6 +1420,22 @@ EC_LOST = (0, 3, 10, 13)
 SERVER_START_S = 120
 SERVER_STOP_S = 10
 AB_READS = 25_000  # GETs per pass of --gate-cut-ab
+# why a count below is cut: a run of the whole script went past its
+# 1,200 s limit on a machine with one H100, where another machine of that
+# kind had taken 922.6 s for it with these counts deeper; the cuts and the
+# set-up children (--prep) keep room for a host 1.3x slower and more
+OVER_LIMIT = ("a run of the whole script at the deeper count went past the script's "
+              "1,200 s limit on a machine with one H100, where another machine of that "
+              "kind (NVIDIA H100 80GB HBM3, 700.00 W) took 922.6 s")
+SERVER_CUTS = {
+    "writes": {"from": 1 << 16, "to": SERVER_WRITES,
+               "why": "POSTs into volume 2 at c=16; " + OVER_LIMIT + ", 24.4 s of it the "
+                      "POSTs; every reply is still checked and every GET pass reads both "
+                      "volumes"},
+    "reads": {"from": 100_000, "to": SERVER_READS,
+              "why": "GETs of each read pass; " + OVER_LIMIT + ", 21.5 s and 23.5 s of it "
+                     "the two passes; every check of a pass stays"},
+}
 
 
 def _port_pair(taken: set, start: int = 20000) -> int:
@@ -1552,23 +1666,43 @@ def _gate_cut_ab(work: str, port: int, base_plan: dict, read_plan, rounds: int) 
             "rounds": out, "median_by_cut": med}
 
 
-def write_benchmark_volume(d: str, rng, needle_mod, crc_mod) -> dict:
-    """Volume 1 in `d` before a server starts: LSM map, SERVER_NEEDLES 1 KiB
-    needles from a seeded pool whose CRCs are computed once (as phase 7),
-    1 % deleted, 1 % overwritten. Returns the table a reader checks
-    against: pool, CRCs, ids, cookies, the pool index of each needle,
-    which are live, and the write wall."""
+def benchmark_volume_table(rng, crc_mod) -> dict:
+    """The table a reader of volume 1 checks against, drawn from `rng`:
+    a pool of SERVER_NEEDLES' 1 KiB payloads whose CRCs are computed once
+    (as phase 7), ids, cookies, the pool index of each needle, the 1 %
+    deleted, the 1 % overwritten (with their new blobs) and which are
+    live. Every draw is here, so the child that writes the volume and
+    the phase that reads it draw the same table from the same seed."""
     import numpy as np
 
     pool = [rng.integers(0, 256, NEEDLE_BYTES, dtype=np.uint8).tobytes()
             for _ in range(128)]  # 0-63 volume 1, 64-127 volume 2
     pool_crc = [crc_mod.masked_crc(b) for b in pool]
-    crc_of = dict(zip(pool, pool_crc))
-    real_crc = needle_mod.masked_crc
     ids = np.unique(rng.integers(1, 1 << 48, size=SERVER_NEEDLES + 4096, dtype=np.uint64))
     ids = rng.permutation(ids)[:SERVER_NEEDLES]
     cookies = rng.integers(1, 1 << 32, size=SERVER_NEEDLES, dtype=np.uint64)
     blob_of = rng.integers(0, 64, size=SERVER_NEEDLES)
+    first_blob = blob_of.copy()
+    pick = rng.permutation(SERVER_NEEDLES)[: SERVER_NEEDLES // 50]
+    deleted = pick[: len(pick) // 2]
+    rewritten = pick[len(pick) // 2:]
+    blob_of[rewritten] = (blob_of[rewritten] + 1) % 64
+    live = np.ones(SERVER_NEEDLES, dtype=bool)
+    live[deleted] = False
+    return {"pool": pool, "pool_crc": pool_crc, "ids": ids, "cookies": cookies,
+            "first_blob": first_blob, "blob_of": blob_of, "live": live,
+            "deleted_at": deleted, "rewritten_at": rewritten,
+            "deleted": len(deleted), "rewritten": len(rewritten)}
+
+
+def write_benchmark_volume(d: str, table: dict, needle_mod) -> float:
+    """Volume 1 in `d` before a server starts: LSM map, `table`'s needles
+    written in batches of 4,096, then its deletes and its overwrites.
+    Returns the write wall."""
+    pool, ids, cookies = table["pool"], table["ids"], table["cookies"]
+    first_blob, blob_of = table["first_blob"], table["blob_of"]
+    crc_of = dict(zip(pool, table["pool_crc"]))
+    real_crc = needle_mod.masked_crc
     needle_mod.masked_crc = lambda data: crc_of.get(bytes(data)) or real_crc(data)
     try:
         from seaweedfs_tpu_torch.storage.volume import Volume
@@ -1580,31 +1714,140 @@ def write_benchmark_volume(d: str, rng, needle_mod, crc_mod) -> dict:
                 needle_mod.Needle(cookie=int(c), id=int(k), data=pool[int(b)])
                 for k, c, b in zip(ids[c0:c0 + 4096].tolist(),
                                    cookies[c0:c0 + 4096].tolist(),
-                                   blob_of[c0:c0 + 4096].tolist())
+                                   first_blob[c0:c0 + 4096].tolist())
             ]):
                 if isinstance(r, Exception):
                     fail(f"volume 1 write failed: {r!r}")
-        pick = rng.permutation(SERVER_NEEDLES)[: SERVER_NEEDLES // 50]
-        deleted = pick[: len(pick) // 2]
-        rewritten = pick[len(pick) // 2:]
-        for i in deleted.tolist():
+        for i in table["deleted_at"].tolist():
             v.delete_needle(needle_mod.Needle(cookie=int(cookies[i]), id=int(ids[i])))
-        blob_of[rewritten] = (blob_of[rewritten] + 1) % 64
         for r in v.write_needle_batch([
             needle_mod.Needle(cookie=int(cookies[i]), id=int(ids[i]), data=pool[int(blob_of[i])])
-            for i in rewritten.tolist()
+            for i in table["rewritten_at"].tolist()
         ]):
             if isinstance(r, Exception):
                 fail(f"volume 1 overwrite failed: {r!r}")
         v.close()
-        write_s = time.perf_counter() - t0
+        return time.perf_counter() - t0
     finally:
         needle_mod.masked_crc = real_crc
-    live = np.ones(SERVER_NEEDLES, dtype=bool)
-    live[deleted] = False
-    return {"pool": pool, "pool_crc": pool_crc, "ids": ids, "cookies": cookies,
-            "blob_of": blob_of, "live": live, "deleted": len(deleted),
-            "rewritten": len(rewritten), "write_s": write_s}
+
+
+# --- set-up children ---------------------------------------------------------
+# Set-up that checks nothing runs in a child of this script (`--prep KIND`)
+# beside earlier phases, so the phase that needs it waits only for what is
+# left: volume 1 of phases 10-11 is written while phases 7-9 run, and
+# phase 13's deletes are made on phase 7's volume while phases 10-12 run.
+PREP_S = 600
+
+
+def prep_main(argv: list) -> int:
+    """Child mode of this script (`--prep KIND ...`), printing its result
+    as one JSON line.
+
+    volume1 DIR SEED: write_benchmark_volume into DIR, the table drawn
+        from SEED as phase 10 draws it
+    deletes NPZ SRC COPY: on the volume in SRC (vid, ids, cookies and the
+        doomed rows in NPZ) delete all but the last `by_rpc` doomed
+        needles, copy the .dat and .idx into COPY (13b's volume), then
+        delete the rest"""
+    import numpy as np
+
+    sys.path.insert(0, HERE)
+    from seaweedfs_tpu_torch.storage import needle as needle_mod
+
+    kind = argv[argv.index("--prep") + 1]
+    rest = argv[argv.index("--prep") + 2:]
+    if kind == "volume1":
+        from seaweedfs_tpu_torch.util import crc as crc_mod
+
+        d, seed = rest[0], int(rest[1])
+        os.makedirs(d)
+        table = benchmark_volume_table(np.random.default_rng(seed + 10), crc_mod)
+        print(json.dumps({"write_s": write_benchmark_volume(d, table, needle_mod)}))
+        return 0
+    if kind == "deletes":
+        from seaweedfs_tpu_torch.storage.volume import Volume
+
+        z = np.load(rest[0])
+        src, copy = rest[1], rest[2]
+        vid, ids, cookies = int(z["vid"]), z["ids"], z["cookies"]
+        doomed, n_rpc = z["doomed"], int(z["by_rpc"])
+        t0 = time.perf_counter()
+        v = Volume(src, "", vid)
+        copy_s = 0.0
+        for k, part in enumerate((doomed[:len(doomed) - n_rpc], doomed[len(doomed) - n_rpc:])):
+            for i in part.tolist():
+                if v.delete_needle(needle_mod.Needle(cookie=int(cookies[i]),
+                                                     id=int(ids[i]))) <= 0:
+                    fail(f"needle {int(ids[i]):x} was not live")
+            if k == 0:
+                t1 = time.perf_counter()
+                v.sync()  # the files as they stand, for 13b's copy
+                os.makedirs(copy)
+                for ext in (".dat", ".idx"):
+                    shutil.copyfile(os.path.join(src, f"{vid}{ext}"),
+                                    os.path.join(copy, f"{vid}{ext}"))
+                copy_s = time.perf_counter() - t1
+        delete_s = time.perf_counter() - t0 - copy_s
+        garbage = v.garbage_level()
+        v.close()
+        print(json.dumps({"delete_s": delete_s, "copy_s": copy_s, "garbage": garbage}))
+        return 0
+    fail(f"unknown --prep kind {kind!r}")
+
+
+PREP_DIR = "prep"  # under the work directory: the set-up children's output
+
+
+def free_disk(work: str, spare: tuple = ()) -> None:
+    """Remove what earlier phases left in `work`, but the set-up
+    children's directory and the names in `spare`."""
+    for fn in os.listdir(work):
+        if fn == PREP_DIR or fn in spare:
+            continue
+        path = os.path.join(work, fn)
+        if os.path.isdir(path):
+            shutil.rmtree(path)
+        else:
+            os.remove(path)
+
+
+def _start_prep(work: str, kind: str, args: list) -> dict:
+    """Start a set-up child; its output goes to files under work/prep."""
+    os.makedirs(os.path.join(work, PREP_DIR), exist_ok=True)
+    out = os.path.join(work, PREP_DIR, f"{kind}.out")
+    err = os.path.join(work, PREP_DIR, f"{kind}.err")
+    with open(out, "w") as fo, open(err, "w") as fe:
+        proc = subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--prep", kind, *map(str, args)],
+            stdout=fo, stderr=fe)
+    return {"kind": kind, "proc": proc, "out": out, "err": err,
+            "started": time.perf_counter()}
+
+
+def _await_prep(held: dict) -> dict:
+    """Wait for a set-up child; fail if it failed. Its JSON gains
+    `wall_s` (since its start) and `waited_s` (how long the phase that
+    needs it waited)."""
+    t0 = time.perf_counter()
+    try:
+        rc = held["proc"].wait(timeout=PREP_S)
+    except subprocess.TimeoutExpired:
+        held["proc"].kill()
+        held["proc"].wait()
+        fail(f"set-up child {held['kind']} ran over {PREP_S} s")
+    waited = time.perf_counter() - t0
+    with open(held["out"]) as f:
+        out = f.read()
+    with open(held["err"]) as f:
+        err = f.read()
+    os.remove(held["out"])
+    os.remove(held["err"])
+    if rc != 0:
+        fail(f"set-up child {held['kind']} exited {rc}: {(out + err)[-2000:]}")
+    res = json.loads(out.strip().splitlines()[-1])
+    res.update(wall_s=time.perf_counter() - held["started"], waited_s=waited)
+    return res
 
 
 def plain_on_card_codec(torch):
@@ -1658,12 +1901,15 @@ def plain_encode_sums(torch, work: str, src_base: str, name: str) -> dict:
 
 
 def phase_volume_server(torch, work: str, seed: int, needle_mod, crc_mod,
-                        cut_ab_rounds: int = 0, keep: dict | None = None) -> dict:
+                        cut_ab_rounds: int = 0, keep: dict | None = None,
+                        prepared: dict | None = None) -> dict:
     """The port's volume server, started through the CLI's entry function
     on its own event-loop thread, at `weed benchmark` scale; a load
     client in a child process; EC generate, degraded reads and rebuild
     through the server's RPCs. Every answer is checked. With
-    `cut_ab_rounds`, it stops after the warm-up and `_gate_cut_ab`."""
+    `cut_ab_rounds`, it stops after the warm-up and `_gate_cut_ab`.
+    `prepared` is the `--prep volume1` child that is writing volume 1
+    into work/server; without it the volume is written here."""
     import asyncio
     import socket
 
@@ -1679,8 +1925,13 @@ def phase_volume_server(torch, work: str, seed: int, needle_mod, crc_mod,
 
     rng = np.random.default_rng(seed + 10)
     d = os.path.join(work, "server")
-    os.makedirs(d)
-    table = write_benchmark_volume(d, rng, needle_mod, crc_mod)
+    table = benchmark_volume_table(rng, crc_mod)
+    if prepared is None:
+        os.makedirs(d)
+        volume1 = {"write_s": write_benchmark_volume(d, table, needle_mod)}
+    else:
+        volume1 = dict(_await_prep(prepared), written_by="a child of this script "
+                       "(--prep volume1) while phases 7-9 ran")
     pool, pool_crc = table["pool"], table["pool_crc"]
     ids, cookies, blob_of, live1 = (table[k] for k in ("ids", "cookies", "blob_of", "live"))
     if keep is not None:
@@ -1724,7 +1975,7 @@ def phase_volume_server(torch, work: str, seed: int, needle_mod, crc_mod,
         # the path: every count at 0 now, read after the rebuild
         G.KERNEL_LAUNCHES = IK.KERNEL_LAUNCHES = RL.KERNEL_LAUNCHES = 0
         rpc("AllocateVolume", {"volume_id": 2})
-        # writes: 65,536 POSTs of 1 KiB into volume 2 at concurrency 16
+        # writes: SERVER_WRITES POSTs of 1 KiB into volume 2 at concurrency 16
         ids2 = rng.permutation(np.unique(rng.integers(1 << 48, 1 << 49, size=SERVER_WRITES + 512,
                                                      dtype=np.uint64)))[:SERVER_WRITES]
         cookies2 = rng.integers(1, 1 << 32, size=SERVER_WRITES, dtype=np.uint64)
@@ -1862,8 +2113,9 @@ def phase_volume_server(torch, work: str, seed: int, needle_mod, crc_mod,
     res = {
         "phase": "volume_server",
         "argv": argv,
+        "cuts": SERVER_CUTS,
         "volume1": {"needles": SERVER_NEEDLES, "deleted": table["deleted"],
-                    "overwritten": table["rewritten"], "write_s": table["write_s"]},
+                    "overwritten": table["rewritten"], **volume1},
         "server_start_s": start_s,
         "writes": {"requests": SERVER_WRITES, "concurrency": WRITE_CONCURRENCY, **wres},
         "warmup_reads": {"requests": WARMUP_READS, "concurrency": WARMUP_CONCURRENCY,
@@ -1908,12 +2160,25 @@ CLUSTER_VOLUME_SERVERS = 3  # `volume -mserver` beside the `server`
 CLUSTER_RACKS = ("r0", "r1", "r2", "r3")
 DECODED_GETS = 2_000  # A's GETs through the normal read path after ec.decode
 CLUSTER_SIZE_LIMIT_MB = 1024  # volume A (1,127 MB) is full, as ec.encode wants
-BENCH_N = 1 << 15  # weed benchmark -n: cut from 1,048,576 for time
+BENCH_N = 1 << 14  # weed benchmark -n, cut (CLUSTER_CUTS)
 BENCH_C = 16
 ASSIGNS = 5_000
 REMOTE_GETS = 2_000
-CLUSTER_DEGRADED_GETS = 2_000
-CLUSTER_ARENA_READS = 50_000  # A's GETs on the server after the arena's warm-up
+CLUSTER_DEGRADED_GETS = 1_000
+CLUSTER_ARENA_READS = 25_000  # A's GETs on the server after the arena's warm-up
+CLUSTER_CUTS = {
+    "benchmark_n": {"from": 1 << 20, "to": BENCH_N,
+                    "why": "32,768 before, itself cut from weed benchmark's 1,048,576; "
+                           + OVER_LIMIT + ", 43.7 s of it the benchmark at 32,768; the "
+                           "master still grows its volumes, and the batched encode still "
+                           "takes two of them on one server"},
+    "arena_reads": {"from": 50_000, "to": CLUSTER_ARENA_READS,
+                    "why": "A's GETs after the warm-up; " + OVER_LIMIT + ", 10.7 s of it "
+                           "these GETs; ragged_lookup must still launch in them"},
+    "degraded_gets": {"from": 2_000, "to": CLUSTER_DEGRADED_GETS,
+                      "why": OVER_LIMIT + ", 21.4 s of it the 2,000 GETs (93 a second, "
+                             "each decoding on the card); each still must decode"},
+}
 EC_DELETES = 100
 CLUSTER_START_S = 180
 CHILD_S = 900  # deadline of each child process (benchmark, shell)
@@ -2471,6 +2736,7 @@ def phase_cluster(torch, work: str, seed: int, keep: dict) -> dict:
                 by_driven[u][k] += n
     res = {
         "phase": "cluster",
+        "cuts": CLUSTER_CUTS,
         "device": {"nvidia_smi": nvidia_smi("name,power.limit")},
         "server_argv": server_argv,
         "volume_argv": volume_argv,
@@ -3146,6 +3412,7 @@ def phase_mesh(torch, seed: int, index: dict, ires: dict, sm_clock_hz: float) ->
 
 # --- phase 13 ----------------------------------------------------------------
 VACUUM_STASH = "vacuum-src"  # phase 7's volume, kept for phase 13
+VACUUM_COPY_SUFFIX = "-server"  # beside the stash: 13b's copy, made by the deletes child
 # the master's default -garbageThreshold (seaweedfs_tpu/command/cli.py:20,
 # upstream `weed master`'s): a seeded 35 % of the needles deleted puts the
 # volume just past it
@@ -3156,18 +3423,27 @@ BATCH_DELETE_FIDS = 10_000
 # are on the copy the server opens (VACUUM_CUTS)
 VACUUM_RPC_DELETES = 4 * BATCH_DELETE_FIDS
 VACUUM_RACE_CONCURRENCY = 256
-VACUUM_AFTER_READS = 50_000
+VACUUM_AFTER_READS = 25_000  # cut (VACUUM_CUTS)
 VACUUM_PLAIN_PROBES = 65_536
-# the host maps of the other kinds answer a probe in 10-60 µs (the LSM
+# the host maps of the other kinds answer a probe in 10-300 µs (the LSM
 # runs, a sqlite query, a binary search of the .sdx on disk): they are
-# held to the first 16,384 probes, the memory map to all; every kind's K1
+# held to the first 4,096 probes, the memory map to all; every kind's K1
 # answers are held to all of them and to the plain reference
-HOST_MAP_SAMPLE = 16_384
+HOST_MAP_SAMPLE = 4_096  # cut (VACUUM_CUTS)
 VACUUM_READ_BACK = 1_000
 # 13a: the first clone compacts the whole volume; the others a prefix of
 # it (its first eighth of the .idx rows and their later tombstones)
 VACUUM_PREFIX_SHARE = 1 / 8
 VACUUM_CUTS = {
+    "after_reads": {"from": 50_000, "to": VACUUM_AFTER_READS,
+                    "why": "13b's GETs after the commit's re-warm; " + OVER_LIMIT + ", 9.1 s "
+                           "of it these GETs; ragged_lookup must still launch in them"},
+    "host_map_sample": {"from": 16_384, "to": HOST_MAP_SAMPLE,
+                        "why": "probes held to the host maps of lsm, leveldb and the "
+                               "sorted load; " + OVER_LIMIT + ", 9.6 s of it leveldb's "
+                               "two passes (sqlite, 290 µs a probe); the memory map still "
+                               "takes every probe, and every kind's K1 answers are still "
+                               "held to all of them"},
     "clones_after_the_first": {
         "from": "the whole volume (1,048,576 needles, 35 % deleted)",
         "to": "its first 131,072 .idx rows and their later tombstones",
@@ -3191,6 +3467,25 @@ VACUUM_CUTS = {
 VACUUM_CLONES = (("memory_pread", "memory", "pread"), ("memory_mmap", "memory", "mmap"),
                  ("memory_cli", "memory", "cli"), ("lsm", "lsm", None),
                  ("leveldb", "leveldb", None))
+
+
+def start_vacuum_deletes(work: str, seed: int, keep: dict) -> None:
+    """Draw phase 13's deletes (a seeded VACUUM_DELETE_SHARE of phase 7's
+    live needles) and start the `--prep deletes` child that makes them on
+    the stash; `keep` gains the draw, the rng to go on drawing from, and
+    the child."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed + 13)
+    ids = keep["ids"]
+    doomed = rng.choice(np.nonzero(keep["live"])[0], int(VACUUM_DELETE_SHARE * len(ids)),
+                        replace=False)
+    npz = os.path.join(work, PREP_DIR, "vacuum-deletes.npz")
+    os.makedirs(os.path.dirname(npz), exist_ok=True)
+    np.savez(npz, vid=keep["vid"], ids=ids, cookies=keep["cookies"], doomed=doomed,
+             by_rpc=VACUUM_RPC_DELETES)
+    keep.update(rng=rng, doomed=doomed, deleter=_start_prep(
+        work, "deletes", [npz, keep["dir"], keep["dir"] + VACUUM_COPY_SUFFIX]))
 
 
 def _idx_live(path: str):
@@ -3340,9 +3635,11 @@ def _k1_against_plain(torch, v, probes) -> int:
         K.KERNEL_LAUNCHES = counted
 
 
-def phase_vacuum(torch, work: str, seed: int, keep: dict, needle_mod) -> dict:
+def phase_vacuum(torch, work: str, keep: dict) -> dict:
     """The vacuum plane at `weed benchmark` scale on phase 7's volume. 13a,
-    the volume layer: a seeded 35 % deleted, the garbage level checked,
+    the volume layer: a seeded 35 % deleted (by the `--prep deletes` child
+    that start_vacuum_deletes started; `keep` holds it), the garbage
+    level checked,
     then compact2 and commit on clones (memory on each copy route and
     through `python -m seaweedfs_tpu_torch compact`, lsm, leveldb), every
     clone's .dat and .idx held to the script's own plain reference and
@@ -3368,18 +3665,18 @@ def phase_vacuum(torch, work: str, seed: int, keep: dict, needle_mod) -> dict:
     from seaweedfs_tpu_torch.storage.volume import Volume
 
     t_phase = time.perf_counter()
-    rng = np.random.default_rng(seed + 13)
+    rng, doomed = keep["rng"], keep["doomed"]
+    # the deletes, made by the `--prep deletes` child on the stash
+    deletes = _await_prep(keep["deleter"])
     root = os.path.join(work, "vacuum")
     os.makedirs(root)
     vid = keep["vid"]
     src = os.path.join(root, "src")
     os.rename(keep["dir"], src)
     srv = os.path.join(root, "server")
-    os.makedirs(srv)
+    os.rename(keep["dir"] + VACUUM_COPY_SUFFIX, srv)
     pool, pool_crc = keep["pool"], keep["pool_crc"]
     ids, cookies, blob_of, live0 = (keep[k] for k in ("ids", "cookies", "blob_of", "live"))
-    doomed = rng.choice(np.nonzero(live0)[0], int(VACUUM_DELETE_SHARE * len(ids)),
-                        replace=False)
     live = live0.copy()
     live[doomed] = False
     # 13b's volume: a copy with all but the last VACUUM_RPC_DELETES deletes
@@ -3396,23 +3693,7 @@ def phase_vacuum(torch, work: str, seed: int, keep: dict, needle_mod) -> dict:
 
     # --- 13a: the volume layer ---
     base = os.path.join(src, str(vid))
-    t0 = time.perf_counter()
-    v = Volume(src, "", vid)
-    copy_s = 0.0
-    for part in (doomed[:len(doomed) - len(by_rpc)], by_rpc):
-        for i in part.tolist():
-            if v.delete_needle(needle_mod.Needle(cookie=int(cookies[i]), id=int(ids[i]))) <= 0:
-                fail(f"needle {int(ids[i]):x} was not live")
-        if part is not by_rpc:
-            t1 = time.perf_counter()
-            v.sync()  # the files as they stand, for 13b's copy
-            for ext in (".dat", ".idx"):
-                shutil.copyfile(os.path.join(src, f"{vid}{ext}"),
-                                os.path.join(srv, f"{vid}{ext}"))
-            copy_s = time.perf_counter() - t1
-    delete_s = time.perf_counter() - t0 - copy_s
-    garbage = v.garbage_level()
-    v.close()
+    garbage = deletes["garbage"]
     if garbage < VACUUM_THRESHOLD:
         fail(f"garbage level {garbage} after the deletes, under {VACUUM_THRESHOLD}")
     t0 = time.perf_counter()
@@ -3702,11 +3983,14 @@ def phase_vacuum(torch, work: str, seed: int, keep: dict, needle_mod) -> dict:
         "needles": len(ids),
         "deleted": len(doomed),
         "deleted_through_batch_delete": len(by_rpc),
-        "server_copy_s": copy_s,
+        "server_copy_s": deletes["copy_s"],
         "deleted_before": int((~live0).sum()),
         "garbage_level": garbage,
         "threshold": VACUUM_THRESHOLD,
-        "delete_s": delete_s,
+        "delete_s": deletes["delete_s"],
+        "deletes_made_by": "a child of this script (--prep deletes) while phases 10-12 ran",
+        "deletes_child_wall_s": deletes["wall_s"],
+        "deletes_waited_s": deletes["waited_s"],
         "reference_s": reference_s,
         "13a_s": t13a,
         "cuts": VACUUM_CUTS,
@@ -3743,10 +4027,11 @@ def phase_vacuum(torch, work: str, seed: int, keep: dict, needle_mod) -> dict:
 # (a) weed benchmark -size 1024 (cli.py:746-747) sent as the filer
 # ChunkUploadGate's /!batch/put frames of 64 (server/filer.py:78) at c=16;
 # -n cut from 1,048,576 (TIER_CUTS)
-TIER_NEEDLES = 1 << 18  # (b) then spans 5 BatchRead requests
+TIER_NEEDLES = 1 << 18
 TIER_FRAME = 64
 TIER_CONCURRENCY = 16
 TIER_READ_REQUEST = 65_536  # keys a BatchRead request
+TIER_READ_SHARE = 0.5  # (b) reads a seeded half of (a)'s keys and the absent ones (TIER_CUTS)
 TIER_ABSENT_SHARE = 0.1
 # (c) the cluster's benchmark, its read pass at c=256 and the reads across a
 # replica's loss; (d) `upload -maxMB 4` (the filer's -maxMB, cli.py:444)
@@ -3776,8 +4061,12 @@ TIER_CUTS = {
         "why": "the phase's budget of about 120 s: " + _TIER_RATES + "; 1,048,576 "
                "needles would take about 3.5 minutes for (a) and (b) alone"},
     "batch_read_keys": {"from": (1 << 20) + 104_858,
-                        "to": TIER_NEEDLES + int(TIER_NEEDLES * TIER_ABSENT_SHARE),
-                        "why": "every key of (a) plus 10 % absent"},
+                        "to": int((TIER_NEEDLES + int(TIER_NEEDLES * TIER_ABSENT_SHARE))
+                                  * TIER_READ_SHARE),
+                        "why": "a seeded half of (a)'s keys and of the 10 % absent ones "
+                               "(every key before); " + OVER_LIMIT + ", 35.5 s of it (b); "
+                               "every body read is still held to what was written, in 3 "
+                               "requests, each launching index_search"},
     "benchmark_n": {
         "from": 65_536, "to": TIER_BENCH_N,
         "why": "the phase's budget of about 120 s: " + _TIER_RATES + "; 65,536 "
@@ -3816,8 +4105,9 @@ def tier_client_main(argv: list) -> int:
 
     put:      /!batch/put frames of the table's needles at --concurrency,
               every reply item checked (size and etag)
-    read:     BatchRead of every id plus the absent ids in requests of
-              TIER_READ_REQUEST keys, every body held to the table
+    read:     BatchRead of a seeded TIER_READ_SHARE of the ids and the absent
+              ids in requests of TIER_READ_REQUEST keys, every body held to
+              the table
     bench:    run_benchmark with -assignBatch and the read fan-out, then a
               read-only pass at TIER_WIDE_C; the fids' seeds go to --seeds
     gets:     --n GETs of the table's needles at --concurrency through
@@ -3901,6 +4191,7 @@ def tier_client_main(argv: list) -> int:
 
         absent = t["absent"]
         keys = np.random.default_rng(len(ids)).permutation(np.concatenate([ids, absent]))
+        keys = keys[:int(len(keys) * TIER_READ_SHARE)]
         want = {int(k): pool[b] for k, b in zip(ids.tolist(), blob_of.tolist())}
         wrong = present_absent = missing = 0
         t0 = time.perf_counter()
@@ -3915,7 +4206,8 @@ def tier_client_main(argv: list) -> int:
                 elif got != w:
                     wrong += 1
         wall = time.perf_counter() - t0
-        res.update(keys=len(keys), absent=len(absent), requests=-(-len(keys) // TIER_READ_REQUEST),
+        res.update(keys=len(keys), absent=int(np.isin(keys, absent).sum()),
+                   requests=-(-len(keys) // TIER_READ_REQUEST),
                    wall_s=wall, keys_per_s=len(keys) / wall, wrong=wrong, missing=missing,
                    absent_answered=present_absent,
                    bad=wrong + missing + present_absent)
@@ -4076,7 +4368,8 @@ def _http_get(port: int, path: str, headers: dict | None = None, method: str = "
 def phase_volume_tier(torch, work: str, seed: int) -> dict:
     """The volume tier under the filer. (a) /!batch/put into a `volume
     -index lsm -batchLookup arena` server through its group-commit worker;
-    (b) the BatchRead stream of every key plus the absent ones (K1 must
+    (b) the BatchRead stream of a seeded half of the keys and the absent
+    ones (K1 must
     launch); (c) `server -defaultReplication 001` over (a)'s directory and
     a `volume -mserver`: the benchmark with -assignBatch and the read
     fan-out, a read pass at c=256, GETs of (a)'s volume at c=512 through
@@ -4291,7 +4584,10 @@ def phase_volume_tier(torch, work: str, seed: int) -> dict:
 # default (cli.py:444): one chunk a file. n cut from 1,048,576 (FILER_CUTS)
 FILER_FILES = 1 << 16
 FILER_DIR_FILES = 1024
-FILER_PUT_C = 16
+# PUTs in flight: at 16 a PUT waits on its own chain (the WAL's fsync, its
+# chunk's group commit); at 64 the write and upload gates group four times
+# as many a flush, and the phase's PUTs take half the time or less
+FILER_PUT_C = 64
 FILER_GET_C = 256
 FILER_ABSENT_SHARE = 0.1
 FILER_OVERWRITE_SHARE = 0.01
@@ -4307,6 +4603,7 @@ FILER_PLAIN_PROBES = 65_536
 FILER_MEMTABLE_DELETES = 64  # (g): deleted after the restart, tombstones in the memtable
 FILER_PROFILED_GETS = 4_096  # the last pass, under the profiler
 FILER_PROFILED_LAUNCHES = 1_000  # (g)'s profiler reading (50 came back empty)
+FILER_STAGE_FLUSHES = 21  # (g)'s flushes through probe_groups, for their stage walls
 FILER_GC_S = 60  # the GC loop's drain, bounded
 _FILER_RATES = ("a calibration run of the whole script on an NVIDIA H100 80GB HBM3 at "
                 "700.00 W put 851.9 files/s at c=16 (p50 15.8 ms a PUT: the write gate's "
@@ -4596,8 +4893,8 @@ def phase_filer(torch, work: str, seed: int, server: dict) -> dict:
     too (`--filer-client`). (b) PUTs, an overwrite of 1 %, a multipart
     POST and a 2-chunk file; (c) a warm-up, then the GETs of every file
     plus 10 % absent paths, K2 in each pass (`server` is the child the
-    caller started during phase 14, so that it is up by now; this phase
-    stops it); (d) every directory listed
+    caller started, which this phase waits for and stops); (d) every
+    directory listed
     through the JSON and ListEntries, paged, and a directory renamed; (e)
     1 % of the files and one directory deleted, their chunks freed; (f) a
     restart on the same store and meta-log (and the WAL of a copy taken
@@ -4866,32 +5163,29 @@ def phase_filer(torch, work: str, seed: int, server: dict) -> dict:
                 gen = arena.ensure(segs)
             if gen is None:
                 fail("the filer's segments are not resident after a refresh")
-            u32_d, i32_d, slots = _pack(torch, np, RL, gen, [(0, segs, keys)])
-            cols = (gen.keys, gen.offs, gen.sizes, gen.bloom)
-            kern = lambda: RL._ragged_lookup_cuda(*cols, u32_d, i32_d)  # noqa: E731
-            plain = lambda: RL._ragged_dispatch_torch(gen.steps, *cols, u32_d, i32_d)  # noqa: E731
-            a, b = kern(), plain()
-            torch.cuda.synchronize()
-            if not (torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
-                    and torch.equal(a[2].bool(), b[2])):
-                fail(f"ragged_lookup != plain on the filer's generation at {n_probes} probes")
-            worst = max(worst, max_abs_diff(torch, zip(a[:2], b[:2])))
-            _o, _s, f, rows, present = RL._ragged_dispatch_torch(
-                gen.steps, *cols, u32_d, i32_d, with_index=True)
-            nbytes = (slots * (4 * 4 + 5 * 4 + 4 + 4 + 1)
-                      + unique_sector_bytes(torch, rows[present], 8)
-                      + 2 * unique_sector_bytes(torch, rows[f], 4))
-            events_ms = cuda_median_ms(torch, kern, 50)
-            device_ms, way, missed = profiled_kernel_ms(torch, kern, "ragged_lookup_kernel",
-                                                        FILER_PROFILED_LAUNCHES)
+            got = k2_against_plain(torch, np, RL, gen, [(0, segs, keys)],
+                                   f"on the filer's generation at {n_probes} probes",
+                                   FILER_PROFILED_LAUNCHES)
+            worst = max(worst, got["max_abs_err"])
+            # a flush's stage walls through the entry point, at this size
+            walls, want = [], None
+            for _ in range(FILER_STAGE_FLUSHES):
+                t = {}
+                r = arena.probe_groups([(segs, keys)], timings=t)[0]
+                want = want or r
+                if any(not np.array_equal(r[k], want[k]) for k in want):
+                    fail(f"probe_groups answered otherwise across flushes of {n_probes}")
+                walls.append(t)
+            if int(want["found"].sum()) != got["found"]:
+                fail(f"probe_groups found {int(want['found'].sum())} of {n_probes}, "
+                     f"the kernel {got['found']}")
             timing[str(n_probes)] = {
-                "probes": len(paths), "slots": slots,
+                "probes": len(paths),
                 "memtable_tombstones": sum(v is None for v in mem_hits.values()),
-                "segments": [s.count for s in segs],
-                "ms": device_ms, "ms_from": f"profiler, launched from {way}",
-                "profiler_missed": missed, "ms_events": events_ms,
-                "plain_ms": cuda_median_ms(torch, plain, 10, warm=1),
-                "bound_bytes": nbytes, "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+                "segments": [s.count for s in segs], **got,
+                "stage_walls_s": {k: sorted(w[k] for w in walls)[len(walls) // 2]
+                                  for k in ("pack_s", "upload_s", "dispatch_s", "readback_s")},
+                "stage_walls_from": f"median of {FILER_STAGE_FLUSHES} probe_groups calls",
             }
         res["ragged_lookup"] = {"on": "the filer's generation", "equal_to_plain": True,
                                 "max_abs_err": worst, **timing}
@@ -4915,7 +5209,7 @@ def phase_filer(torch, work: str, seed: int, server: dict) -> dict:
         d = _check_clean(g0, _gate_counts(fport), "the profiled GETs")
         if RL.KERNEL_LAUNCHES - rl0 <= 0:
             fail(f"the profiled GETs launched ragged_lookup no time: {d}")
-        kern = (dev["kernels"] or {}).get("ragged_lookup_kernel") or {}
+        kern = (dev["kernels"] or {}).get("ragged_probe_kernel") or {}
         res["profiled_get"] = {**prof["res"], "ragged_lookup_launches": RL.KERNEL_LAUNCHES - rl0,
                                "profiler_ragged_lookup": kern or None,
                                "device_busy_s": dev["device_busy_s"],
@@ -4998,6 +5292,11 @@ def main() -> int:
     import numpy as np
 
     t_start = time.perf_counter()
+    walls = []  # (phase, seconds since the start) as each phase begins
+
+    def mark(name: str) -> None:
+        walls.append((name, time.perf_counter() - t_start))
+
     # --- phase 0 ---
     smi = nvidia_smi("name,power.limit")
     clock_mhz = float(nvidia_smi("clocks.max.sm").split()[0])
@@ -5013,6 +5312,7 @@ def main() -> int:
     })
 
     # --- phase 1 ---
+    mark("build")
     t0 = time.perf_counter()
     built, errors = {}, {}
 
@@ -5039,6 +5339,7 @@ def main() -> int:
         "libraries": {k: os.path.relpath(v, HERE) for k, v in built.items()},
         "nvcc_seconds": dict(_build.BUILD_SECONDS),
         "gf256_ptxas": ptxas_report(_build.BUILD_LOGS.get("gf256", "")),
+        "ragged_lookup_ptxas": ptxas_report(_build.BUILD_LOGS.get("ragged_lookup", "")),
         "seconds": time.perf_counter() - t0,
         "gf256_max_rows": limits[0], "gf256_max_cols": limits[1],
         "gf256_rows_per_launch": limits[2],
@@ -5057,6 +5358,7 @@ def main() -> int:
         return 0
 
     # --- phase 2 ---
+    mark("kernel_vs_plain")
     kres = kernel_against_plain(torch, G, galois, args.seed, clock_mhz * 1e6)
 
     os.makedirs(args.workdir, exist_ok=True)
@@ -5064,8 +5366,10 @@ def main() -> int:
     launches = {}
     ik_launches = {}
     fserver = None  # phase 15's `server` child
+    preps = []  # the set-up children
     try:
         # --- phase 3 ---
+        mark("encode")
         target = int(args.volume_gib * GIB)
         need = int(target * 2.5) + 2 * GIB  # .dat + 1.4x shards + slack
         free = shutil.disk_usage(work).free
@@ -5125,6 +5429,7 @@ def main() -> int:
         })
 
         # --- phase 4 ---
+        mark("rebuild")
         shard_paths = [base + to_ext(i) for i in range(14)]
         shard_size = os.path.getsize(shard_paths[0])
         want = sha1_files(shard_paths)
@@ -5158,6 +5463,7 @@ def main() -> int:
         })
 
         # --- phase 5 ---
+        mark("parity_vs_plain")
         large, small = EC_LARGE_BLOCK_SIZE, EC_SMALL_BLOCK_SIZE
         chunk = codec.preferred_chunk
         places = []  # (name, .dat start of the row, block, inner offset, width, shard offset)
@@ -5195,6 +5501,7 @@ def main() -> int:
         emit({"phase": "parity_vs_plain", "places": checked, "equal": True})
 
         # --- phase 6 ---
+        mark("degraded_read")
         for i in DEGRADED_LOST:
             os.remove(shard_paths[i])
         ids = np.fromiter(needles, dtype=np.uint64)
@@ -5269,37 +5576,40 @@ def main() -> int:
         })
 
         # --- after phase 6: the mesh rebuild and the decode ---
+        mark("mesh_rebuild_and_decode")
         dres = phase_mesh_rebuild_and_decode(torch, base, codec, want, original)
         launches["mesh_rebuild"] = sum(
             r["gf_matmul_launches"] for r in dres["mesh_rebuild"].values())
         launches["decode"] = dres["decode"]["gf_matmul_launches"]
 
         # --- phases 7-9 ---
-        for fn in os.listdir(work):  # free the EC volume's disk
-            os.remove(os.path.join(work, fn))
+        free_disk(work)  # the EC volume's
+        # phase 10's volume 1, written by a child while phases 7-9 run
+        preps.append(_start_prep(work, "volume1", [os.path.join(work, "server"), args.seed]))
         vkeep: dict = {}
+        mark("volume_lookup")
         vres = phase_volume_lookup(torch, work, args.seed, needle_mod, crc_mod, vkeep)
         ik_launches["volume_lookup"] = vres["kernel_launches"]
         index: dict = {}
+        mark("index_kernel")
         ires = phase_index_kernel(torch, args.seed, index)
+        mark("arena_gate")
         ares = phase_arena_gate(torch, work, args.seed)
 
         # --- phase 10 ---
-        for fn in os.listdir(work):  # free the earlier phases' disk
-            if fn == VACUUM_STASH:
-                continue
-            path = os.path.join(work, fn)
-            if os.path.isdir(path):
-                shutil.rmtree(path)
-            else:
-                os.remove(path)
+        mark("volume_server")
+        free_disk(work, spare=(VACUUM_STASH, "server"))
+        # phase 13's deletes, made by a child while phases 10-12 run
+        start_vacuum_deletes(work, args.seed, vkeep)
+        preps.append(vkeep["deleter"])
         keep: dict = {}
         sres = phase_volume_server(torch, work, args.seed, needle_mod, crc_mod,
-                                   keep=keep)
+                                   keep=keep, prepared=preps[0])
         launches["volume_server"] = sres["kernel_launches"]["gf_matmul"]
         ik_launches["volume_server"] = sres["kernel_launches"]["index_search"]
 
         # --- phase 11 ---
+        mark("cluster")
         shutil.rmtree(os.path.join(work, "server"))  # phase 10's disk
         cres = phase_cluster(torch, work, args.seed, keep)
         launches["cluster"] = cres["kernel_launches"]["gf_matmul"]
@@ -5307,6 +5617,7 @@ def main() -> int:
         ik_launches["cluster"] = cres["kernel_launches"]["index_search"]
 
         # --- phase 12 ---
+        mark("mesh")
         mres = phase_mesh(torch, args.seed, index, ires, clock_mhz * 1e6)
         del index
         launches["mesh"] = mres["kernel_launches"]["gf_matmul"]
@@ -5320,44 +5631,42 @@ def main() -> int:
                 fail(f"phase 12 launched {path} no time")
 
         # --- phase 13 ---
-        for fn in os.listdir(work):  # free the earlier phases' disk
-            if fn == VACUUM_STASH:
-                continue
-            path = os.path.join(work, fn)
-            if os.path.isdir(path):
-                shutil.rmtree(path)
-            else:
-                os.remove(path)
-        vacres = phase_vacuum(torch, work, args.seed, vkeep, needle_mod)
+        mark("vacuum")
+        free_disk(work, spare=(VACUUM_STASH, VACUUM_STASH + VACUUM_COPY_SUFFIX))
+        vacres = phase_vacuum(torch, work, vkeep)
         ik_launches["vacuum"] = vacres["kernel_launches"]["index_search"]
 
         # --- phase 14 ---
-        for fn in os.listdir(work):  # free the earlier phases' disk
-            path = os.path.join(work, fn)
-            if os.path.isdir(path):
-                shutil.rmtree(path)
-            else:
-                os.remove(path)
-        # phase 15's `server` child starts now and comes up during phase 14
-        froot = os.path.join(work, "filer-server")
-        os.makedirs(froot)
-        fserver = _start_server_child(froot, set())
+        free_disk(work)
+        mark("volume_tier")
         tres = phase_volume_tier(torch, work, args.seed)
         ik_launches["volume_tier"] = tres["kernel_launches"]["index_search"]
 
         # --- phase 15 ---
+        # its `server` child starts once phase 14 has ended: started during
+        # phase 14, it competes with phase 14's servers and clients for the
+        # host's cores
+        mark("filer")
+        froot = os.path.join(work, "filer-server")
+        os.makedirs(froot)
+        fserver = _start_server_child(froot, set())
         fres = phase_filer(torch, work, args.seed, server=fserver)
         ik_launches["filer"] = fres["kernel_launches"]["index_search"]
+        mark("end")
     finally:
-        if fserver is not None and fserver["proc"].poll() is None:
-            fserver["proc"].kill()  # a phase failed before phase 15 stopped it
-            fserver["proc"].wait()
+        # a phase failed before phase 15 stopped its server, or before a
+        # set-up child was waited for
+        for child in [fserver] + preps:
+            if child is not None and child["proc"].poll() is None:
+                child["proc"].kill()
+                child["proc"].wait()
         shutil.rmtree(work, ignore_errors=True)
         try:
             os.rmdir(args.workdir)  # only when nothing else is in it
         except OSError:
             pass
-    emit({"phase": "done", "total_s": time.perf_counter() - t_start})
+    emit({"phase": "done", "total_s": time.perf_counter() - t_start,
+          "phase_walls_s": {name: t1 - t0 for (name, t0), (_n, t1) in zip(walls, walls[1:])}})
 
     k2 = ares["ragged_lookup"]["65536"]
     gv = mres["gf_verify"]
@@ -5438,10 +5747,14 @@ def main() -> int:
                 "volume_tier": tres["kernel_launches"]["ragged_lookup"],
                 "filer": fres["kernel_launches"]["ragged_lookup"],
             },
-            "filer_generation": {k: {kk: v[kk] for kk in ("probes", "ms", "ms_from",
-                                                          "plain_ms", "bound_ms")}
-                                 for k, v in fres["ragged_lookup"].items()
-                                 if isinstance(v, dict)},
+            "design": K2_DESIGN,
+            "registers": RL._kernel_lib().ragged_probe_registers(),
+            "at": {f"{where} {k}": {kk: v[kk] for kk in (
+                "keys", "slots", "ms", "ms_from", "plain_ms", "bound_ms", "plane_ms",
+                "plane_bound_ms")}
+                for where, res in (("arena_gate", ares["ragged_lookup"]),
+                                   ("filer", fres["ragged_lookup"]))
+                for k, v in res.items() if isinstance(v, dict)},
             "equal_to_plain": True,
             "max_abs_err": max(ares["max_abs_err"], fres["ragged_lookup"]["max_abs_err"]),
             "shape": f"65536 probes, {k2['slots']} slots over "
@@ -5450,6 +5763,8 @@ def main() -> int:
             "ms_from": k2["ms_from"],
             "plain_ms": k2["plain_ms"],
             "bound_ms": k2["bound_ms"],
+            "plane_ms": k2["plane_ms"],
+            "plane_bound_ms": k2["plane_bound_ms"],
             "bound_by": "bytes",
             "library_ms": None,
         }, {
@@ -5502,6 +5817,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if "--prep" in sys.argv[1:]:
+        sys.exit(prep_main(sys.argv[1:]))
     if "--client" in sys.argv[1:]:
         sys.exit(client_main(sys.argv[1:]))
     if "--tier-client" in sys.argv[1:]:

@@ -1,7 +1,8 @@
 // The bounded lower-bound search over a u64 key column, used by
-// ragged_lookup.cu (K2), whose arena keeps keys, offsets and sizes in
-// separate columns. (index_search.cu, K1, searches packed 16-byte rows
-// with its own loop.)
+// ragged_lookup.cu's plane kernel (the K2 design that the 16-byte rows
+// replaced, kept to be timed beside it), which reads keys, offsets and
+// sizes from separate columns. (index_search.cu, K1, and ragged_lookup.cu's
+// probe kernel search packed 16-byte rows with their own loops.)
 //
 // It replaces the body the JAX lookup programs share,
 // seaweedfs_tpu/ops/index_kernel.py::_search_range_bounded: a fixed

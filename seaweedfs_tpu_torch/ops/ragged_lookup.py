@@ -1,44 +1,57 @@
-"""Ragged-batch lookups over a paged, device-resident column arena.
+"""Ragged-batch lookups over a paged, device-resident row arena.
 
 One lookup-gate wakeup delivers a RAGGED probe batch: needle-map probes
-spanning many volumes' LSM runs. Instead of one IndexSnapshot.lookup per
-volume (per run), the whole wakeup runs as ONE launch of the kernel K2
-(csrc/ragged_lookup.cu) over a column arena that stays resident on the
-card across launches: flat probe keys plus per-probe (row range, segment
-end, bloom word) coordinates into the arena's pages.
+spanning many volumes' LSM runs (or a filer's path hashes over its store's
+runs). Instead of one IndexSnapshot.lookup per volume (per run), the whole
+wakeup runs as ONE launch of the kernel K2 (csrc/ragged_lookup.cu) over an
+arena that stays resident on the card across launches.
 
-Layout (one immutable _Generation per refresh):
+Layout (one immutable _Generation per refresh, one allocation on the card):
 
-    keys               : u64[N]  sealed-run key columns, concatenated,
-    offs/sizes         : u32[N]  each segment base aligned to PAGE rows,
-                                 N a power of two >= MIN_ROWS (zero rows
-                                 pad the pages and the tail)
-    bloom              : u32[W]  bloom-sidecar bitmaps, concatenated as
-                                 LE words; word 0 is a sentinel so
-                                 filterless probes can address it
-    per probe (host-packed into two planes, as the JAX package packs them):
-        u32p [4, P]  key hi, key lo, bloom mask 0, bloom mask 1
-        i32p [5, P]  row lo, row hi (the segment's interpolation bucket,
-                     absolute), end (the segment's exclusive end row),
-                     bloom word 0, bloom word 1 (k=2, the same premixed
-                     murmur3 hash as the host probe path; mask 0 = no
-                     filter = always present)
+    rows    : int64[N, 2]  the sealed runs' 16-byte rows, concatenated:
+                           word 0 the key's u64 bits, word 1 the offset in
+                           its low and the size in its high 32 bits; each
+                           run's base aligned to PAGE rows, N a power of two
+                           >= MIN_ROWS (zero rows pad the pages and the
+                           tail). `keys`, `offs` and `sizes` are strided
+                           views of it.
+    tables  : int32        per run of MIN_BUCKETED rows or more, its bucket
+                           table (ArenaSegment.probe_starts): nb + 1 starts
+                           relative to the run's base, nb = rows // 2 - 1,
+                           at most 2 bytes a row (probe_geometry)
+    bloom   : int32        bloom-sidecar bitmaps, concatenated as LE words;
+                           word 0 is a sentinel (the plane path's filterless
+                           probes address it)
+    desc    : int64[S, 8]  (host) one descriptor a run: kmin, bstep, nb,
+                           base row, end row, table base, bloom base, bloom
+                           mask (-1 bases: not bucketed, no filter)
 
-Two implementations of the dispatch live here: the kernel K2 (launched for
-a generation on the card through _ragged_lookup_cuda, which counts its
-launches in KERNEL_LAUNCHES) and its plain version _ragged_dispatch_torch,
-the JAX program `_ragged_dispatch` (seaweedfs_tpu/ops/ragged_lookup.py:
-181-203) in torch ops, taken only for a generation on the CPU.
+One flush is one launch (LaunchPlan): the descriptors of each group's runs
+newest first, one record a kernel block, and the keys, once each, in one
+host-to-device copy; the kernel answers every key from the newest run that
+holds it (found, rank, offset, size), and one copy brings the answers back.
+
+Two implementations of the probe live here: the kernel K2 (launched for a
+generation on the card through _ragged_probe_cuda, which counts its
+launches in KERNEL_LAUNCHES) and its plain version _ragged_probe_torch,
+taken only for a generation on the CPU. Beside them stay the JAX package's
+per-slot plane form (pack_members, the host packing of its
+_dispatch_members, and _ragged_dispatch_torch, its `_ragged_dispatch`
+(seaweedfs_tpu/ops/ragged_lookup.py:181-203) in torch ops), which the
+tests hold the probe to, and the plane kernel K2 replaced
+(_ragged_lookup_cuda, counted in PLANE_LAUNCHES), which chip_smoke.py
+times beside it. Nothing on the serving path packs planes.
 
 `DeviceColumnArena` pins sealed segments resident with LRU eviction
-(budget ARENA_BYTES unless the caller gives one) and double-buffered
+(budget ARENA_BYTES unless the caller gives one; a segment's bytes count
+its rows, bloom words and bucket table) and double-buffered
 uploads: a refresh builds the next generation on a background thread, on
 that thread's own
 CUDA stream, and synchronises it before the swap, while in-flight
 dispatches keep their reference to the old one (generations are
 immutable; the swap is one pointer under a lock). A dispatch holds its
 generation until its own stream has synchronised, so the caching
-allocator never hands the old columns' memory to anyone under a running
+allocator never hands the old rows' memory to anyone under a running
 kernel. Every caller treats `ensure()` returning None (segments never
 uploaded: arena cold or killed) as an instruction to serve from the host
 maps. A failure is never turned into host answers: a refresh that raises
@@ -62,7 +75,8 @@ import torch
 
 from .gf256 import resolve_device
 from .index_kernel import (
-    Staging, _check_cuda, _search_range_bounded_torch, column_tensor, thread_stream,
+    _SIGN, _check_cuda, _check_rows, _search_range_bounded_torch, column_tensor, search_steps,
+    thread_stream,
 )
 
 PAGE = 2048  # rows; segment bases are page-aligned in the arena
@@ -70,11 +84,16 @@ MIN_ROWS = 4096  # generations pad to pow2 row counts >= this
 
 ARENA_BYTES = 256 << 20  # the default device-memory budget
 
+BLOCK_THREADS = 128  # the probe kernel's block (csrc/ragged_lookup.cu kThreads)
+_DESC_WORDS = 8  # a run descriptor: kmin, bstep, nb, base, end, tbase, bbase, bmask
+
 _HANDLES = itertools.count(1)
 _LOG = logging.getLogger(__name__)
 
-# launches of K2 since the process started (or the caller last reset it)
+# launches of K2 since the process started (or the caller last reset it),
+# and of the plane kernel it replaced, which only chip_smoke.py launches
 KERNEL_LAUNCHES = 0
+PLANE_LAUNCHES = 0
 _LAUNCH_LOCK = threading.Lock()
 
 
@@ -96,6 +115,7 @@ class ArenaSegment:
         "handle", "keys", "offs", "sizes", "bloom_words", "bloom_mbits",
         "count", "nbytes", "source", "alive",
         "_starts", "kmin", "bstep", "nb", "steps", "_buckets_built",
+        "probe_geometry", "_probe_starts",
     )
 
     MIN_BUCKETED = 4096
@@ -118,9 +138,13 @@ class ArenaSegment:
         self.bloom_words = bloom_words
         self.bloom_mbits = int(bloom_mbits)
         self.count = len(keys)
+        self.probe_geometry = (
+            probe_geometry(self.count, int(keys[0]), int(keys[-1])) if self.count else None
+        )
+        self._probe_starts = None
         self.nbytes = self.count * 16 + (
             len(bloom_words) * 4 if bloom_words is not None else 0
-        )
+        ) + self.table_bytes
         self.source = source
         self.alive = alive if alive is not None else (lambda: True)
         self._starts = None
@@ -132,10 +156,33 @@ class ArenaSegment:
         # refined to bucket occupancy when the bucket table is built
         self.steps = max(1, int(np.ceil(np.log2(max(self.count, 1)))) + 1)
 
+    @property
+    def table_bytes(self) -> int:
+        """Bytes of K2's bucket table for this segment (0 when unbucketed)."""
+        return 0 if self.probe_geometry is None else (self.probe_geometry[2] + 1) * 4
+
+    def probe_starts(self) -> Optional[np.ndarray]:
+        """K2's bucket table (probe_geometry): starts int32[nb + 1], the
+        first row whose key is >= kmin + b * bstep, relative to the
+        segment's first row; built once on the host and cached (a refresh
+        uploads it, never rebuilds it). None when probe_geometry leaves
+        the segment unbucketed."""
+        if self.probe_geometry is None:
+            return None
+        if self._probe_starts is None:
+            kmin, bstep, nb = self.probe_geometry
+            keys = np.asarray(self.keys, dtype=np.uint64)
+            bounds = np.uint64(kmin) + np.arange(nb, dtype=np.uint64) * np.uint64(bstep)
+            starts = np.empty(nb + 1, dtype=np.int32)
+            starts[:nb] = np.searchsorted(keys, bounds)
+            starts[nb] = self.count
+            self._probe_starts = starts
+        return self._probe_starts
+
     def buckets(self):
         """Host-side interpolation-bucket table (IndexSnapshot's exact
-        construction), built once per segment and cached — refreshes
-        re-upload columns but never redo this searchsorted."""
+        construction, the JAX arena's), built once per segment and cached;
+        only the plane form (pack_members) reads it."""
         if self._buckets_built:
             return self._starts
         self._buckets_built = True
@@ -164,14 +211,118 @@ class ArenaSegment:
         return starts
 
 
-# --- the plain version ---
+def probe_geometry(n: int, kmin: int, kmax: int) -> Optional[tuple]:
+    """K2's bucket geometry for a sorted segment of n keys from kmin to kmax
+    -> (kmin, bstep, nb), or None when it is too small to bucket (under
+    MIN_BUCKETED rows) or its keys come within MAX_BUCKETS of 2^64, where
+    the host's bucket boundaries would leave u64 (the JAX arena's rules,
+    seaweedfs_tpu/ops/ragged_lookup.py:149-178). Unlike the JAX arena the
+    port buckets a span of 2^62 or more: the kernel never computes a
+    boundary, only (key - kmin) / bstep, and the boundaries below nb stay
+    under kmax + 1 (a filer's path hashes span the whole u64 range). nb =
+    n // 2 - 1 (at most MAX_BUCKETS): about two rows a bucket, so a bucket
+    usually fits the kernel's 4-row window, and the table's nb + 1 starts
+    take at most 2 bytes a row."""
+    if n < ArenaSegment.MIN_BUCKETED or kmax + 1 + ArenaSegment.MAX_BUCKETS >= 1 << 64:
+        return None
+    nb = min(n // 2 - 1, ArenaSegment.MAX_BUCKETS)
+    return kmin, max(1, -(-(kmax - kmin + 1) // nb)), nb
+
+
+# --- the plain versions ---
+def _srl(x: torch.Tensor, s: int) -> torch.Tensor:
+    """Logical right shift of int64 tensors holding u64 bits."""
+    return (x >> s) & ((1 << (64 - s)) - 1)
+
+
+def _mix64_torch(x: torch.Tensor) -> torch.Tensor:
+    """The murmur3 finalizer of storage/needle_map/lsm_map.py::mix64_batch
+    on int64 tensors holding u64 bits (the products wrap as u64's do)."""
+    x = x ^ _srl(x, 33)
+    x = x * (0xFF51AFD7ED558CCD - (1 << 64))
+    x = x ^ _srl(x, 33)
+    x = x * (0xC4CEB9FE1A85EC53 - (1 << 64))
+    return x ^ _srl(x, 33)
+
+
+def _ragged_probe_torch(rows, tables, bloom, keys, blocks, descs, with_index=False):
+    """Plain version of K2, on the kernel's inputs: every (key, run) slot of
+    every block record searched with the JAX package's bounded search (the
+    bucket from the key, the bloom test first), then each key answered from
+    its newest run that holds it. rows int64[N, 2]; tables, bloom int32;
+    keys int64[K] (u64 bits); blocks int32[B, 4] (first key, keys, first
+    run, runs); descs int64[S, 8] (LaunchPlan). -> (found uint8[K], rank
+    int32[K], off int32[K], size int32[K]); with_index adds each slot's
+    key, rank, table entry (-1: none), bloom words (-1: none), search range,
+    final row and bloom verdict (for byte counts)."""
+    dev = keys.device
+    k_all = keys.shape[0]
+    blocks = blocks.to(torch.int64)
+    key0, nk, run0, nr = blocks.unbind(1)
+    per = nk * nr
+    blk = torch.repeat_interleave(torch.arange(len(blocks), device=dev), per)
+    within = torch.arange(blk.numel(), device=dev) - torch.repeat_interleave(
+        torch.cumsum(per, 0) - per, per)
+    nk_s = nk[blk]
+    rank = within // nk_s
+    kidx = key0[blk] + within % nk_s
+    kmin, bstep, nb, base, end, tbase, bbase, bmask = descs[run0[blk] + rank].unbind(1)
+    probe = keys[kidx]
+    # the bloom test: two bits of the run's bitmap, k = 2 double hashing
+    h = _mix64_torch(probe)
+    p0 = h & bmask
+    p1 = (p0 + (_srl(h, 32) | 1)) & bmask
+    filt = bbase >= 0
+    bw0 = torch.where(filt, bbase + (p0 >> 5), -1)
+    bw1 = torch.where(filt, bbase + (p1 >> 5), -1)
+    present = ~filt | (((bloom[bw0.clamp(min=0)] >> (p0 & 31))
+                        & (bloom[bw1.clamp(min=0)] >> (p1 & 31)) & 1) != 0)
+    # the bucket, (max(k, kmin) - kmin) / bstep clamped to nb - 1, on u64
+    # bits: the difference d halved to a non-negative int64 for the division
+    # (d = 2 * half + (d & 1)), as bucket_search._bucket_torch does
+    bucketed = tbase >= 0
+    q = torch.where((probe ^ _SIGN) > (kmin ^ _SIGN), probe, kmin)
+    d = q - kmin
+    half, step = _srl(d, 1), bstep.clamp(min=1)
+    b = 2 * torch.minimum(half // step, nb) + (
+        half % step >= (step + 1 - (d & 1)) // 2).to(torch.int64)
+    tix = torch.where(bucketed, tbase + torch.minimum(b, nb - 1).clamp(min=0), -1)
+    t0 = tables[tix.clamp(min=0)].to(torch.int64)
+    t1 = tables[tix.clamp(min=0) + 1].to(torch.int64)
+    lo = torch.where(bucketed, base + t0, base)
+    hi = torch.where(bucketed, base + t1, end)
+    hi = torch.where(present, hi, lo)
+    steps = search_steps(int((hi - lo).max())) if hi.numel() else 1
+    r32 = rows.view(torch.int32)
+    off, size, found, idx = _search_range_bounded_torch(
+        steps, rows[:, 0], r32[:, 2], r32[:, 3], probe, lo, hi, end, with_index=True)
+    # newest wins: each key's smallest rank among the slots that hold it
+    none = 1 << 62
+    best = torch.full((k_all,), none, dtype=torch.int64, device=dev).scatter_reduce(
+        0, kidx, torch.where(found, rank, none), reduce="amin")
+    win = found & (rank == best[kidx])
+    hit = best < none
+    out_off = torch.zeros(k_all, dtype=torch.int32, device=dev)
+    out_size = torch.zeros(k_all, dtype=torch.int32, device=dev)
+    out_off[kidx[win]] = off[win]
+    out_size[kidx[win]] = size[win]
+    out = (hit.to(torch.uint8), torch.where(hit, best, 0).to(torch.int32), out_off, out_size)
+    if with_index:
+        return out + ({
+            "key": kidx, "rank": rank, "table": tix, "bloom0": bw0, "bloom1": bw1,
+            "lo": lo, "hi": hi, "row": idx, "present": present, "found": found,
+        },)
+    return out
+
+
 def _ragged_dispatch_torch(steps, keys, offs, sizes, bloom, u32p, i32p, with_index=False):
-    """_ragged_dispatch in torch ops: bloom pre-filter (2 word gathers +
-    bit tests per probe) collapses filtered probes' ranges to empty, then
-    the shared bounded search answers every probe against its own
-    segment's rows. keys int64[N] (u64 bits); offs, sizes, bloom int32 (u32
-    bits); u32p int32[4, P] and i32p int32[5, P] as packed. with_index
-    adds each probe's final row and its bloom verdict (for byte counts)."""
+    """The plane form's plain version, _ragged_dispatch in torch ops: bloom
+    pre-filter (2 word gathers + bit tests per probe) collapses filtered
+    probes' ranges to empty, then the shared bounded search answers every
+    probe against its own segment's rows. keys int64[N] (u64 bits); offs,
+    sizes, bloom int32 (u32 bits); u32p int32[4, P] and i32p int32[5, P]
+    as pack_members packs them. with_index adds each probe's final row and
+    its bloom verdict (for byte counts)."""
     # (hi, lo) words -> u64 bits: [lo, hi] int32 pairs read as one LE int64
     probes = torch.stack((u32p[1], u32p[0]), dim=-1).contiguous().view(torch.int64)[:, 0]
     bm0, bm1 = u32p[2], u32p[3]
@@ -186,7 +337,7 @@ def _ragged_dispatch_torch(steps, keys, offs, sizes, bloom, u32p, i32p, with_ind
     return off, size, found & present
 
 
-# --- the CUDA kernel ---
+# --- the CUDA kernels ---
 _LIB = None
 _LIB_LOCK = threading.Lock()
 
@@ -198,22 +349,70 @@ def _kernel_lib():
             from ._build import load_library
 
             lib = load_library("ragged_lookup")
+            vp = ctypes.c_void_p
+            lib.ragged_probe.restype = ctypes.c_int
+            lib.ragged_probe.argtypes = [
+                vp, vp, vp, vp, vp, ctypes.c_int, vp, vp, vp, vp, vp, vp,
+            ]
             lib.ragged_lookup.restype = ctypes.c_int
             lib.ragged_lookup.argtypes = [
-                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                ctypes.c_void_p,
+                vp, vp, vp, ctypes.c_int, vp, vp, vp, ctypes.c_int, vp, vp, vp, vp,
             ]
+            lib.ragged_probe_registers.restype = ctypes.c_int
+            lib.ragged_probe_registers.argtypes = []
             _LIB = lib
         return _LIB
 
 
-def _ragged_lookup_cuda(keys, offs, sizes, bloom, u32p, i32p, out=None):
-    """Launch K2 on the current stream over a generation's columns on the
-    card -> (offset int32[P], size int32[P], found uint8[P]). Not
-    synchronised."""
+def _ragged_probe_cuda(rows, tables, bloom, keys, blocks, descs, out=None):
+    """Launch K2 on the current stream: one block a record of `blocks`
+    (LaunchPlan), over a generation's rows, tables and bloom words on the
+    card -> (found uint8[K], rank int32[K], off int32[K], size int32[K]).
+    Not synchronised."""
     global KERNEL_LAUNCHES
+    _check_rows(rows)
+    dev = rows.device
+    for name, t, dt in (("tables", tables, torch.int32), ("bloom", bloom, torch.int32),
+                        ("keys", keys, torch.int64), ("blocks", blocks, torch.int32),
+                        ("descs", descs, torch.int64)):
+        _check_cuda(name, t, dt, dev)
+    if (keys.dim() != 1 or blocks.dim() != 2 or blocks.shape[1] != 4 or blocks.data_ptr() % 16
+            or descs.dim() != 2 or descs.shape[1] != _DESC_WORDS):
+        raise ValueError("keys must be 1-D, blocks a 16-byte aligned [B, 4] table and "
+                         f"descs [S, {_DESC_WORDS}]")
+    k = keys.shape[0]
+    if out is None:
+        out = (torch.empty(k, dtype=torch.uint8, device=dev),
+               *(torch.empty(k, dtype=torch.int32, device=dev) for _ in range(3)))
+    for name, t, dt in zip(("found", "rank", "off", "size"), out,
+                           (torch.uint8, torch.int32, torch.int32, torch.int32)):
+        _check_cuda(name, t, dt, dev)
+        if t.shape != (k,):
+            raise ValueError(f"out {name} must hold {k} entries")
+    nblocks = blocks.shape[0]
+    if nblocks == 0:
+        return out
+    lib = _kernel_lib()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.ragged_probe(
+            rows.data_ptr(), tables.data_ptr(), bloom.data_ptr(), keys.data_ptr(),
+            blocks.data_ptr(), nblocks, descs.data_ptr(), out[1].data_ptr(),
+            out[2].data_ptr(), out[3].data_ptr(), out[0].data_ptr(), stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"ragged_probe kernel launch failed: CUDA error {rc}")
+    with _LAUNCH_LOCK:
+        KERNEL_LAUNCHES += 1
+    return out
+
+
+def _ragged_lookup_cuda(keys, offs, sizes, bloom, u32p, i32p, out=None):
+    """Launch the plane kernel K2 replaced (chip_smoke.py times it beside
+    K2; nothing else calls it) on the current stream, over contiguous key,
+    offset and size columns and pack_members' planes -> (offset int32[P],
+    size int32[P], found uint8[P]). Not synchronised."""
+    global PLANE_LAUNCHES
     dev = keys.device
     if dev.type != "cuda":
         raise ValueError(f"the kernel takes CUDA tensors, got {dev}")
@@ -254,20 +453,22 @@ def _ragged_lookup_cuda(keys, offs, sizes, bloom, u32p, i32p, out=None):
     if rc != 0:
         raise RuntimeError(f"ragged_lookup kernel launch failed: CUDA error {rc}")
     with _LAUNCH_LOCK:
-        KERNEL_LAUNCHES += 1
+        PLANE_LAUNCHES += 1
     return out
 
 
-def ragged_dispatch(gen: "_Generation", u32p: torch.Tensor, i32p: torch.Tensor, out=None):
-    """One dispatch over `gen`: K2 for a generation on the card (or a
-    raise), the plain version for one on the CPU."""
-    if gen.keys.device.type == "cuda":
-        return _ragged_lookup_cuda(
-            gen.keys, gen.offs, gen.sizes, gen.bloom, u32p, i32p, out=out
-        )
-    return _ragged_dispatch_torch(
-        gen.steps, gen.keys, gen.offs, gen.sizes, gen.bloom, u32p, i32p
-    )
+def ragged_dispatch(gen: "_Generation", keys, blocks, descs, out=None):
+    """One launch over `gen`: K2 for a generation on the card (or a
+    raise), the plain version for one on the CPU -> (found, rank, off,
+    size) per key."""
+    if gen.rows.device.type == "cuda":
+        return _ragged_probe_cuda(gen.rows, gen.tables, gen.bloom, keys, blocks, descs, out=out)
+    return _ragged_probe_torch(gen.rows, gen.tables, gen.bloom, keys, blocks, descs)
+
+
+def _i64(x: int) -> int:
+    """A u64 as the int64 holding its bits."""
+    return x - (1 << 64) if x >= 1 << 63 else x
 
 
 class _Generation:
@@ -275,58 +476,88 @@ class _Generation:
     reference and keep using it even if the arena swaps underneath."""
 
     __slots__ = (
-        "gen_id", "keys", "offs", "sizes", "bloom", "steps",
-        "seg", "rows", "nbytes", "built_s",
+        "gen_id", "rows", "keys", "offs", "sizes", "tables", "bloom", "desc",
+        "seg", "used_rows", "nbytes", "built_s", "_steps",
     )
 
     def __init__(self, gen_id, segments, device: torch.device):
         t0 = time.perf_counter()
         self.gen_id = gen_id
-        self.seg = {}  # handle -> (ArenaSegment, base_row, bloom_base_word)
+        # handle -> (ArenaSegment, base_row, bloom_base_word, descriptor row)
+        self.seg = {}
         rows = 0
-        bloom_words = 1  # word 0 = sentinel for filterless probes
-        steps = 1
-        for s in segments:
-            base = rows
+        bloom_words = 1  # word 0 = sentinel for filterless plane probes
+        table_words = 0
+        layout = []
+        for i, s in enumerate(segments):
             bbase = -1
             if s.bloom_words is not None and s.bloom_mbits:
                 bbase = bloom_words
                 bloom_words += len(s.bloom_words)
-            s.buckets()  # refine s.steps before taking the max
-            steps = max(steps, s.steps)
-            self.seg[s.handle] = (s, base, bbase)
+            starts = s.probe_starts()
+            tbase = -1
+            if starts is not None:
+                tbase = table_words
+                table_words += len(starts)
+            self.seg[s.handle] = (s, rows, bbase, i)
+            layout.append((s, rows, bbase, tbase, starts))
             rows += -(-max(s.count, 1) // PAGE) * PAGE  # page-aligned
-        self.rows = rows
+        self.used_rows = rows
         n = max(MIN_ROWS, 1 << max(0, (rows - 1)).bit_length())
         w = 1 << max(0, (bloom_words - 1)).bit_length()
-        keys = np.zeros(n, dtype=np.uint64)
-        offs = np.zeros(n, dtype=np.uint32)
-        sizes = np.zeros(n, dtype=np.uint32)
-        bloom = np.zeros(w, dtype=np.uint32)
-        for s, base, bbase in self.seg.values():
-            keys[base : base + s.count] = np.asarray(s.keys, dtype=np.uint64)
-            offs[base : base + s.count] = np.asarray(s.offs, dtype=np.uint32)
-            sizes[base : base + s.count] = np.asarray(s.sizes, dtype=np.uint32)
+        t = max(2, table_words)  # the plain version reads entries 0 and 1 unmasked
+        # one allocation, uploaded in one copy: rows, tables, bloom words,
+        # each a whole number of int64 words
+        tw, bw = -(-t // 2), -(-w // 2)
+        blob = np.zeros(2 * n + tw + bw, dtype=np.int64)
+        row_words = blob[: 2 * n].reshape(n, 2)
+        row_halves = blob[: 2 * n].view(np.uint32).reshape(n, 4)
+        tables = blob[2 * n : 2 * n + tw].view(np.int32)
+        bloom = blob[2 * n + tw :].view(np.uint32)
+        desc = np.zeros((len(layout), _DESC_WORDS), dtype=np.int64)
+        for i, (s, base, bbase, tbase, starts) in enumerate(layout):
+            end = base + s.count
+            row_words[base:end, 0] = np.asarray(s.keys, dtype=np.uint64).view(np.int64)
+            row_halves[base:end, 2] = np.asarray(s.offs, dtype=np.uint32)
+            row_halves[base:end, 3] = np.asarray(s.sizes, dtype=np.uint32)
             if bbase >= 0:
                 bloom[bbase : bbase + len(s.bloom_words)] = s.bloom_words
+            if tbase >= 0:
+                tables[tbase : tbase + len(starts)] = starts
+            kmin, bstep, nb = s.probe_geometry or (0, 1, 0)
+            desc[i] = (_i64(kmin), _i64(bstep), nb, base, end, tbase, bbase,
+                       s.bloom_mbits - 1 if bbase >= 0 else 0)
         if device.type == "cuda":
             # built on this thread's own stream and complete before the
             # caller swaps it in (the JAX package's block_until_ready)
             stream = thread_stream(device)
             with torch.cuda.stream(stream):
-                self._upload(keys, offs, sizes, bloom, device)
+                blob_t = column_tensor(blob, torch.int64, device)
             stream.synchronize()
         else:
-            self._upload(keys, offs, sizes, bloom, device)
-        self.steps = steps
-        self.nbytes = (4 * n) * 4 + 4 * w
+            blob_t = column_tensor(blob, torch.int64, device)
+        self.rows = blob_t[: 2 * n].view(n, 2)
+        halves = self.rows.view(torch.int32)
+        self.keys, self.offs, self.sizes = self.rows[:, 0], halves[:, 2], halves[:, 3]
+        self.tables = blob_t[2 * n : 2 * n + tw].view(torch.int32)[:t]
+        self.bloom = blob_t[2 * n + tw :].view(torch.int32)[:w]
+        self.desc = desc
+        self.nbytes = 16 * n + 4 * t + 4 * w + desc.nbytes
+        self._steps = None
         self.built_s = time.perf_counter() - t0
 
-    def _upload(self, keys, offs, sizes, bloom, device) -> None:
-        self.keys = column_tensor(keys, torch.int64, device)
-        self.offs = column_tensor(offs, torch.int32, device)
-        self.sizes = column_tensor(sizes, torch.int32, device)
-        self.bloom = column_tensor(bloom, torch.int32, device)
+    @property
+    def steps(self) -> int:
+        """The plane form's search rounds (the JAX generation's `steps`),
+        from the segments' host bucket tables, built on first use: the
+        probe path never reads it."""
+        if self._steps is None:
+            steps = 1
+            for s, *_ in self.seg.values():
+                s.buckets()
+                steps = max(steps, s.steps)
+            self._steps = steps
+        return self._steps
 
 
 def pack_members(gen: _Generation, members, u32p: np.ndarray, i32p: np.ndarray) -> list:
@@ -334,7 +565,8 @@ def pack_members(gen: _Generation, members, u32p: np.ndarray, i32p: np.ndarray) 
     _dispatch_members does: slot block per (group, segment), rank-major.
     members: [(group index, segments newest-first, keys u64)]; u32p
     uint32[4, total] and i32p int32[5, total] (total = sum of K * R), every
-    entry written. Returns [(group index, base slot, K, R)]."""
+    entry written. Returns [(group index, base slot, K, R)]. The plane form
+    K2 replaced: the tests and chip_smoke.py hold the probe to it."""
     from ..storage.needle_map.lsm_map import mix64_batch
 
     blocks = []
@@ -350,7 +582,7 @@ def pack_members(gen: _Generation, members, u32p: np.ndarray, i32p: np.ndarray) 
         mixed = None
         for rj, s in enumerate(segments):
             sl = slice(base_slot + rj * K, base_slot + (rj + 1) * K)
-            seg, base, bbase = gen.seg[s.handle]
+            seg, base, bbase, _d = gen.seg[s.handle]
             phi[sl] = g_hi
             plo[sl] = g_lo
             end[sl] = base + seg.count
@@ -381,8 +613,106 @@ def pack_members(gen: _Generation, members, u32p: np.ndarray, i32p: np.ndarray) 
     return blocks
 
 
-# the probe planes of one dispatch: u32p [4, P] and i32p [5, P]
-_PLANES = ((4, torch.int32), (5, torch.int32))
+def fold_newest(found, off, size, blocks) -> list:
+    """The plane form's newest-wins reduction, as the JAX package's
+    _dispatch_members does it on the host: per pack_members block, each
+    key's first (newest) run that found it -> [(group index, {found, rank,
+    off, size})]."""
+    out = []
+    for gi, base_slot, K, R in blocks:
+        fm = found[base_slot : base_slot + K * R].reshape(R, K)
+        om = off[base_slot : base_slot + K * R].reshape(R, K)
+        sm = size[base_slot : base_slot + K * R].reshape(R, K)
+        rank = np.argmax(fm, axis=0)
+        cols = np.arange(K)
+        out.append((gi, {"found": fm.any(axis=0), "rank": rank.astype(np.int32),
+                         "off": om[rank, cols], "size": sm[rank, cols]}))
+    return out
+
+
+class LaunchPlan:
+    """One flush over a generation laid out as K2's inputs, in int64 words:
+    the descriptors of each group's runs, newest first, group after group
+    (_DESC_WORDS each); one record a kernel block (int32 first key, keys,
+    first run, runs: a block holds keys of one group, BLOCK_THREADS // L of
+    them at L = min(next power of two >= R, 32) lanes a key); the keys, once
+    each (u64 bits). members: [(group index, segments newest-first, keys
+    u64)], every group with keys and segments resident in the generation."""
+
+    __slots__ = ("members", "spans", "n_runs", "n_blocks", "n_keys", "slots", "words",
+                 "_groups")
+
+    def __init__(self, members):
+        self.members = members
+        self.spans = []  # (group index, first key, K)
+        groups = []  # (first key, K, first run, R, keys a block, blocks)
+        kbase = rbase = nblk = slots = 0
+        for gi, segments, keys in members:
+            k, r = len(keys), len(segments)
+            kpb = BLOCK_THREADS // min(1 << (r - 1).bit_length(), 32)
+            groups.append((kbase, k, rbase, r, kpb, -(-k // kpb)))
+            self.spans.append((gi, kbase, k))
+            nblk += groups[-1][5]
+            kbase += k
+            rbase += r
+            slots += k * r
+        self._groups = groups
+        self.n_runs, self.n_blocks, self.n_keys, self.slots = rbase, nblk, kbase, slots
+        self.words = _DESC_WORDS * rbase + 2 * nblk + kbase
+
+    def write(self, gen: _Generation, buf: np.ndarray) -> None:
+        """Write the launch's words into buf (int64, at least `words`)."""
+        rw, bw = _DESC_WORDS * self.n_runs, 2 * self.n_blocks
+        rows = [gen.seg[s.handle][3] for _gi, segments, _k in self.members for s in segments]
+        buf[:rw] = gen.desc[rows].reshape(-1)
+        rec = buf[rw : rw + bw].view(np.int32).reshape(-1, 4)
+        kv = buf[rw + bw : rw + bw + self.n_keys].view(np.uint64)
+        b = 0
+        for (_gi, _s, keys), (kb, k, rb, r, kpb, n) in zip(self.members, self._groups):
+            g = rec[b : b + n]
+            g[:, 0] = np.arange(kb, kb + k, kpb)
+            g[:, 1:] = (kpb, rb, r)
+            g[-1, 1] = k - (n - 1) * kpb
+            kv[kb : kb + k] = keys
+            b += n
+
+    def views(self, t: torch.Tensor) -> tuple:
+        """(keys int64[K], blocks int32[B, 4], descs int64[S, 8]): the
+        regions of a flat int64 tensor that holds the written words."""
+        rw, bw = _DESC_WORDS * self.n_runs, 2 * self.n_blocks
+        descs = t[:rw].view(self.n_runs, _DESC_WORDS)
+        blocks = t[rw : rw + bw].view(torch.int32).view(self.n_blocks, 4)
+        return t[rw + bw : rw + bw + self.n_keys], blocks, descs
+
+    def tensors(self, gen: _Generation) -> tuple:
+        """The launch's inputs as tensors on gen's device (for comparisons
+        and timings; the flush path writes them into its pinned staging)."""
+        buf = np.empty(self.words, dtype=np.int64)
+        self.write(gen, buf)
+        return self.views(torch.from_numpy(buf).to(gen.rows.device))
+
+
+def _answer_words(k: int) -> int:
+    return 3 * k + (k + 3) // 4
+
+
+def _answer_views(t: torch.Tensor, k: int) -> tuple:
+    """(found uint8[k], rank, off, size int32[k]) in a flat int32 tensor of
+    _answer_words(k): rank, off, size, then the found bytes."""
+    found = t[3 * k : 3 * k + (k + 3) // 4].view(torch.uint8)[:k]
+    return found, t[:k], t[k : 2 * k], t[2 * k : 3 * k]
+
+
+class _FlushStaging:
+    """One thread's flush buffers on the card: the launch's input words and
+    the answers, pinned on the host, with device twins."""
+
+    def __init__(self, device: torch.device, words: int, keys: int):
+        self.words, self.keys = words, keys
+        self.host_in = torch.empty(words, dtype=torch.int64, pin_memory=True)
+        self.dev_in = torch.empty(words, dtype=torch.int64, device=device)
+        self.host_out = torch.empty(_answer_words(keys), dtype=torch.int32, pin_memory=True)
+        self.dev_out = torch.empty(_answer_words(keys), dtype=torch.int32, device=device)
 
 
 class DeviceColumnArena:
@@ -566,7 +896,7 @@ class DeviceColumnArena:
                 "generation": gen.gen_id if gen else 0,
                 "resident_segments": len(gen.seg) if gen else 0,
                 "resident_bytes": gen.nbytes if gen else 0,
-                "resident_rows": gen.rows if gen else 0,
+                "resident_rows": gen.used_rows if gen else 0,
                 "registered_segments": len(self._sources),
                 "budget_bytes": self.budget,
                 "dead": self._dead,
@@ -629,66 +959,61 @@ class DeviceColumnArena:
                 raise
         return results
 
-    def _staging(self, total: int) -> Staging:
+    def _staging(self, words: int, keys: int) -> _FlushStaging:
         st = getattr(self._local, "staging", None)
-        if st is None or st.cap < total:
-            st = self._local.staging = Staging(
-                self.device, max(total, 64, st.cap if st else 0), _PLANES
-            )
+        if st is None or st.words < words or st.keys < keys:
+            st = self._local.staging = _FlushStaging(
+                self.device, max(words, 64, st.words if st else 0),
+                max(keys, 64, st.keys if st else 0))
         return st
 
     def _dispatch_members(self, gen, members, results, timings) -> None:
         t0 = time.perf_counter()
-        total = sum(len(keys) * len(segments) for _gi, segments, keys in members)
-        st = self._staging(total)
-        u32_t, i32_t = st.inputs(total)
-        blocks = pack_members(gen, members, u32_t.numpy().view(np.uint32), i32_t.numpy())
-        t1 = time.perf_counter()
+        plan = LaunchPlan(members)
+        k = plan.n_keys
         if self.device.type == "cuda":
+            st = self._staging(plan.words, k)
+            plan.write(gen, st.host_in.numpy())
+            t1 = time.perf_counter()
             stream = thread_stream(self.device)
             with torch.cuda.stream(stream):
-                u32_d, i32_d = st.upload(total)
+                dev_in = st.dev_in[: plan.words]
+                dev_in.copy_(st.host_in[: plan.words], non_blocking=True)
                 if timings is not None:
                     # barrier only when stage walls are being measured
                     stream.synchronize()
                 t2 = time.perf_counter()
-                ragged_dispatch(gen, u32_d, i32_d, out=st.results(total))
+                ragged_dispatch(gen, *plan.views(dev_in), out=_answer_views(st.dev_out, k))
                 if timings is not None:
                     stream.synchronize()
                 t3 = time.perf_counter()
-                off_t, size_t, found_t = st.download(total)
+                host_out = st.host_out[: _answer_words(k)]
+                host_out.copy_(st.dev_out[: _answer_words(k)], non_blocking=True)
             # `gen` stays referenced until this stream has finished with
-            # its columns
+            # its rows
             stream.synchronize()
-            off_h = off_t.numpy().view(np.uint32)
-            size_h = size_t.numpy().view(np.uint32)
-            found_h = found_t.numpy().view(bool)
+            found, rank, off, size = (t.numpy() for t in _answer_views(host_out, k))
         else:
-            t2 = time.perf_counter()
-            off_d, size_d, found_d = ragged_dispatch(gen, u32_t, i32_t)
+            buf = np.empty(plan.words, dtype=np.int64)
+            plan.write(gen, buf)
+            t1 = t2 = time.perf_counter()
+            found, rank, off, size = (
+                t.numpy() for t in ragged_dispatch(gen, *plan.views(torch.from_numpy(buf))))
             t3 = time.perf_counter()
-            off_h = off_d.numpy().view(np.uint32)
-            size_h = size_d.numpy().view(np.uint32)
-            found_h = found_d.numpy()
-        for gi, base_slot, K, R in blocks:
-            fm = found_h[base_slot : base_slot + K * R].reshape(R, K)
-            om = off_h[base_slot : base_slot + K * R].reshape(R, K)
-            sm = size_h[base_slot : base_slot + K * R].reshape(R, K)
-            rank = np.argmax(fm, axis=0)  # first (newest) hit
-            cols = np.arange(K)
+        for gi, a, n in plan.spans:
             results[gi] = {
-                "found": fm.any(axis=0),
-                "rank": rank.astype(np.int32),
-                "off": om[rank, cols],
-                "size": sm[rank, cols],
+                "found": found[a : a + n].astype(bool),
+                "rank": rank[a : a + n].copy(),
+                "off": off[a : a + n].view(np.uint32).copy(),
+                "size": size[a : a + n].view(np.uint32).copy(),
             }
         t4 = time.perf_counter()
         with self._lock:
             self.counters["dispatches"] += 1
-            self.counters["probes"] += total
+            self.counters["probes"] += plan.slots
         m = _metrics()
         m.NEEDLE_MAP_DEVICE_DISPATCHES.inc()
-        m.NEEDLE_MAP_DEVICE_PROBES.inc(total)
+        m.NEEDLE_MAP_DEVICE_PROBES.inc(plan.slots)
         if timings is not None:
             timings["pack_s"] = timings.get("pack_s", 0.0) + (t1 - t0)
             timings["upload_s"] = timings.get("upload_s", 0.0) + (t2 - t1)

@@ -68,8 +68,9 @@ def _groups(mod, specs, rng):
 
 def test_packing_and_dispatch_equal_jax(monkeypatch):
     """One wakeup over ragged segments (empty, one-row, bloom-filtered):
-    the port packs the same planes, its plain dispatch equals the jit
-    program on the JAX generation, and the folded answers are equal."""
+    the port's pack_members packs the planes the JAX arena dispatches, its
+    plain plane dispatch equals the jit program on the JAX generation, and
+    the answers of both arenas' probe_groups are equal."""
     specs = _segment_specs(np.random.default_rng(0))
     seen = {}
     orig = jax_rl._ragged_dispatch
@@ -79,13 +80,6 @@ def test_packing_and_dispatch_equal_jax(monkeypatch):
         return orig(steps, khi, klo, offs, sizes, bloom, u32p, i32p)
 
     monkeypatch.setattr(jax_rl, "_ragged_dispatch", spy)
-    orig_port = rl.ragged_dispatch
-
-    def port_spy(gen, u32p, i32p, out=None):
-        seen["port"] = (u32p.clone(), i32p.clone())
-        return orig_port(gen, u32p, i32p, out)
-
-    monkeypatch.setattr(rl, "ragged_dispatch", port_spy)
     answers = {}
     for name, mod, kw in (("jax", jax_rl, {}), ("port", rl, {"device": "cpu"})):
         segs, groups = _groups(mod, specs, np.random.default_rng(1))
@@ -96,13 +90,17 @@ def test_packing_and_dispatch_equal_jax(monkeypatch):
             answers[name] = arena.probe_groups(groups)
             if name == "port":
                 gen = arena._gen
+                members = [(gi, s, np.asarray(k, dtype=np.uint64))
+                           for gi, (s, k) in enumerate(groups)]
         finally:
             arena.close()
     steps, khi, klo, offs, sizes, bloom, ju32, ji32 = seen["jax"]
-    pu32, pi32 = seen["port"]
-    total = pu32.shape[1]
-    assert np.array_equal(ju32[:, :total], pu32.numpy().view(np.uint32))
-    assert np.array_equal(ji32[:, :total], pi32.numpy())
+    total = sum(len(k) * len(s) for _gi, s, k in members)
+    pu32 = np.zeros((4, total), dtype=np.uint32)
+    pi32 = np.zeros((5, total), dtype=np.int32)
+    rl.pack_members(gen, members, pu32, pi32)
+    assert np.array_equal(ju32[:, :total], pu32)
+    assert np.array_equal(ji32[:, :total], pi32)
     assert not ju32[:, total:].any() and not ji32[:, total:].any()  # JAX pad
     # the plain version on the JAX generation's columns and planes
     keys = (np.asarray(khi).astype(np.uint64) << np.uint64(32)) | np.asarray(klo)
