@@ -3,7 +3,8 @@
 
 Drives the port's paths through the entry points a volume server
 calls, at full width, then through the port's volume server, its cluster,
-its mesh plane, the volume tier under the filer and the filer, and holds each CUDA
+its mesh plane, the volume tier under the filer, the filer and its
+scale-out, and holds each CUDA
 kernel against its plain PyTorch version: warm-storage erasure coding
 (gf_matmul, and gf_verify for the mesh's parity check) and the
 needle-index lookup (index_search, ragged_lookup, and the mesh lookup's
@@ -214,7 +215,38 @@ index_buckets and bucket_search):
      and a flush's stage walls through probe_groups at both sizes; then 4,096 GETs under the profiler (K2's device ms a
      launch, the card's busy share; their launches are counted). Children of this script
      (`--filer-client MODE`) are the load clients; the file count is cut
-     from 1,048,576, and the line says why.
+     from 1,048,576, and the line says why. Its `server` child stays up for
+     phase 16.
+ 16  the filer's scale-out on the card (bench.py's meta fleet leg at its
+     largest fleet): four `filer -fleetMap FLEETMAP -fleetSelf ADDR -store
+     <work>/fleet<i>.lsm -metaLog ...` children (each meta gate at the
+     default, `device`: K2 in each child's own process, the identity check
+     on), a follower (`-followSource` member 0), two `-peers` filers and a
+     `-shards 4` filer, their master phase 15's `server`. (b) 65,536
+     entries of 64 directories created at c=64 by children of this script
+     (`--fleet-client`), 10 % through a member that does not own them,
+     whose `forwarded` counters must match; the sharded filer's 16,384
+     creates and the peers' beside them; (c) after a warm-up, lookups
+     through the port's meta_fleet_driver children (4 at c=24) at each
+     member alone and at the fleet together (10 % absent), and LISTs of
+     every directory: every answer checked, 0 forwards, K2 device batches
+     and launches on every member, 0 host fallbacks, identity mismatches
+     or device errors; every entry read back by ListEntries at its owner,
+     in key order with its etag; (d) FleetMoveRange of the upper half of
+     member 0's range to member 1 while a client creates and reads paths
+     in it through both: the new epoch, every entry written before and
+     during the move listed with its etag through both members, lookups
+     through both (the source forwards them; the destination answers on
+     K2), the source's own store empty of the range; (e) the follower at
+     member 0's head: every path of member 0 looked up through both, the
+     answers equal, a read past its cursor redirected, a write refused
+     `read_only_follower`, its staleness bound; (f) a peer's creates in
+     the other's SubscribeMetadata and store; a rebalance of the sharded
+     filer while writes go on, every entry listed in key order with its
+     etag, its gate's flushes all host lookups (`no_arena_view`); (g)
+     `shell meta.fleet.status` of member 0. The lookup passes are seeded
+     samples, and the line says why; the card's memory with the children
+     up and each child's K2 launches are in the line.
 
 Each phase prints one JSON line; any mismatch or exception exits non-zero
 without the final line. The line before last but one is the kernels
@@ -4798,7 +4830,12 @@ def _gate_counts(port: int) -> dict:
             "upload_gate": g.get("upload_gate"),
             "chunk_delete_rounds": g["chunk_delete_rounds"],
             "chunk_delete_pending": g["chunk_delete_pending"],
-            "chunk_delete_inflight": g["chunk_delete_inflight"]}
+            "chunk_delete_inflight": g["chunk_delete_inflight"],
+            # a filer child's own K2 launches and tensors on the card, its fleet
+            # counters and its shards (phase 16)
+            "ragged_lookup_launches": g.get("ragged_lookup_launches"),
+            "device_memory": g.get("device_memory"), "fleet": g.get("fleet"),
+            "shards": g.get("shards")}
 
 
 def _gate_delta(before: dict, after: dict) -> dict:
@@ -4866,21 +4903,25 @@ def _tail(path: str) -> str:
 
 
 def _stop_server_child(held: dict) -> float:
+    """SIGTERM (unless sent already: a second one could land after the
+    child's handler is gone) and wait; fails unless it exits 0 in time."""
     import signal
 
     t0 = time.perf_counter()
     proc = held["proc"]
+    name = held.get("name", "the server")
     if proc.poll() is None:
-        proc.send_signal(signal.SIGTERM)
+        if not held.get("signalled"):
+            proc.send_signal(signal.SIGTERM)
         try:
             proc.wait(SERVER_STOP_S)
         except subprocess.TimeoutExpired:
             proc.kill()
             proc.wait()
-            fail(f"the server did not stop in {SERVER_STOP_S} s")
+            fail(f"{name} did not stop in {SERVER_STOP_S} s")
     held["log"].close()
     if proc.returncode != 0:
-        fail(f"the server exited {proc.returncode}: {_tail(held['log'].name)}")
+        fail(f"{name} exited {proc.returncode}: {_tail(held['log'].name)}")
     return time.perf_counter() - t0
 
 
@@ -5219,7 +5260,7 @@ def phase_filer(torch, work: str, seed: int, server: dict) -> dict:
     finally:
         if held is not None:
             res["stop_s"] = _stop_served(held, SERVER_STOP_S)
-        res["server"]["stop_s"] = _stop_server_child(server)
+    res["server"]["kept_for"] = "phase 16, which stops it"
     res["kernel_launches"] = {"index_search": IK.KERNEL_LAUNCHES, "ragged_lookup": RL.KERNEL_LAUNCHES}
     res["phase_s"] = time.perf_counter() - t_phase
     shutil.rmtree(root, ignore_errors=True)
@@ -5238,6 +5279,840 @@ def _http_get_body(port: int, path: str, method: str = "GET", body: bytes = b"",
         return resp.status, dict(resp.getheaders()), resp.read()
     finally:
         conn.close()
+
+
+# --- phase 16: the metadata fleet ---------------------------------------------------------
+
+FLEET_MEMBERS = 4  # the JAX leg's largest fleet (bench.py measure_meta_fleet)
+FLEET_DIRS = 64
+FLEET_DIR_FILES = 1024  # 65,536 entries: phase 15's namespace size
+FLEET_CREATE_CHILDREN = 4
+FLEET_CREATE_C = 16  # a create child's creates in flight: 64 in all
+FLEET_FORWARD_SHARE = 0.1  # creates sent to a member that does not own the path
+FLEET_ABSENT_SHARE = 0.1
+FLEET_DRIVERS = 4  # meta_fleet_driver children a pass, at c=24 each (bench.py:7385-7386)
+FLEET_DRIVER_C = 24
+FLEET_WARMUP = 1_024  # lookups a member (and the follower) before its counted passes
+FLEET_ALONE_LOOKUPS = 2_048  # a member's pass alone: a seeded sample of its range (FLEET_CUTS)
+FLEET_TOGETHER_LOOKUPS = 16_384  # the fleet's pass: a seeded sample (FLEET_CUTS)
+FLEET_MOVE_LOOKUPS = 2_048  # (d)'s lookups through each member: a seeded sample (FLEET_CUTS)
+FLEET_COMPARE_CHILDREN = 4  # (e): the follower against member 0, a quarter of the paths each
+FLEET_CHURN_C = 8
+FLEET_CHURN_S = 1.0  # the move's client runs this long before the move and after its commit
+FLEET_CHURN_CREATES = 50_000  # paths the churn clients may create; they stop on a file first
+FLEET_PEER_FILES = 256  # creates on each of the two peers
+FLEET_SHARD_DIRS = ("/0a", "/0b", "/5a", "/5b", "/aa", "/ab", "/ea", "/eb",
+                    "/ka", "/kb", "/na", "/nb", "/ta", "/tb", "/xa", "/xb")  # 4 in each default band
+FLEET_SHARD_FILES = 1024  # a directory: 16,384 entries
+FLEET_SHARD_HOT = ("/ka", "/kb", "/na", "/nb")  # the band the rebalance client's lookups heat
+# the JAX package's rebalance knobs, set so a rebalance comes within one tick of the
+# filer's rebalance loop (5 s) while the writes go on
+FLEET_SHARD_ENV = {"SEAWEEDFS_TPU_META_REBALANCE_FACTOR": "1.5",
+                   "SEAWEEDFS_TPU_META_REBALANCE_MIN_HEAT": "32",
+                   "SEAWEEDFS_TPU_META_REBALANCE_INTERVAL": "1"}
+FLEET_REBALANCE_S = 60
+FLEET_START_S = 120
+_FLEET_TIME = ("a first run of this phase alone on an NVIDIA H100 80GB HBM3 at 700.00 W took "
+               "301.4 s; the script's earlier phases took 679.3 s in a whole run on another "
+               "host of that kind, and the whole script must stay near 780 s")
+FLEET_CUTS = {
+    "per_member_lookups": {
+        "from": "every path of the member's range plus 10 % absent (about 18,000)",
+        "to": FLEET_ALONE_LOOKUPS,
+        "why": "a member alone answered 942.8-1,344.7 lookups/s, so the four passes took "
+               "61.2 s; " + _FLEET_TIME},
+    "fleet_lookups": {
+        "from": "every path plus 10 % absent (72,089)", "to": FLEET_TOGETHER_LOOKUPS,
+        "why": "the four together answered 2,207.4 lookups/s (32.7 s); every entry is still "
+               "read back exactly, its name, key order and etag, by ListEntries of every "
+               "directory at its owner; " + _FLEET_TIME},
+    "move_lookups": {
+        "from": "every entry of the moved range (9,425) through each member",
+        "to": f"{FLEET_MOVE_LOOKUPS} through each",
+        "why": "the destination answered 1,202.7/s (7.8 s), the source, which forwards each, "
+               "492.2/s (19.1 s); every moved entry is still read back exactly through both "
+               "by ListEntries of the moved directories (the source forwards them); "
+               + _FLEET_TIME},
+    "sharded_lookups": {
+        "from": "every entry by LookupDirectoryEntry (16,456, 10.7 s)",
+        "to": "every entry by ListEntries, its name, key order and etag",
+        "why": "the listing reads every entry back exactly; " + _FLEET_TIME},
+}
+
+
+def _fleet_entry(path: str, etag: str) -> dict:
+    return {"full_path": path, "attr": {"mtime": 1.0, "crtime": 1.0}, "extended": {"etag": etag}}
+
+
+def fleet_client_main(argv: list) -> int:
+    """Child mode of this script (`--fleet-client MODE`): the creating and
+    comparing clients of phase 16, each in its own process. Writes its
+    result as JSON.
+
+    create:  the plan's [address, path, etag]: CreateEntry, no error
+    churn:   {addrs, creates, lookups, stop, ready}: each worker creates the
+             next path through one member and looks it up through the next
+             (its etag checked), then looks up a preloaded path, until the
+             file `stop` exists
+    compare: {a, b, paths}: LookupDirectoryEntry of each path at a and at b,
+             the two answers equal"""
+    import asyncio
+    import random
+
+    sys.path.insert(0, HERE)
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--fleet-client", required=True, choices=["create", "churn", "compare"])
+    ap.add_argument("--plan", required=True)
+    ap.add_argument("--out", required=True)
+    ap.add_argument("--concurrency", type=int, default=FLEET_CREATE_C)
+    a = ap.parse_args(argv)
+    from seaweedfs_tpu_torch.pb import grpc_address
+    from seaweedfs_tpu_torch.pb.rpc import Stub
+
+    with open(a.plan) as f:
+        plan = json.load(f)
+    mode = a.fleet_client
+    stubs: dict = {}
+    res: dict = {}
+    lat, bad = [], []
+
+    def stub(addr: str):
+        if addr not in stubs:
+            stubs[addr] = Stub(grpc_address(addr), "filer")
+        return stubs[addr]
+
+    async def lookup(addr: str, path: str) -> dict:
+        d, name = path.rsplit("/", 1)
+        return await stub(addr).call("LookupDirectoryEntry", {"directory": d, "name": name},
+                                     timeout=120)
+
+    def etag_ok(r: dict, path: str, etag) -> bool:
+        e = r.get("entry")
+        if etag is None:
+            return e is None and r.get("error") == "not found"
+        return e is not None and e["full_path"] == path and \
+            (e.get("extended") or {}).get("etag") == etag
+
+    async def run() -> None:
+        todo = list(reversed(plan if mode != "compare" else plan["paths"]))
+        found = [0]
+
+        async def one() -> None:
+            while todo:
+                item = todo.pop()
+                t0 = time.perf_counter()
+                if mode == "create":
+                    addr, path, etag = item
+                    r = await stub(addr).call("CreateEntry", {"entry": _fleet_entry(path, etag)},
+                                              timeout=120)
+                    ok = not r.get("error")
+                else:
+                    ra, rb = await asyncio.gather(lookup(plan["a"], item), lookup(plan["b"], item))
+                    ok = ra == rb and (ra.get("entry") is not None
+                                       or ra.get("error") == "not found")
+                    found[0] += ra.get("entry") is not None
+                    r = {"a": ra, "b": rb}
+                lat.append(time.perf_counter() - t0)
+                if not ok:
+                    bad.append((item, r))
+
+        t0 = time.perf_counter()
+        await asyncio.gather(*(one() for _ in range(a.concurrency)))
+        wall = time.perf_counter() - t0
+        srt = sorted(lat) or [0.0]
+        res.update(items=len(lat), concurrency=a.concurrency, wall_s=wall,
+                   per_s=len(lat) / wall if wall else 0.0, p50_ms=srt[len(srt) // 2] * 1e3,
+                   p99_ms=srt[min(len(srt) - 1, int(len(srt) * 0.99))] * 1e3)
+        if mode == "compare":
+            res["found"] = found[0]
+
+    async def churn() -> None:
+        addrs, creates, looks = plan["addrs"], plan["creates"], plan["lookups"]
+        rnd = random.Random(len(creates))
+        nxt, created, counts = [0], [], {"creates": 0, "lookups": 0}
+
+        async def one() -> None:
+            while not os.path.exists(plan["stop"]) and nxt[0] < len(creates):
+                i = nxt[0]
+                nxt[0] += 1
+                path, etag = creates[i]
+                w = addrs[i % len(addrs)]
+                r = await stub(w).call("CreateEntry", {"entry": _fleet_entry(path, etag)},
+                                       timeout=120)
+                counts["creates"] += 1
+                if r.get("error"):
+                    bad.append((path, "create", w, r))
+                    continue
+                created.append(i)
+                # read back through the other member, then a preloaded path
+                for addr, (p, t) in ((addrs[(i + 1) % len(addrs)], (path, etag)),
+                                     (addrs[rnd.randrange(len(addrs))],
+                                      looks[rnd.randrange(len(looks))])):
+                    r = await lookup(addr, p)
+                    counts["lookups"] += 1
+                    if not etag_ok(r, p, t):
+                        bad.append((p, "lookup", addr, r))
+
+        open(plan["ready"], "w").close()
+        t0 = time.perf_counter()
+        await asyncio.gather(*(one() for _ in range(a.concurrency)))
+        res.update(created=sorted(created), wall_s=time.perf_counter() - t0, **counts)
+
+    asyncio.run(churn() if mode == "churn" else run())
+    res.update(bad=len(bad), bad_examples=[str(b)[:300] for b in bad[:5]])
+    with open(a.out, "w") as f:
+        json.dump(res, f)
+    return 0
+
+
+def _fleet_client(root: str, mode: str, plan, concurrency: int) -> dict:
+    """Start a `--fleet-client MODE` child; `_fleet_client_result` waits."""
+    tag = f"{mode}-{len(os.listdir(root))}-{time.perf_counter_ns()}"
+    plan_path = os.path.join(root, f"fleet-{tag}.plan.json")
+    with open(plan_path, "w") as f:
+        json.dump(plan, f)
+    out = os.path.join(root, f"fleet-{tag}.json")
+    proc = subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--fleet-client", mode, "--plan", plan_path,
+         "--out", out, "--concurrency", str(concurrency)],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    return {"proc": proc, "out": out, "plan": plan_path, "mode": mode}
+
+
+def _fleet_client_result(held: dict, timeout: float = 600) -> dict:
+    proc = held["proc"]
+    try:
+        _o, err = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        fail(f"fleet client {held['mode']} did not end in {timeout} s")
+    if proc.returncode != 0:
+        fail(f"fleet client {held['mode']} exited {proc.returncode}: {err[-2000:]}")
+    with open(held["out"]) as f:
+        res = json.load(f)
+    os.remove(held["out"])
+    os.remove(held["plan"])
+    if res["bad"]:
+        fail(f"fleet client {held['mode']}: {res['bad']} wrong answers, e.g. {res['bad_examples']}")
+    return res
+
+
+def _fleet_drivers(root: str, kind: str, items: list, addresses: list, bounds: list,
+                   tag: str, drivers: int = FLEET_DRIVERS) -> dict:
+    """A pass of `python -m seaweedfs_tpu_torch.ops.meta_fleet_driver` children (the
+    port's load driver, as bench.py's run_drivers spawns the JAX one): each
+    takes a slice of the items, every child parses and connects, then a go
+    file starts them together. Every answer is checked by the driver (the
+    etag, `not found` for an absent path, a listing's count); any error or
+    mismatch fails."""
+    go = os.path.join(root, f"go-{tag}")
+    env = dict(os.environ)
+    env["PYTHONPATH"] = HERE + os.pathsep + env.get("PYTHONPATH", "")
+    share = (len(items) + drivers - 1) // drivers
+    procs = []
+    for k in range(drivers):
+        spec = os.path.join(root, f"go-{tag}.spec{k}")
+        with open(spec, "w") as f:
+            json.dump({"kind": kind, "addresses": addresses, "bounds": bounds,
+                       "items": items[k * share:(k + 1) * share],
+                       "concurrency": FLEET_DRIVER_C, "go_file": go}, f)
+        with open(spec) as f:  # the driver reads its spec on stdin
+            procs.append(subprocess.Popen(
+                [sys.executable, "-m", "seaweedfs_tpu_torch.ops.meta_fleet_driver"], cwd=HERE,
+                env=env, stdin=f, stdout=subprocess.PIPE, stderr=subprocess.PIPE))
+    t0 = time.perf_counter()
+    while sum(f.startswith(f"go-{tag}.ready.") for f in os.listdir(root)) < drivers:
+        if any(p.poll() is not None for p in procs) or time.perf_counter() - t0 > 120:
+            break
+        time.sleep(0.01)
+    open(go, "w").close()
+    n = errors = mismatches = 0
+    wall = 0.0
+    try:
+        for p in procs:
+            try:
+                raw, err = p.communicate(timeout=600)
+            except subprocess.TimeoutExpired:
+                fail(f"fleet driver pass {tag} did not end in 600 s")
+            if p.returncode != 0:
+                fail(f"fleet driver ({tag}) exited {p.returncode}: "
+                     f"{err.decode('latin1')[-2000:]}")
+            r = json.loads(raw)
+            n += r["n"]
+            errors += r["errors"]
+            mismatches += r["mismatches"]
+            wall = max(wall, r["wall_s"])
+    finally:
+        for q in procs:  # what a failure left running
+            if q.poll() is None:
+                q.kill()
+                q.wait()
+    for f in os.listdir(root):
+        if f.startswith(f"go-{tag}"):
+            os.remove(os.path.join(root, f))
+    if errors or mismatches or n != len(items):
+        fail(f"fleet driver pass {tag}: {n} of {len(items)} answered, {errors} errors, "
+             f"{mismatches} wrong answers")
+    return {"n": n, "wall_s": wall, "per_s": n / wall if wall else 0.0, "drivers": drivers,
+            "concurrency": FLEET_DRIVER_C}
+
+
+def _start_filer_child(root: str, name: str, argv: list, extra_env: dict | None = None) -> dict:
+    """`python -m seaweedfs_tpu_torch filer ARGV` as a child process (its meta gate at the
+    default, `device`, on the child's own arena on cuda:0)."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = HERE + os.pathsep + env.get("PYTHONPATH", "")
+    env.update(extra_env or {})
+    log = open(os.path.join(root, f"{name}.log"), "wb")
+    port = int(argv[argv.index("-port") + 1])
+    proc = subprocess.Popen([sys.executable, "-m", "seaweedfs_tpu_torch", "filer", *argv],
+                            cwd=HERE, env=env, stdout=log, stderr=subprocess.STDOUT)
+    return {"name": f"filer {name}", "proc": proc, "log": log, "argv": argv, "port": port,
+            "addr": f"127.0.0.1:{port}", "t0": time.perf_counter()}
+
+
+def _await_filer_child(held: dict) -> None:
+    while True:
+        if held["proc"].poll() is not None:
+            fail(f"{held['name']} exited {held['proc'].returncode}: {_tail(held['log'].name)}")
+        try:
+            g = _http_json(held["port"], "/debug/meta_gate")
+            break
+        except (OSError, SystemExit):
+            pass
+        if time.perf_counter() - held["t0"] > FLEET_START_S:
+            fail(f"{held['name']} did not answer in {FLEET_START_S} s: "
+                 f"{_tail(held['log'].name)}")
+        time.sleep(0.1)
+    held["ready_s"] = time.perf_counter() - held["t0"]
+    if g["mode"] != "device" or not g.get("arena") or not g["arena"]["device"].startswith("cuda"):
+        fail(f"{held['name']}'s meta gate is {g['mode']} on {g.get('arena')}")
+
+
+def _child_gate(held: dict) -> dict:
+    return _gate_counts(held["port"])
+
+
+def _fleet_clean(before: dict, after: dict, what: str) -> dict:
+    """`_check_clean` between two readings of a filer child's gate, and at least
+    one K2 device batch and launch between them."""
+    d = _check_clean(before, after, what)
+    d["ragged_lookup_launches"] = after["ragged_lookup_launches"] - before["ragged_lookup_launches"]
+    if d["device_batches"] <= 0 or d["ragged_lookup_launches"] <= 0:
+        fail(f"{what}: no K2 device batch or launch: {d}")
+    return d
+
+
+def _filer_rpc_many(addr: str, reqs: list) -> list:
+    """LookupDirectoryEntry of each request at `addr`, in order."""
+    import asyncio
+
+    from seaweedfs_tpu_torch.pb import grpc_address
+    from seaweedfs_tpu_torch.pb.rpc import Stub
+
+    async def go() -> list:
+        stub = Stub(grpc_address(addr), "filer")
+        return [await stub.call("LookupDirectoryEntry", r, timeout=120) for r in reqs]
+
+    return asyncio.run(go())
+
+
+def _list_dir(addr: str, d: str) -> list:
+    """The entries of directory `d` at `addr`: ListEntries paged by
+    start_from_file_name, in the order the filer answers."""
+    import asyncio
+
+    from seaweedfs_tpu_torch.pb import grpc_address
+    from seaweedfs_tpu_torch.pb.rpc import Stub
+
+    async def go() -> list:
+        stub = Stub(grpc_address(addr), "filer")
+        got, start, incl = [], "", True
+        while True:
+            r = await stub.call("ListEntries", {
+                "directory": d, "start_from_file_name": start, "inclusive_start_from": incl,
+                "limit": FILER_RPC_PAGE}, timeout=120)
+            if r.get("error"):
+                fail(f"ListEntries {d} at {addr}: {r}")
+            got += r["entries"]
+            if len(r["entries"]) < FILER_RPC_PAGE:
+                return got
+            start, incl = got[-1]["full_path"].rsplit("/", 1)[1], False
+
+    return asyncio.run(go())
+
+
+def _by_dir(etag: dict) -> dict:
+    """{directory: [(name, etag)] in key order} of path -> etag."""
+    out: dict = {}
+    for p, t in etag.items():
+        d, name = p.rsplit("/", 1)
+        out.setdefault(d, []).append((name, t))
+    return {d: sorted(v) for d, v in out.items()}
+
+
+def _check_listings(addr: str, want: dict, dirs, what: str) -> int:
+    """Every directory of `dirs` at `addr` lists exactly the (name, etag) pairs
+    `want` holds for it, in key order; -> the entries listed."""
+    n = 0
+    for d in dirs:
+        got = [(e["full_path"].rsplit("/", 1)[1], (e.get("extended") or {}).get("etag"))
+               for e in _list_dir(addr, d)]
+        if got != want.get(d, []):
+            fail(f"{what}: {d} lists {len(got)} entries, not the {len(want.get(d, []))} "
+                 f"written, in key order with their etags")
+        n += len(got)
+    return n
+
+
+def _subscribe_creates(addr: str, prefix: str, want: int, bound_s: float) -> int:
+    """SubscribeMetadata from 0 at `addr` until `want` creates under `prefix` have come."""
+    import asyncio
+
+    from seaweedfs_tpu_torch.pb import grpc_address
+    from seaweedfs_tpu_torch.pb.rpc import Stub
+
+    async def go() -> int:
+        seen = 0
+        async for ev in Stub(grpc_address(addr), "filer").server_stream(
+                "SubscribeMetadata", {"since_ns": 0}):
+            n = ev["event_notification"]
+            if n["event_type"] == "create" and \
+                    (n.get("new_entry") or {}).get("full_path", "").startswith(prefix):
+                seen += 1
+                if seen >= want:
+                    break
+        return seen
+
+    try:
+        return asyncio.run(asyncio.wait_for(go(), bound_s))
+    except asyncio.TimeoutError:
+        fail(f"SubscribeMetadata at {addr} did not show {want} creates under {prefix} "
+             f"in {bound_s} s")
+
+
+def phase_fleet(torch, work: str, seed: int, server: dict) -> dict:
+    """The filer's scale-out on the card: four `filer -fleetMap` members (LSM
+    stores, each meta gate at the default, `device`, on its own process's
+    arena: K2 with the identity check on), a follower of member 0, two
+    `-peers` filers and a `-shards 4` filer, all children of this script over
+    phase 15's `server` child (their master), which this phase stops. (b) the
+    preload through CreateEntry, 10 % of it sent to a member that does not own
+    the path, with the sharded filer's and the peers' creates beside it; (c)
+    lookups and LISTs through the port's meta_fleet_driver, each member alone
+    and the fleet together; (d) a live range move under a creating and
+    reading client; (e) the follower; (f) the peers and the sharded store's
+    rebalance; (g) `shell meta.fleet.status`."""
+    import bisect
+
+    import numpy as np
+
+    from seaweedfs_tpu_torch.filer import fleet as FL
+
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(seed + 16)
+    root = os.path.join(work, "fleet")
+    os.makedirs(root)
+    taken = server["taken"]
+    maddr = server["maddr"]
+    res: dict = {"phase": "fleet", "members": FLEET_MEMBERS, "directories": FLEET_DIRS,
+                 "entries": FLEET_DIRS * FLEET_DIR_FILES, "cuts": FLEET_CUTS}
+    smi_before = nvidia_smi("memory.used")
+    dirs = [f"/fleet/d{i:03d}" for i in range(FLEET_DIRS)]
+    # bounds that split the real directory keyspace evenly (bench.py:7457-7460)
+    bounds = [dirs[FLEET_DIRS * (i + 1) // FLEET_MEMBERS] for i in range(FLEET_MEMBERS - 1)]
+    roles = [f"m{i}" for i in range(FLEET_MEMBERS)] + ["follower", "p0", "p1", "sharded"]
+    ports = {r: _port_pair(taken) for r in roles}
+    addr = {r: f"127.0.0.1:{p}" for r, p in ports.items()}
+    members = [addr[f"m{i}"] for i in range(FLEET_MEMBERS)]
+    fmap_path = os.path.join(root, "FLEETMAP")
+    fmap = FL.FleetMap(members, bounds)
+    FL.write_fleet_map(fmap_path, fmap)
+    base = ["-ip", "127.0.0.1", "-master", maddr]
+    argvs = {f"m{i}": ["-store", os.path.join(root, f"fleet{i}.lsm"),
+                       "-metaLog", os.path.join(root, f"fleet{i}-mlog"),
+                       "-fleetMap", fmap_path, "-fleetSelf", members[i]]
+             for i in range(FLEET_MEMBERS)}
+    argvs["follower"] = ["-store", os.path.join(root, "follower.lsm"), "-followSource", members[0]]
+    for i in range(2):
+        argvs[f"p{i}"] = ["-store", os.path.join(root, f"peer{i}.lsm"),
+                          "-metaLog", os.path.join(root, f"peer{i}-mlog"),
+                          "-peers", addr[f"p{1 - i}"]]
+    argvs["sharded"] = ["-shards", "4", "-store", os.path.join(root, "sharded.lsm")]
+    kids: dict = {}
+    spawned: list = []  # the client children, killed at the end if a failure left them
+
+    def client(mode: str, plan, concurrency: int) -> dict:
+        spawned.append(_fleet_client(root, mode, plan, concurrency))
+        return spawned[-1]
+
+    try:
+        # --- (a) the children, started together ---
+        t0 = time.perf_counter()
+        for r in roles:
+            kids[r] = _start_filer_child(root, r, ["-port", str(ports[r]), *base, *argvs[r]],
+                                         FLEET_SHARD_ENV if r == "sharded" else None)
+        for r in roles:
+            _await_filer_child(kids[r])
+        res["start"] = {"wall_s": time.perf_counter() - t0,
+                        "ready_s": {r: kids[r]["ready_s"] for r in roles},
+                        "argv": {r: kids[r]["argv"] for r in roles}, "master": maddr,
+                        "fleet_map": {"addresses": members, "bounds": bounds}}
+        m = [kids[f"m{i}"] for i in range(FLEET_MEMBERS)]
+        sh = kids["sharded"]
+
+        def owner(d: str) -> int:
+            return bisect.bisect_right(bounds, d)
+
+        def items_of(ps, tags) -> list:
+            return [{"directory": p.rsplit("/", 1)[0], "name": p.rsplit("/", 1)[1],
+                     "etag": tags.get(p)} for p in ps]
+
+        # --- (b) the preload: 10 % of the creates through a member that does not own
+        # them; the sharded filer's and the peers' creates run beside it ---
+        t0 = time.perf_counter()
+        paths = [f"{d}/f{j:04d}" for d in dirs for j in range(FLEET_DIR_FILES)]
+        etag = {p: p[-9:] for p in paths}  # as bench.py:7450-7455 builds them
+        via = np.array([owner(p.rsplit("/", 1)[0]) for p in paths])
+        stray = rng.random(len(paths)) < FLEET_FORWARD_SHARE
+        via[stray] = (via[stray] + rng.integers(1, FLEET_MEMBERS, int(stray.sum()))) % FLEET_MEMBERS
+        order = rng.permutation(len(paths)).tolist()
+        plan = [[members[int(via[i])], paths[i], etag[paths[i]]] for i in order]
+        sh_paths = [f"{d}/f{j:04d}" for d in FLEET_SHARD_DIRS for j in range(FLEET_SHARD_FILES)]
+        sh_etag = {p: f"s{i}" for i, p in enumerate(sh_paths)}
+        sh_plan = [[sh["addr"], sh_paths[i], sh_etag[sh_paths[i]]]
+                   for i in rng.permutation(len(sh_paths)).tolist()]
+        peer_plan = {i: [[addr[f"p{i}"], f"/peer/from{i}/f{j:04d}", f"p{i}-{j}"]
+                         for j in range(FLEET_PEER_FILES)] for i in range(2)}
+        g_pre = [_child_gate(k) for k in m]
+        sh_before = _child_gate(sh)["shards"]
+        share = (len(plan) + FLEET_CREATE_CHILDREN - 1) // FLEET_CREATE_CHILDREN
+        held = [client("create", plan[k * share:(k + 1) * share], FLEET_CREATE_C)
+                for k in range(FLEET_CREATE_CHILDREN)]
+        beside = {"sharded": client("create", sh_plan, 64),
+                  **{f"p{i}": client("create", peer_plan[i], FLEET_CREATE_C)
+                     for i in range(2)}}
+        creates = [_fleet_client_result(h) for h in held]
+        beside = {k: _fleet_client_result(h) for k, h in beside.items()}
+        g_post = [_child_gate(k) for k in m]
+        wall = max(c["wall_s"] for c in creates)
+        fwd = [g_post[i]["fleet"]["forwarded"] - g_pre[i]["fleet"]["forwarded"]
+               for i in range(FLEET_MEMBERS)]
+        sent_stray = [int((stray & (via == i)).sum()) for i in range(FLEET_MEMBERS)]
+        if fwd != sent_stray:
+            fail(f"the preload's forwards by member {fwd}, strays sent to each {sent_stray}")
+        res["preload"] = {"creates": len(plan), "children": FLEET_CREATE_CHILDREN,
+                          "concurrency": FLEET_CREATE_CHILDREN * FLEET_CREATE_C, "wall_s": wall,
+                          "creates_per_s": len(plan) / wall,
+                          "p50_ms": statistics.median(c["p50_ms"] for c in creates),
+                          "p99_ms": max(c["p99_ms"] for c in creates),
+                          "sent_to_non_owner": int(stray.sum()), "forwarded_by_member": fwd,
+                          "write_gate": [g["write_gate"] for g in g_post],
+                          "segments": [g["segments"] for g in g_post],
+                          "memtable": [g["memtable"] for g in g_post],
+                          "beside": {k: {kk: v[kk] for kk in ("items", "concurrency", "wall_s",
+                                                              "per_s", "p50_ms", "p99_ms")}
+                                     for k, v in beside.items()},
+                          "note": "the sharded filer's and the peers' creates ran beside the "
+                                  "fleet's, at c=64 and 16 each"}
+        res["b_s"] = time.perf_counter() - t0
+
+        # --- (c) lookups and LISTs: each member alone, then the fleet together ---
+        t0 = time.perf_counter()
+        n_absent = int(len(paths) * FLEET_ABSENT_SHARE)
+        absent = [f"{dirs[int(i) % FLEET_DIRS]}/g{int(i)}"
+                  for i in rng.integers(0, 1 << 30, n_absent)]
+        items = items_of(paths, etag) + items_of(absent, {})
+        items = [items[i] for i in rng.permutation(len(items)).tolist()]
+        lists = [{"directory": d, "count": FLEET_DIR_FILES} for d in dirs]
+        mine = [[it for it in items if owner(it["directory"]) == i] for i in range(FLEET_MEMBERS)]
+        mine_ls = [[it for it in lists if owner(it["directory"]) == i]
+                   for i in range(FLEET_MEMBERS)]
+        # one warm-up pass over every member: each gate's arena takes the runs of its store
+        _fleet_drivers(root, "lookup", [it for i in range(FLEET_MEMBERS)
+                                        for it in mine[i][:FLEET_WARMUP]],
+                       members, bounds, "warm")
+        g0 = [_child_gate(k) for k in m]
+        alone_lk = [_fleet_drivers(root, "lookup", mine[i][-FLEET_ALONE_LOOKUPS:], [members[i]],
+                                   [], f"lk{i}") for i in range(FLEET_MEMBERS)]
+        alone_ls = [_fleet_drivers(root, "list", mine_ls[i], [members[i]], [], f"ls{i}")
+                    for i in range(FLEET_MEMBERS)]
+        pick = rng.choice(len(items), min(FLEET_TOGETHER_LOOKUPS, len(items)), replace=False)
+        together_lk = _fleet_drivers(root, "lookup", [items[i] for i in pick.tolist()], members,
+                                     bounds, "lk")
+        together_ls = _fleet_drivers(root, "list", lists, members, bounds, "ls")
+        # every entry read back exactly: each directory at its owner
+        t1 = time.perf_counter()
+        want = _by_dir(etag)
+        listed = sum(_check_listings(members[owner(d)], want, [d], "the preload") for d in dirs)
+        list_s = time.perf_counter() - t1
+        g1 = [_child_gate(k) for k in m]
+        gates = [_fleet_clean(g0[i], g1[i], f"member {i}'s lookups after the warm-up")
+                 for i in range(FLEET_MEMBERS)]
+        fwd = [g1[i]["fleet"]["forwarded"] - g0[i]["fleet"]["forwarded"]
+               for i in range(FLEET_MEMBERS)]
+        if any(fwd):
+            fail(f"members forwarded {fwd} requests during the probes")
+        res["probes"] = {
+            "lookups": len(pick), "lists": len(lists),
+            "listed_with_etags": listed, "listed_s": list_s,
+            "warmup_lookups_a_member": FLEET_WARMUP, "identity_check": True,
+            "per_member_lookup": alone_lk, "per_member_list": alone_ls,
+            "lookup_capacity_per_s": sum(r["per_s"] for r in alone_lk),
+            "list_capacity_per_s": sum(r["per_s"] for r in alone_ls),
+            "capacity_note": "the sum of each member's rate driven alone, as bench.py's leg "
+                             "reports fleet capacity",
+            "concurrent_lookup": together_lk, "concurrent_list": together_ls,
+            "forwarded_during_probes": fwd, "meta_gate": gates}
+        res["c_s"] = time.perf_counter() - t0
+
+        # --- (d) a live range move: the upper half of member 0's range to member 1 ---
+        t0 = time.perf_counter()
+        half = FLEET_DIRS // FLEET_MEMBERS // 2
+        lo, hi = dirs[half], bounds[0]
+        moving_dirs = dirs[half:2 * half]
+        moving = [p for p in paths if lo <= p.rsplit("/", 1)[0] < hi]
+        late = [[f"{moving_dirs[k % half]}/late{k:05d}", f"late{k:05d}"]
+                for k in range(FLEET_CHURN_CREATES)]
+        stop = os.path.join(root, "churn.stop")
+        ready = os.path.join(root, "churn.ready")
+        churn = client("churn", {
+            "addrs": members[:2], "creates": late, "stop": stop, "ready": ready,
+            "lookups": [[p, etag[p]] for p in moving]}, FLEET_CHURN_C)
+        while not os.path.exists(ready):
+            if churn["proc"].poll() is not None:
+                _fleet_client_result(churn)
+            time.sleep(0.01)
+        time.sleep(FLEET_CHURN_S)
+        t1 = time.perf_counter()
+        mv = _filer_rpc(members[0], "FleetMoveRange", {"dst": members[1], "lo": lo, "hi": hi})
+        move_s = time.perf_counter() - t1
+        if mv.get("error"):
+            open(stop, "w").close()
+            fail(f"FleetMoveRange: {mv}")
+        time.sleep(FLEET_CHURN_S)
+        open(stop, "w").close()
+        ch = _fleet_client_result(churn)
+        during = [late[i] for i in ch["created"]]
+        for p, t in during:
+            etag[p] = t
+        moved = moving + [p for p, _t in during]
+        st0 = _filer_rpc(members[0], "FleetStatus", {})
+        if st0["fleet"]["epoch"] != fmap.epoch + 1 or st0["fleet"]["range"] != ["", lo]:
+            fail(f"member 0 after the move: {st0['fleet']}")
+        # the source's store holds nothing of the moved range (its cleanup)
+        held_local = _filer_rpc_many(members[0], [
+            {"directory": p.rsplit("/", 1)[0], "name": p.rsplit("/", 1)[1], "fleet_local": True}
+            for p in moving[::64] + [p for p, _t in during[::16]]])
+        if any(r.get("entry") is not None for r in held_local):
+            fail("the move's source still holds entries of the moved range")
+        back = items_of(moved, etag)
+        back = [back[i] for i in rng.permutation(len(back)).tolist()]
+        _fleet_drivers(root, "lookup", back[:FLEET_WARMUP], [members[1]], [], "warm-dst")
+        gd0, gs0 = _child_gate(m[1]), _child_gate(m[0])
+        at_dst = _fleet_drivers(root, "lookup", back[-FLEET_MOVE_LOOKUPS:], [members[1]], [],
+                                "back-dst")
+        at_src = _fleet_drivers(root, "lookup", back[-FLEET_MOVE_LOOKUPS:], [members[0]], [],
+                                "back-src")
+        t1 = time.perf_counter()
+        want = _by_dir({p: etag[p] for p in moved})
+        listed = {k: _check_listings(members[i], want, moving_dirs, f"the moved range at {k}")
+                  for k, i in (("destination", 1), ("source", 0))}
+        list_s = time.perf_counter() - t1
+        gd1, gs1 = _child_gate(m[1]), _child_gate(m[0])
+        src_fwd = gs1["fleet"]["forwarded"] - gs0["fleet"]["forwarded"]
+        if src_fwd < at_src["n"] + len(moving_dirs):
+            fail(f"the source forwarded {src_fwd} of the {at_src['n']} lookups and "
+                 f"{len(moving_dirs)}+ listings of the moved range")
+        res["move"] = {"range": [lo, hi], "from": members[0], "to": members[1],
+                       "entries_before": len(moving), "created_during": len(during),
+                       "churn": {k: ch[k] for k in ("creates", "lookups", "wall_s")},
+                       "churn_concurrency": FLEET_CHURN_C, "reply": mv, "move_s": move_s,
+                       "epoch": st0["fleet"]["epoch"], "lost": 0, "misrouted": 0,
+                       "read_back_at_destination": at_dst, "read_back_at_source": at_src,
+                       "listed_with_etags": listed, "listed_s": list_s,
+                       "source_forwarded": src_fwd,
+                       "source_local_lookups_absent": len(held_local),
+                       "destination_meta_gate": _fleet_clean(
+                           gd0, gd1, "the destination's lookups of the moved range"),
+                       "ingested_at_destination": gd1["fleet"]["ingested"]}
+        res["d_s"] = time.perf_counter() - t0
+
+        # --- (e) the follower of member 0 ---
+        t0 = time.perf_counter()
+        fol = kids["follower"]
+        head = _filer_rpc(members[0], "GetFilerConfiguration", {})["last_ts_ns"]
+        while True:
+            fst = _filer_rpc(fol["addr"], "FleetStatus", {})["follower"]
+            if fst["cursor_ns"] >= head:
+                break
+            if time.perf_counter() - t0 > 120:
+                fail(f"the follower's cursor did not reach member 0's head in 120 s: {fst}")
+            time.sleep(0.05)
+        caught_s = time.perf_counter() - t0
+        own0 = [p for p in paths if p.rsplit("/", 1)[0] < lo]  # member 0's range after the move
+        n_own0 = len(own0)
+        own0 += [f"{d}/g{k}" for k, d in enumerate(dirs[:half] * 16)]  # absent
+        _fleet_drivers(root, "lookup", items_of(own0[:FLEET_WARMUP], etag), [fol["addr"]], [],
+                       "warm-fol")
+        gf0 = _child_gate(fol)
+        share = (len(own0) + FLEET_COMPARE_CHILDREN - 1) // FLEET_COMPARE_CHILDREN
+        held = [client("compare", {"a": fol["addr"], "b": members[0],
+                                                "paths": own0[k * share:(k + 1) * share]},
+                              FLEET_DRIVER_C) for k in range(FLEET_COMPARE_CHILDREN)]
+        cmps = [_fleet_client_result(h) for h in held]
+        gf1 = _child_gate(fol)
+        found = sum(c["found"] for c in cmps)
+        if found != n_own0:
+            fail(f"the follower and member 0 found {found} of member 0's {n_own0} paths")
+        p0_ = own0[0].rsplit("/", 1)
+        redirect = _filer_rpc(fol["addr"], "LookupDirectoryEntry", {
+            "directory": p0_[0], "name": p0_[1], "min_ts_ns": fst["cursor_ns"] + 10 ** 12})
+        write = _filer_rpc(fol["addr"], "CreateEntry", {"entry": _fleet_entry(own0[0] + "x", "x")})
+        if redirect.get("error") != "redirect" or redirect.get("primary") != members[0]:
+            fail(f"a read ahead of the follower's cursor answered {redirect}")
+        if write != {"error": "read_only_follower", "primary": members[0]}:
+            fail(f"a write at the follower answered {write}")
+        fst = _filer_rpc(fol["addr"], "FleetStatus", {})["follower"]
+        cwall = max(c["wall_s"] for c in cmps)
+        res["follower"] = {"source": members[0], "caught_up_s": caught_s,
+                           "compared": len(own0), "found": found, "equal_to_member_0": True,
+                           "compare_children": FLEET_COMPARE_CHILDREN, "wall_s": cwall,
+                           "paths_per_s": len(own0) / cwall,
+                           "p50_ms": statistics.median(c["p50_ms"] for c in cmps),
+                           "p99_ms": max(c["p99_ms"] for c in cmps),
+                           "redirect": redirect, "write": write, "status": fst,
+                           "staleness_bound_s": fst["staleness_bound_s"],
+                           "meta_gate": _fleet_clean(gf0, gf1, "the follower's lookups")}
+        res["e_s"] = time.perf_counter() - t0
+
+        # --- (f) the peers, then the sharded store ---
+        t0 = time.perf_counter()
+        peers = {}
+        for i, other in ((0, 1), (1, 0)):
+            oaddr = kids[f"p{other}"]["addr"]
+            seen = _subscribe_creates(oaddr, f"/peer/from{i}/", FLEET_PEER_FILES, 60)
+            t1 = time.perf_counter()
+            want = _by_dir({p: t for _a, p, t in peer_plan[i]})[f"/peer/from{i}"]
+            while True:
+                got = [(e["full_path"].rsplit("/", 1)[1], (e.get("extended") or {}).get("etag"))
+                       for e in _list_dir(oaddr, f"/peer/from{i}")]
+                if got == want:
+                    break
+                if time.perf_counter() - t1 > 60:
+                    fail(f"peer p{other}'s store lists {len(got)} of p{i}'s {len(want)} creates")
+                time.sleep(0.05)
+            peers[f"p{i}_to_p{other}"] = {"creates": len(want), "subscribed_creates": seen,
+                                          "in_store": len(got),
+                                          "replay_s": time.perf_counter() - t1}
+        res["peers"] = peers
+        t1 = time.perf_counter()
+        # a rebalance while writes go on: the preload's, or else this client's
+        stop = os.path.join(root, "shard.stop")
+        ready = os.path.join(root, "shard.ready")
+        hot = [[p, sh_etag[p]] for p in sh_paths if p.rsplit("/", 1)[0] in FLEET_SHARD_HOT]
+        extra = [[f"{FLEET_SHARD_DIRS[k % len(FLEET_SHARD_DIRS)]}/late{k:05d}", f"late{k}"]
+                 for k in range(FLEET_CHURN_CREATES)]
+        churn = client("churn", {"addrs": [sh["addr"]], "creates": extra,
+                                               "stop": stop, "ready": ready, "lookups": hot},
+                              FLEET_CHURN_C)
+        while True:
+            now = _child_gate(sh)["shards"]
+            if now["stats"]["rebalances"] > sh_before["stats"]["rebalances"]:
+                break
+            if churn["proc"].poll() is not None or time.perf_counter() - t1 > FLEET_REBALANCE_S:
+                open(stop, "w").close()
+                _fleet_client_result(churn)
+                fail(f"no rebalance of the sharded store in {FLEET_REBALANCE_S} s: {now}")
+            time.sleep(0.1)
+        rebalance_wait = time.perf_counter() - t1
+        time.sleep(FLEET_CHURN_S)
+        open(stop, "w").close()
+        sch = _fleet_client_result(churn)
+        for i in sch["created"]:
+            sh_etag[extra[i][0]] = extra[i][1]
+        listed = _check_listings(sh["addr"], _by_dir(sh_etag), FLEET_SHARD_DIRS,
+                                 "the sharded filer")
+        gsh = _child_gate(sh)
+        if gsh["gate"]["device_batches"] or not gsh["fallback_reasons"].get("no_arena_view"):
+            fail(f"the sharded filer's gate: {gsh['gate']}, {gsh['fallback_reasons']}")
+        res["sharded"] = {"shards": 4, "entries": len(sh_paths),
+                          "rebalance_env": FLEET_SHARD_ENV,
+                          "rebalance_wait_after_the_preload_s": rebalance_wait,
+                          "writes_after_the_preload": {k: sch[k] for k in
+                                                       ("creates", "lookups", "wall_s")},
+                          "lost": 0, "before": sh_before, "after": gsh["shards"],
+                          "listed_in_key_order_with_etags": listed,
+                          "host_lookups": gsh["gate"]["probes"],
+                          "host_flushes": gsh["gate"]["host_fallbacks"],
+                          "fallback_reasons": gsh["fallback_reasons"],
+                          "note": "the sharded store has no arena_view (nor has the JAX "
+                                  "one): every flush of its gate is a host lookup"}
+        res["f_s"] = time.perf_counter() - t0
+
+        # --- (g) the shell ---
+        t0 = time.perf_counter()
+        out, wall = _port_cli(["shell", "-master", maddr, f"meta.fleet.status -filer {members[0]}"],
+                              timeout=120)
+        lines = out.splitlines()
+        moved = ["-inf", lo] + bounds[1:] + ["+inf"]  # the bounds after the move
+        want = [f"filer {members[0]}:",
+                f"  fleet epoch {fmap.epoch + 1} · {FLEET_MEMBERS} member(s) · self range "
+                f"[-inf, {lo})"]
+        want += [f"    {a}: [{moved[i]}, {moved[i + 1]}){' (self)' if i == 0 else ''}"
+                 for i, a in enumerate(members)]
+        if lines[:len(want)] != want:
+            fail(f"shell meta.fleet.status printed {lines}, not {want}")
+        res["shell"] = {"lines": lines, "wall_s": wall}
+
+        # the card's memory a process, and each child's K2 launches
+        used = nvidia_smi("memory.used")
+        gates = {r: _child_gate(kids[r]) for r in roles}
+        res["card_memory"] = {
+            "memory_used_before_the_children": smi_before, "memory_used_with_them": used,
+            "per_child_MiB": (int(used.split()[0]) - int(smi_before.split()[0])) / len(roles),
+            "per_child_note": "nvidia-smi's memory.used with the children up less before, "
+                              "over the children: each one's CUDA context and arena",
+            "torch_reserved_bytes": {r: (gates[r]["device_memory"] or {}).get("reserved")
+                                     for r in roles}}
+        k2 = {r: gates[r]["ragged_lookup_launches"] for r in roles}
+        res["ragged_lookup_launches"] = k2
+        res["kernel_launches"] = {"ragged_lookup": sum(k2[r] for r in roles
+                                                       if r.startswith("m") or r == "follower")}
+        if res["kernel_launches"]["ragged_lookup"] <= 0:
+            fail("the fleet launched ragged_lookup no time")
+    finally:
+        import signal
+
+        stop_errors = []
+        for c in spawned:
+            if c["proc"].poll() is None:
+                c["proc"].kill()
+                c["proc"].wait()
+        for k in kids.values():  # all at once: each takes about a second
+            if k["proc"].poll() is None:
+                k["proc"].send_signal(signal.SIGTERM)
+                k["signalled"] = True
+        for k in kids.values():
+            try:
+                k["stop_s"] = _stop_server_child(k)
+            except SystemExit as e:
+                stop_errors.append(str(e))
+            if k["proc"].poll() is None:
+                k["proc"].kill()
+                k["proc"].wait()
+        try:
+            res["server_stop_s"] = _stop_server_child(server)
+        except SystemExit as e:
+            stop_errors.append(str(e))
+        if stop_errors and sys.exc_info()[0] is None:
+            fail("; ".join(stop_errors))
+    res["stop_s"] = {r: kids[r].get("stop_s") for r in roles}
+    res["phase_s"] = time.perf_counter() - t_phase
+    shutil.rmtree(root, ignore_errors=True)
+    emit(res)
+    return res
 
 
 def main() -> int:
@@ -5652,6 +6527,11 @@ def main() -> int:
         fserver = _start_server_child(froot, set())
         fres = phase_filer(torch, work, args.seed, server=fserver)
         ik_launches["filer"] = fres["kernel_launches"]["index_search"]
+
+        # --- phase 16 ---
+        # the fleet's filers take phase 15's `server` child as their master
+        mark("fleet")
+        flres = phase_fleet(torch, work, args.seed, server=fserver)
         mark("end")
     finally:
         # a phase failed before phase 15 stopped its server, or before a
@@ -5738,7 +6618,8 @@ def main() -> int:
             + cres["kernel_launches"]["ragged_lookup"]
             + vacres["kernel_launches"]["ragged_lookup"]
             + tres["kernel_launches"]["ragged_lookup"]
-            + fres["kernel_launches"]["ragged_lookup"],
+            + fres["kernel_launches"]["ragged_lookup"]
+            + flres["kernel_launches"]["ragged_lookup"],
             "launches_by_path": {
                 "arena_gate": ares["kernel_launches"],
                 "volume_server": sres["kernel_launches"]["ragged_lookup"],
@@ -5746,7 +6627,10 @@ def main() -> int:
                 "vacuum": vacres["kernel_launches"]["ragged_lookup"],
                 "volume_tier": tres["kernel_launches"]["ragged_lookup"],
                 "filer": fres["kernel_launches"]["ragged_lookup"],
+                "fleet": flres["kernel_launches"]["ragged_lookup"],
             },
+            "fleet_note": "fleet: the K2 launches of the four fleet members' and the "
+                          "follower's processes, read from their /debug/meta_gate",
             "design": K2_DESIGN,
             "registers": RL._kernel_lib().ragged_probe_registers(),
             "at": {f"{where} {k}": {kk: v[kk] for kk in (
@@ -5825,4 +6709,6 @@ if __name__ == "__main__":
         sys.exit(tier_client_main(sys.argv[1:]))
     if "--filer-client" in sys.argv[1:]:
         sys.exit(filer_client_main(sys.argv[1:]))
+    if "--fleet-client" in sys.argv[1:]:
+        sys.exit(fleet_client_main(sys.argv[1:]))
     sys.exit(main())

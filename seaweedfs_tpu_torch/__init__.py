@@ -10,9 +10,12 @@ sqlite "leveldb", sorted), the volume server, the master with the
 cluster's EC path, the EC round trip and mesh plane, the vacuum plane,
 and the volume tier under the filer (batched chunk writes through the
 group-commit worker, the BatchRead stream, chunked files, count=N assign
-leases and the replica read fan-out with per-peer circuit breakers)
-(`python -m seaweedfs_tpu_torch master|server|volume|shell|benchmark|
-upload|download|compact`).
+leases and the replica read fan-out with per-peer circuit breakers),
+and the filer with its scale-out (the prefix-sharded store, a fleet of
+range-owning filer processes, read replicas that follow the meta-log,
+the peer aggregator), its path lookups on the card through the meta gate
+(`python -m seaweedfs_tpu_torch master|server|volume|filer|shell|
+benchmark|upload|download|compact`).
 
 Entry points run on the card unless the caller asks for the CPU:
 `get_codec()` (backend "cuda"), `CudaRSCodec()`,

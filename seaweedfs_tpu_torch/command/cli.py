@@ -14,9 +14,11 @@ is the master's vacuum threshold. `-pulseSeconds` sets the volume
 server's heartbeat cadence (the JAX package reads it from
 SEAWEEDFS_TPU_PULSE_SECONDS). The flags of the parts still to port
 (`-tierConfig`, `-config`, the profilers, `-s3` of `server`; the filer's
-`-shards`, `-peers`, `-fleetMap`, `-fleetSelf`, `-followSource`,
 `-geoSource`, `-geoState`, `-encryptVolumeData`, `-notifySink` and the
 other `-notify*` flags) are not declared, so argparse refuses them. The
+filer's scale-out flags are: `-shards` (the prefix-sharded store),
+`-peers` (the metadata aggregator), `-fleetMap` and `-fleetSelf` (a
+member of a range-owning fleet) and `-followSource` (a read replica). The
 filer's meta gate runs its lookups on the card unless
 SEAWEEDFS_TPU_META_GATE says otherwise (server/filer.py); in `server
 -filer` it shares the volume server's arena (`-batchLookup arena`). SIGINT and SIGTERM stop the
@@ -264,6 +266,15 @@ def cmd_filer(argv: list[str], started=None) -> int:
     )
     p.add_argument("-maxMB", type=int, default=4, help="chunk size in MB")
     p.add_argument(
+        "-shards",
+        type=int,
+        default=0,
+        help="partition the store into N directory-prefix shards "
+        "(crash-safe shard map + heat-driven rebalance; -store then "
+        "names a directory — sqlite sub-stores, or LSM when it ends "
+        "in .lsm)",
+    )
+    p.add_argument(
         "-metaLog",
         default="",
         help="directory for the durable segmented meta-log change "
@@ -273,10 +284,37 @@ def cmd_filer(argv: list[str], started=None) -> int:
     p.add_argument("-replication", default="")
     p.add_argument("-jwtSigningKey", default="")
     p.add_argument(
+        "-peers",
+        default="",
+        help="comma-separated peer filers (host:port) whose metadata "
+        "streams this filer follows and aggregates (ref -peers, "
+        "weed/filer2/meta_aggregator.go)",
+    )
+    p.add_argument(
         "-dataCenter",
         default="",
         help="this filer's data center label: reads prefer same-DC "
         "replicas",
+    )
+    p.add_argument(
+        "-fleetMap",
+        default="",
+        help="shared FLEETMAP file of a shard-range filer fleet: this "
+        "filer serves the directory-prefix range the map assigns it and "
+        "forwards/redirects everything else to the owning member",
+    )
+    p.add_argument(
+        "-fleetSelf",
+        default="",
+        help="this member's address as listed in -fleetMap "
+        "(default: <-ip>:<-port>)",
+    )
+    p.add_argument(
+        "-followSource",
+        default="",
+        help="PRIMARY filer (host:port) to follow as a read-only "
+        "meta-log-fed replica: serves eventually-consistent GET/LIST "
+        "with a disclosed staleness bound, redirects writes",
     )
     args = p.parse_args(argv)
     from ..server.filer import FilerServer
@@ -290,8 +328,15 @@ def cmd_filer(argv: list[str], started=None) -> int:
         collection=args.collection,
         replication=args.replication,
         jwt_signing_key=args.jwtSigningKey,
+        peers=tuple(
+            x.strip() for x in args.peers.split(",") if x.strip()
+        ),
+        shards=args.shards,
         meta_log_path=args.metaLog,
         data_center=args.dataCenter,
+        fleet_map_path=args.fleetMap,
+        fleet_self=args.fleetSelf,
+        follow_source=args.followSource,
     )
     print(f"filer listening on {args.ip}:{args.port} (store "
           f"{args.store or 'memory'}, meta gate {fs.meta_gate_mode})",

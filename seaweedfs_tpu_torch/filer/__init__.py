@@ -1,11 +1,13 @@
 """Filer: a directory/file namespace over the object store
 (ref: weed/filer2/). Entries carry chunk lists pointing at needle fids;
 stores are pluggable (memory, sqlite standing in for the reference's
-leveldb/sql family, an append-only log, and the LSM store whose path
-lookups the meta gate answers on the card's ragged_lookup kernel).
+leveldb/sql family, an append-only log, the LSM store whose path lookups
+the meta gate answers on the card's ragged_lookup kernel, and the
+prefix-sharded store over any of them). The scale-out beside the stores:
+the range-owning fleet (fleet.py), the meta-log-fed read replica
+(meta_follower.py) and the peer aggregator (meta_aggregator.py).
 
-Ported from the JAX package's filer/ without its sharded store, fleet,
-meta aggregator and follower (the filer's scale-out, still to port)."""
+Ported from the JAX package's filer/."""
 
 from .entry import Attr, Entry, FileChunk, new_directory_entry
 from .filechunks import (
@@ -27,6 +29,7 @@ from .filer_store import (
 from .lsm_store import LsmFilerStore, path_hash64
 from .meta_gate import MetaLookupGate, MetaWriteGate
 from .meta_log import DurableMetaLog, MetaLog, MetaLogTrimmed
+from .sharded_store import ShardedFilerStore
 
 __all__ = [
     "Attr",
@@ -52,4 +55,5 @@ __all__ = [
     "DurableMetaLog",
     "MetaLog",
     "MetaLogTrimmed",
+    "ShardedFilerStore",
 ]

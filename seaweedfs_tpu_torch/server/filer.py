@@ -10,8 +10,9 @@ HTTP (ref: weed/server/filer_server_handlers_{read,write}*.go):
 
 RPC "filer" (ref: weed/server/filer_grpc_server.go): LookupDirectoryEntry,
 ListEntries, CreateEntry, UpdateEntry, DeleteEntry, AtomicRenameEntry,
-AssignVolume, Statistics, GetFilerConfiguration and the SubscribeMetadata
-and SubscribeLocalMetadata streams.
+AssignVolume, Statistics, GetFilerConfiguration, FleetStatus, FleetIngest,
+FleetMoveRange and the SubscribeMetadata and SubscribeLocalMetadata
+streams.
 
 Ported from the JAX package's server/filer.py on the port's one HTTP tier
 (util/fasthttp.py) and RPC tier (pb/rpc.py). Where the JAX filer's
@@ -39,11 +40,21 @@ mismatch) answers 500 and is counted in `device_errors`; it is never
 served around from the host store (the JAX fast tier hands it to its
 aiohttp application, which reads the store).
 
-Not ported: the sharded store (`-shards`), the metadata fleet
-(`-fleetMap`), the follower (`-followSource`), the peer aggregator
-(`-peers`), geo replication, notification sinks and chunk encryption; the
-GeoStatus, GeoResync and Fleet* RPCs are not registered, so they answer
-RPC 501.
+The scale-out: `shards > 1` puts a `ShardedFilerStore` of LSM (`.lsm`)
+or sqlite sub-stores under the filer; it has no `arena_view`, so its
+meta gate serves every flush from the host (`host_fallbacks`, reason
+`no_arena_view`), as the JAX filer's does. `fleet_map_path` makes this
+filer a `FleetMember` (filer/fleet.py): each RPC on a path first passes
+the member's ownership check and fence, and is forwarded to the owner
+when another member holds the path's directory; HTTP requests for a path
+it does not own answer 307 to the owner. `follow_source` makes it a
+read-only `MetaFollower` of that primary (writes answer
+`read_only_follower`), and `peers` a `MetaAggregator` over those filers'
+SubscribeLocalMetadata streams, whose aggregate log SubscribeMetadata
+serves.
+
+Not ported: geo replication, notification sinks and chunk encryption; the
+GeoStatus and GeoResync RPCs are not registered, so they answer RPC 501.
 """
 
 from __future__ import annotations
@@ -60,6 +71,7 @@ from ..client.master_client import MasterClient
 from ..client.operation import AssignLease, assign
 from ..client.read_fanout import ReplicaReader
 from ..filer import (
+    Attr,
     Entry,
     FileChunk,
     Filer,
@@ -265,7 +277,24 @@ class ChunkUploadGate:
                     fut.set_exception(IOError(str(e)))
 
 
-def _open_store(store_path: str):
+def _open_store(store_path: str, shards: int = 0):
+    if shards > 1:
+        # prefix-sharded metadata plane: store_path names a directory
+        # holding the crash-safe shard map + per-shard sub-stores (sqlite
+        # by default, LSM when it ends in .lsm)
+        from ..filer import ShardedFilerStore
+
+        if not store_path:
+            raise ValueError("sharded filer store needs a store_path")
+        if store_path.endswith(".lsm"):
+            def _factory(name: str):
+                from ..filer.lsm_store import LsmFilerStore
+
+                return LsmFilerStore(os.path.join(store_path, name + ".lsm"))
+        else:
+            def _factory(name: str):
+                return SqliteFilerStore(os.path.join(store_path, name + ".db"))
+        return ShardedFilerStore(store_path, _factory, n_shards=shards)
     if not store_path:
         return MemoryFilerStore()
     if store_path.endswith(".flog"):
@@ -324,6 +353,11 @@ class FilerServer:
         data_center: str = "",
         meta_gate: Optional[str] = None,
         arena=None,
+        peers: tuple = (),
+        shards: int = 0,
+        fleet_map_path: str = "",
+        fleet_self: str = "",
+        follow_source: str = "",
     ):
         self.master = master
         self.host = host
@@ -337,7 +371,7 @@ class FilerServer:
         # resolved before the store opens: a refusal must not leave the
         # store's directory lock held
         self.meta_gate_mode, arena = resolve_meta_gate(meta_gate, arena)
-        store = _open_store(store_path)
+        store = _open_store(store_path, shards)
         meta_log = None
         if meta_log_path:
             from ..filer.meta_log import DurableMetaLog
@@ -367,6 +401,44 @@ class FilerServer:
             from ..filer.meta_gate import MetaWriteGate
 
             self.write_gate = MetaWriteGate(self.filer.store)
+        # metadata serving fleet: when fleet_map_path names the shared
+        # crash-safe fleet map, this filer owns one prefix-range of the
+        # namespace, forwards everything else to the owning member, and
+        # can move ranges to a neighbor under traffic
+        self._fleet = None
+        if fleet_map_path:
+            from ..filer.fleet import FleetMember
+
+            self._fleet = FleetMember(
+                fleet_map_path, fleet_self or self.address, self.filer
+            )
+        # meta-log-fed read replica: follow_source makes this filer an
+        # eventually-consistent GET/LIST mirror of the named primary, with
+        # a disclosed staleness bound and a counted redirect path for
+        # read-your-writes
+        self._follower = None
+        if follow_source:
+            from ..filer.meta_follower import MetaFollower
+
+            self._follower = MetaFollower(
+                follow_source,
+                self.filer,
+                (store_path + ".follower.json") if store_path else "",
+                client_name=f"follower@{self.address}",
+            )
+        # peer filers: follow their local meta streams and merge into the
+        # aggregate log served by SubscribeMetadata
+        # (ref weed/filer2/meta_aggregator.go)
+        self.meta_aggregator = None
+        if peers:
+            from ..filer.meta_aggregator import MetaAggregator
+
+            self.meta_aggregator = MetaAggregator(
+                self.filer,
+                self.address,
+                list(peers),
+                offsets_path=(store_path + ".peers.json") if store_path else "",
+            )
         # the filer's own DC label: read affinity (the shared vid map
         # orders same-DC replicas first)
         self.data_center = data_center
@@ -380,6 +452,7 @@ class FilerServer:
         self._deletion_pending: list[tuple[str, int, str]] = []
         self._deletion_wakeup = asyncio.Event()
         self._deletion_task: Optional[asyncio.Task] = None
+        self._rebalance_task: Optional[asyncio.Task] = None
         self.chunk_delete_rounds = 0  # drained batches (test visibility)
         self.chunk_delete_inflight = False  # a drain round is running
         self._core: Optional[ServingCore] = None
@@ -419,21 +492,74 @@ class FilerServer:
         svc.unary("AssignVolume")(self._grpc_assign_volume)
         svc.unary("Statistics")(self._grpc_statistics)
         svc.unary("GetFilerConfiguration")(self._grpc_configuration)
+        svc.unary("FleetStatus")(self._grpc_fleet_status)
+        svc.unary("FleetIngest")(self._grpc_fleet_ingest)
+        svc.unary("FleetMoveRange")(self._grpc_fleet_move_range)
         svc.server_stream("SubscribeMetadata")(self._grpc_subscribe_metadata)
         svc.server_stream("SubscribeLocalMetadata")(
             self._grpc_subscribe_local_metadata
         )
         self._rpc_server = await serve(grpc_address(self.address), svc)
+        if self._fleet is not None:
+            # finish/roll back whatever a crash left mid-move BEFORE
+            # serving: the map's intent/cleanup records are authoritative
+            rec = self._fleet.recover()
+            if rec["purged"] or rec["cleaned"] or rec["intent_cleared"]:
+                _LOG.info(
+                    "fleet recovery at %s: purged %d strays, cleaned %d, "
+                    "intent_cleared=%s", self.address, rec["purged"],
+                    rec["cleaned"], rec["intent_cleared"],
+                )
+        if self._follower is not None:
+            await self._follower.start()
+        if self.meta_aggregator is not None:
+            self.meta_aggregator.start()
+        if hasattr(self.filer.store, "maybe_rebalance"):
+            self._rebalance_task = asyncio.ensure_future(
+                self._rebalance_loop()
+            )
+
+    async def _rebalance_loop(self) -> None:
+        """Heat-driven shard rebalance driver: periodically offer the
+        sharded store a rebalance check — the store's own hysteresis
+        (factor x mean, absolute floor, holddown interval) decides; a move
+        runs in the executor (it is store I/O)."""
+        store = self.filer.store
+        interval = max(5.0, store.rebalance_min_interval_s / 4)
+        loop = asyncio.get_event_loop()
+        while True:
+            await asyncio.sleep(interval)
+            try:
+                moved = await loop.run_in_executor(
+                    None, store.maybe_rebalance
+                )
+                if moved:
+                    _LOG.info(
+                        "meta shard rebalance: moved %s entries "
+                        "(shard %s -> %s at %r)",
+                        moved["moved"], moved["src"], moved["dst"],
+                        moved["split"],
+                    )
+            except asyncio.CancelledError:
+                return
+            except Exception:
+                pass  # next tick retries; hysteresis bounds churn
 
     async def stop(self) -> None:
+        if self._follower is not None:
+            await self._follower.stop()
+        if self.meta_aggregator is not None:
+            await self.meta_aggregator.stop()
         if self._rpc_server is not None:
             await self._rpc_server.stop()
         if self._core is not None:
             await self._core.stop()
-        if self._deletion_task is not None:
-            self._deletion_task.cancel()
+        for task in (self._deletion_task, self._rebalance_task):
+            if task is None:
+                continue
+            task.cancel()
             try:
-                await self._deletion_task
+                await task
             except (asyncio.CancelledError, Exception):
                 pass
         await self.master_client.stop()
@@ -461,7 +587,21 @@ class FilerServer:
             body["gate"] = dict(g.stats)
             body["fallback_reasons"] = dict(g.fallback_reasons)
             if g.arena is not None:
+                from ..ops import ragged_lookup
+
                 body["arena"] = g.arena.stats()
+                # K2 launches of this process (the gate's flushes on the
+                # card; 0 for an arena on the CPU)
+                body["ragged_lookup_launches"] = ragged_lookup.KERNEL_LAUNCHES
+                if g.arena.device.type == "cuda":
+                    import torch
+
+                    # this process's tensors on the card (its CUDA context
+                    # aside)
+                    body["device_memory"] = {
+                        "allocated": torch.cuda.memory_allocated(g.arena.device),
+                        "reserved": torch.cuda.memory_reserved(g.arena.device),
+                    }
         if self.write_gate is not None:
             body["write_gate"] = dict(self.write_gate.stats)
         if self._upload_gate is not None:
@@ -473,6 +613,13 @@ class FilerServer:
         body["chunk_delete_rounds"] = self.chunk_delete_rounds
         body["chunk_delete_pending"] = len(self._deletion_pending)
         body["chunk_delete_inflight"] = self.chunk_delete_inflight
+        if self._fleet is not None:
+            body["fleet"] = dict(self._fleet.counters)
+        if self._follower is not None:
+            body["follower"] = self._follower.status()
+        describe = getattr(self.filer.store, "describe", None)
+        if describe is not None:
+            body["shards"] = describe()
         return _json(200, body, JSON_FAST, head_only=req.method == "HEAD")
 
     # ---------------- async chunk GC (ref filer2/filer_deletion.go) ----------------
@@ -819,6 +966,35 @@ class FilerServer:
             return await self.meta_gate.lookup(path)
         return self.filer.find_entry(path)
 
+    def _fleet_owns(self, path: str) -> bool:
+        """True when no fleet is configured or this member owns the
+        path's directory band (HTTP handlers redirect otherwise)."""
+        if self._fleet is None:
+            return True
+        from ..filer.fleet import dir_of
+
+        return self._fleet.owner_for_dir(dir_of(path)) == self._fleet.self_addr
+
+    def _fleet_redirect(self, path: str, head: bool = False) -> bytes:
+        from ..filer.fleet import dir_of
+
+        owner = self._fleet.owner_for_dir(dir_of(path))
+        return render_response(
+            307, b"", b"application/octet-stream",
+            extra=b"Location: http://%s%s\r\n" % (owner.encode(), path.encode()),
+            head_only=head,
+        )
+
+    def _follower_redirect(self, path: str) -> bytes:
+        """A follower's answer to a write: 307 to its primary."""
+        src = self._follower.source
+        return render_response(
+            307,
+            json_body({"error": "read_only_follower", "primary": src}),
+            JSON_FULL,
+            extra=b"Location: http://%s%s\r\n" % (src.encode(), path.encode()),
+        )
+
     def _note_device_error(self, op: str, e: BaseException) -> None:
         self.device_errors[op] = self.device_errors.get(op, 0) + 1
         _LOG.warning("filer %s: gated lookup failed: %r", op, e)
@@ -846,6 +1022,8 @@ class FilerServer:
         head = req.method == "HEAD"
         tiered = fast is not None and fast != "/"
         path = fast if tiered else self._full_path(req)
+        if path != "/" and not self._fleet_owns(path):
+            return self._fleet_redirect(path, head)
         try:
             entry = await self._find_entry_gated(path)
         except Exception as e:
@@ -922,7 +1100,11 @@ class FilerServer:
     async def _handle_put(self, req, fast: Optional[str]) -> bytes:
         ct = req.headers.get(b"content-type", b"")
         multipart = ct.startswith(b"multipart/form-data")
-        if (fast is not None and fast != "/" and not multipart
+        # fleet routing/fencing and follower redirects live in the full
+        # handler (the JAX fast tier hands these requests to its aiohttp
+        # application)
+        scaled = self._fleet is not None or self._follower is not None
+        if (fast is not None and fast != "/" and not multipart and not scaled
                 and not self._is_dir(fast)):
             # the JAX fast tier's raw-body upload
             try:
@@ -950,14 +1132,46 @@ class FilerServer:
         else:
             data = req.body
             mime = ct.decode("latin1")
+        if self._follower is not None:
+            return self._follower_redirect(path)
         chunks = await self._write_chunks(
             data, ttl=self._query(req).get("ttl", "")
         )
+        if self._fleet is not None:
+            # chunks are cluster-global (already written); the ENTRY
+            # routes through the same fleet path as RPC creates —
+            # ownership check, fence admission, spine broadcast and all
+            now = time.time()
+            entry = Entry(
+                full_path=path,
+                attr=Attr(
+                    mtime=now, crtime=now, mime=mime,
+                    replication=self.replication,
+                    collection=self.collection,
+                ),
+                chunks=chunks,
+            )
+            resp = await self._grpc_create_entry({"entry": entry.to_dict()}, None)
+            if resp.get("error"):
+                self._queue_chunk_deletion([c.fid for c in chunks])
+                return _json(500, {"error": resp["error"]})
+            return _json(201, {"name": entry.name, "size": len(data)})
         entry = await self._touch(path, mime, chunks)
         return _json(201, {"name": entry.name, "size": len(data)})
 
     async def _handle_delete(self, req, path: str) -> bytes:
         recursive = self._query(req).get("recursive") == "true"
+        if self._follower is not None:
+            return self._follower_redirect(path)
+        if self._fleet is not None:
+            d = path.rsplit("/", 1)[0] or "/"
+            name = path.rsplit("/", 1)[-1]
+            resp = await self._grpc_delete_entry(
+                {"directory": d, "name": name, "is_recursive": recursive}, None
+            )
+            if resp.get("error"):
+                return _json(409, {"error": resp["error"]})
+            return render_response(204, b"", None)
         try:
             self.filer.delete_entry(path, recursive=recursive)
         except OSError as e:
@@ -967,6 +1181,20 @@ class FilerServer:
     # ---------------- RPC ----------------
     async def _grpc_lookup_entry(self, req, context) -> dict:
         path = req["directory"].rstrip("/") + "/" + req["name"]
+        if self._follower is not None:
+            # read-your-writes seam: a caller holding a primary write
+            # watermark ahead of our tail cursor gets a counted redirect
+            r = self._follower.gate_read(req)
+            if r is not None:
+                return r
+        if self._fleet is not None:
+            from ..filer.fleet import dir_of
+
+            routed = await self._fleet.admit(
+                "LookupDirectoryEntry", req, dir_of(path)
+            )
+            if routed is not None:
+                return routed
         try:
             entry = await self._find_entry_gated(path)
         except Exception as e:
@@ -978,6 +1206,17 @@ class FilerServer:
 
     async def _grpc_list_entries(self, req, context) -> dict:
         d = req["directory"].rstrip("/") or "/"
+        if self._follower is not None:
+            r = self._follower.gate_read(req)
+            if r is not None:
+                return r
+        if self._fleet is not None:
+            # children of d carry directory == d, so the lister IS the
+            # owner of d's band; subdirectory placeholders are present
+            # everywhere via the spine broadcast
+            routed = await self._fleet.admit("ListEntries", req, d)
+            if routed is not None:
+                return routed
         entries = self.filer.list_entries(
             d,
             req.get("start_from_file_name", ""),
@@ -985,6 +1224,9 @@ class FilerServer:
             int(req.get("limit", 1024)),
         )
         return {"entries": [e.to_dict() for e in entries]}
+
+    def _read_only(self) -> dict:
+        return {"error": "read_only_follower", "primary": self._follower.source}
 
     async def _create_local(self, entry: Entry, exclusive: bool) -> None:
         """One create through the gate-batched write seam (O_EXCL keeps
@@ -998,18 +1240,71 @@ class FilerServer:
             self.filer.create_entry(entry, exclusive=exclusive)
 
     async def _grpc_create_entry(self, req, context) -> dict:
+        if self._follower is not None:
+            return self._read_only()
+        entry_dict = req["entry"]
+        path = entry_dict["full_path"]
+        if self._fleet is None:
+            try:
+                await self._create_local(
+                    Entry.from_dict(entry_dict),
+                    bool(req.get("o_excl", False)),
+                )
+            except OSError as e:
+                return {"error": str(e)}
+            # safe watermark: last_ts_ns is taken AFTER the awaited insert
+            # landed, so it is >= this mutation's event ts
+            return {"ts_ns": self.filer.meta_log.last_ts_ns}
+        from ..filer.fleet import ancestor_dirs, dir_of
+
+        routed = await self._fleet.admit(
+            "CreateEntry", req, dir_of(path), mutation=True
+        )
+        if routed is not None:
+            return routed
         try:
-            await self._create_local(
-                Entry.from_dict(req["entry"]),
-                bool(req.get("o_excl", False)),
-            )
-        except OSError as e:
-            return {"error": str(e)}
-        # safe watermark: last_ts_ns is taken AFTER the awaited insert
-        # landed, so it is >= this mutation's event ts
-        return {"ts_ns": self.filer.meta_log.last_ts_ns}
+            chain = ancestor_dirs(path)
+            present = self.filer.store.find_many(chain) if chain else {}
+            missing = [p for p in chain if p not in present]
+            try:
+                await self._create_local(
+                    Entry.from_dict(entry_dict),
+                    bool(req.get("o_excl", False)),
+                )
+            except OSError as e:
+                return {"error": str(e)}
+            ts = self.filer.meta_log.last_ts_ns
+            if missing:
+                # replicate freshly minted directory placeholders to
+                # every member BEFORE answering: a successful create
+                # implies a fleet-wide visible spine
+                created = self.filer.store.find_many(missing)
+                await self._fleet.broadcast_spine(
+                    [created[p] for p in missing if p in created]
+                )
+            return {"ts_ns": ts}
+        finally:
+            self._fleet.finish_mutation()
 
     async def _grpc_update_entry(self, req, context) -> dict:
+        if self._follower is not None:
+            return self._read_only()
+        if self._fleet is not None:
+            from ..filer.fleet import dir_of
+
+            routed = await self._fleet.admit(
+                "UpdateEntry", req, dir_of(req["entry"]["full_path"]),
+                mutation=True,
+            )
+            if routed is not None:
+                return routed
+            try:
+                self.filer.update_entry(Entry.from_dict(req["entry"]))
+            except OSError as e:
+                return {"error": str(e)}
+            finally:
+                self._fleet.finish_mutation()
+            return {}
         try:
             self.filer.update_entry(Entry.from_dict(req["entry"]))
         except OSError as e:
@@ -1018,6 +1313,32 @@ class FilerServer:
 
     async def _grpc_delete_entry(self, req, context) -> dict:
         path = req["directory"].rstrip("/") + "/" + req["name"]
+        if self._follower is not None:
+            return self._read_only()
+        if self._fleet is None:
+            return await self._delete_local(req, path)
+        from ..filer.fleet import dir_of
+
+        routed = await self._fleet.admit(
+            "DeleteEntry", req, dir_of(path), mutation=True
+        )
+        if routed is not None:
+            return routed
+        try:
+            if bool(req.get("is_recursive", False)) and not req.get(
+                "fleet_local"
+            ):
+                e = self.filer.find_entry(path)
+                if e is not None and e.is_directory:
+                    # a subtree spans owners: every member deletes its
+                    # local slice (placeholders included); chunk frees
+                    # stay member-local, so nothing double-frees
+                    await self._fleet.broadcast("DeleteEntry", req)
+            return await self._delete_local(req, path)
+        finally:
+            self._fleet.finish_mutation()
+
+    async def _delete_local(self, req: dict, path: str) -> dict:
         try:
             self.filer.delete_entry(
                 path,
@@ -1031,11 +1352,60 @@ class FilerServer:
     async def _grpc_rename(self, req, context) -> dict:
         old = req["old_directory"].rstrip("/") + "/" + req["old_name"]
         new = req["new_directory"].rstrip("/") + "/" + req["new_name"]
+        if self._follower is not None:
+            return self._read_only()
+        if self._fleet is None:
+            try:
+                self.filer.rename(old, new)
+            except OSError as e:  # incl. FileNotFound/NotADirectory/self-move
+                return {"error": str(e)}
+            return {"ts_ns": self.filer.meta_log.last_ts_ns}
+        from ..filer.fleet import dir_of
+
+        routed = await self._fleet.admit(
+            "AtomicRenameEntry", req, dir_of(old), mutation=True
+        )
+        if routed is not None:
+            return routed
         try:
-            self.filer.rename(old, new)
-        except OSError as e:  # incl. FileNotFound/NotADirectory/self-move
-            return {"error": str(e)}
-        return {"ts_ns": self.filer.meta_log.last_ts_ns}
+            same_owner = self._fleet.owner_for_dir(
+                dir_of(new)
+            ) == self._fleet.self_addr
+            entry = self.filer.find_entry(old)
+            if entry is None:
+                return {"error": f"rename: {old} not found"}
+            if entry.is_directory and not same_owner:
+                # a subtree rename re-homes every child across range
+                # owners at once — out of scope for the fleet plane;
+                # files move via routed create + delete
+                return {
+                    "error": "fleet: cross-range directory rename "
+                    "unsupported"
+                }
+            if same_owner:
+                try:
+                    self.filer.rename(old, new)
+                except OSError as e:
+                    return {"error": str(e)}
+                return {"ts_ns": self.filer.meta_log.last_ts_ns}
+            moved = Entry(
+                full_path=new,
+                attr=entry.attr,
+                chunks=entry.chunks,
+                extended=entry.extended,
+            )
+            resp = await self._fleet.forward(
+                "CreateEntry",
+                {"entry": moved.to_dict()},
+                self._fleet.owner_for_dir(dir_of(new)),
+            )
+            if resp.get("error"):
+                return resp
+            # the chunks now belong to the new entry on the new owner
+            self.filer.delete_entry(old, delete_chunks=False)
+            return {"ts_ns": self.filer.meta_log.last_ts_ns}
+        finally:
+            self._fleet.finish_mutation()
 
     async def _grpc_assign_volume(self, req, context) -> dict:
         try:
@@ -1060,11 +1430,57 @@ class FilerServer:
     async def _grpc_statistics(self, req, context) -> dict:
         return {"used_size": 0, "file_count": 0}
 
+    async def _grpc_fleet_status(self, req, context) -> dict:
+        """Fleet-plane state of THIS filer: map/epoch/range, forward and
+        ingest counters, write-gate coalescing stats, and (when
+        following) the replica tail — `meta.fleet.status` surfaces it."""
+        out: dict = {
+            "configured": self._fleet is not None,
+            "address": self.address,
+            "write_rounds": getattr(self.filer.store, "write_rounds", 0),
+        }
+        if self.write_gate is not None:
+            out["write_gate"] = dict(self.write_gate.stats)
+        if self._fleet is not None:
+            out["fleet"] = self._fleet.status()
+            out["map"] = out["fleet"]["map"]  # router convenience
+        if self._follower is not None:
+            out["follower"] = self._follower.status()
+        return out
+
+    async def _grpc_fleet_ingest(self, req, context) -> dict:
+        if self._fleet is None:
+            return {"error": "not a fleet member"}
+        loop = asyncio.get_event_loop()
+        try:
+            # store work (range purge scans, batched inserts) off the
+            # event loop: ingest pages arrive mid-move while this member
+            # keeps serving its own range
+            return await loop.run_in_executor(None, self._fleet.ingest, req)
+        except Exception as e:
+            return {"error": f"{type(e).__name__}: {e}"}
+
+    async def _grpc_fleet_move_range(self, req, context) -> dict:
+        if self._fleet is None:
+            return {"error": "not a fleet member"}
+        try:
+            return await self._fleet.move_range(req["dst"], req["lo"], req["hi"])
+        except (ValueError, TimeoutError) as e:
+            return {"error": str(e)}
+        except Exception as e:
+            return {"error": f"{type(e).__name__}: {e}"}
+
     async def _grpc_subscribe_metadata(self, req, context):
-        """Stream namespace change events from since_ns onward (ref
-        filer.proto:49-53 SubscribeMetadata). Without peers (not ported)
-        it is this filer's own log."""
-        async for out in self._subscribe(self.filer.meta_log, req):
+        """Stream namespace change events from since_ns onward — the
+        AGGREGATE stream (this filer + followed peers) when peers are
+        configured (ref filer.proto:49-53 SubscribeMetadata,
+        filer_grpc_server_sub_meta.go serving the MetaAggregator buffer)."""
+        log = (
+            self.meta_aggregator.log
+            if self.meta_aggregator is not None
+            else self.filer.meta_log
+        )
+        async for out in self._subscribe(log, req):
             yield out
 
     async def _grpc_subscribe_local_metadata(self, req, context):

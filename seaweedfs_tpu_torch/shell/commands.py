@@ -8,7 +8,8 @@ ec.rebuild (one VolumeEcShardsRebuildBatch per rebuilder node, with a
 per-volume fallback), ec.decode (back to a normal volume through
 VolumeEcShardsToVolume), ec.balance (dedupe and rack-aware moves) and
 volume.vacuum (the master's /vol/vacuum sweep, its VacuumStatus queue and
-a forced scheduler round). Every other command of the JAX shell
+a forced scheduler round) and meta.fleet.status (a filer's FleetStatus,
+in the JAX formatter's text). Every other command of the JAX shell
 (volume.move/copy, volume.tier.*, the fs.* and operator commands) answers
 "not ported".
 """
@@ -18,6 +19,8 @@ from __future__ import annotations
 import time
 from collections import defaultdict
 
+from ..pb import grpc_address
+from ..pb.rpc import Stub
 from ..storage.erasure_coding import DATA_SHARDS_COUNT, TOTAL_SHARDS_COUNT
 from ..storage.erasure_coding.ec_volume import ShardBits
 from .command_env import CommandEnv
@@ -39,7 +42,7 @@ NOT_PORTED = (
     "volume.tier.download", "volume.lifecycle",
     "volume.tier.sweep", "volume.fix.replication", "volume.balance",
     "volume.fsck", "volume.scrub", "ec.repair.status", "geo.status",
-    "geo.resync", "meta.fleet.status", "trace.status", "trace.dump",
+    "geo.resync", "trace.status", "trace.dump",
     "overload.status",
 )
 
@@ -641,6 +644,87 @@ async def cmd_ec_rebuild(env, argv) -> str:
                 f"volume {vid}: rebuilt shards {rebuilt} on {rebuilder.url}"
             )
     return "\n".join(results) or "no damaged ec volumes"
+
+
+@command("meta.fleet.status")
+async def cmd_meta_fleet_status(env, argv) -> str:
+    """Metadata fleet status: meta.fleet.status [-filer host:port].
+    Shows the queried member's FLEETMAP view (epoch, every member's
+    directory range, pending move/cleanup), its write-gate coalescing
+    stats + store write rounds, and — when the member is a follower —
+    the tail cursor and disclosed staleness bound."""
+    flags = _parse_flags(argv)
+    filer = flags.get("filer", "")
+    if not filer:  # the JAX text: its fs.* commands keep a sticky filer, the port has none
+        return "meta.fleet.status needs -filer host:port (or a sticky filer)"
+    r = await Stub(grpc_address(filer), "filer").call(
+        "FleetStatus", {}, timeout=10.0
+    )
+    if r.get("error"):
+        return f"meta.fleet.status on {filer} failed: {r['error']}"
+    lines = [f"filer {r.get('address', filer)}:"]
+    fleet = r.get("fleet")
+    if not r.get("configured"):
+        lines.append("  fleet: not a fleet member")
+    elif fleet:
+        m = fleet.get("map", {})
+        lines.append(
+            f"  fleet epoch {fleet.get('epoch')} · "
+            f"{fleet.get('members')} member(s) · self range "
+            f"[{fleet['range'][0] or '-inf'}, {fleet['range'][1] or '+inf'})"
+        )
+        bounds = m.get("bounds", [])
+        for i, addr in enumerate(m.get("addresses", [])):
+            lo = bounds[i - 1] if i > 0 else ""
+            hi = bounds[i] if i < len(bounds) else ""
+            marker = " (self)" if addr == fleet.get("self") else ""
+            lines.append(
+                f"    {addr}: [{lo or '-inf'}, {hi or '+inf'}){marker}"
+            )
+        if m.get("pending_move"):
+            pm = m["pending_move"]
+            lines.append(
+                f"  PENDING MOVE [{pm['lo']}, {pm['hi']}) "
+                f"{pm['src']} -> {pm['dst']}"
+            )
+        if m.get("pending_cleanup"):
+            pc = m["pending_cleanup"]
+            lines.append(
+                f"  pending cleanup [{pc['lo']}, {pc['hi']}) on {pc['src']}"
+            )
+        c = fleet.get("counters", {})
+        lines.append(
+            f"  forwarded {c.get('forwarded')} · ingested "
+            f"{c.get('ingested')} · moves {c.get('moves_committed')} ok / "
+            f"{c.get('moves_failed')} failed · fence waits "
+            f"{c.get('fence_waits')}"
+        )
+    wg = r.get("write_gate")
+    if wg:
+        lines.append(
+            f"  write gate: {wg.get('writes')} writes in "
+            f"{wg.get('batches')} round(s) · coalesced "
+            f"{wg.get('coalesced')} · largest batch "
+            f"{wg.get('largest_batch')} · item retries "
+            f"{wg.get('item_retries')}"
+        )
+    if "write_rounds" in r:
+        lines.append(f"  store write rounds: {r['write_rounds']}")
+    fo = r.get("follower")
+    if fo:
+        lines.append(
+            f"  follower of {fo.get('source')}: "
+            + ("connected" if fo.get("connected") else "DISCONNECTED")
+            + f" · cursor {fo.get('cursor_ns')} · staleness bound "
+            f"{fo.get('staleness_bound_s')}s · applied {fo.get('applied')}"
+            f" · redirects {fo.get('redirects')}"
+        )
+        if fo.get("resync_required"):
+            lines.append(
+                "  RESYNC REQUIRED: cursor behind primary retention "
+                f"(trimmed through {fo.get('trimmed_through')})"
+            )
+    return "\n".join(lines)
 
 
 @command("ec.balance")

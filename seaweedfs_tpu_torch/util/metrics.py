@@ -318,6 +318,53 @@ FILER_CHUNK_DELETE_BATCHES = REGISTRY.counter(
     "by result (ok/retry)",
 )
 
+# the filer's scale-out: the prefix-sharded store (filer/sharded_store.py),
+# the range-owning fleet (filer/fleet.py) and the meta-log-fed read
+# replicas (filer/meta_follower.py)
+META_SHARD_OPS = REGISTRY.counter(
+    "seaweedfs_tpu_meta_shard_ops_total",
+    "filer-store operations routed through the prefix-sharded store, "
+    "by op kind (find/find_many/list/insert/delete/delete_children)",
+)
+META_SHARD_COUNT = REGISTRY.gauge(
+    "seaweedfs_tpu_meta_shard_count",
+    "shards in the prefix-sharded filer store's committed shard map",
+)
+META_SHARD_REBALANCES = REGISTRY.counter(
+    "seaweedfs_tpu_meta_shard_rebalances_total",
+    "heat-driven shard-map rebalances committed (purge/copy/commit/"
+    "cleanup moves of a directory band to the cooler neighbor)",
+)
+META_SHARD_MOVED = REGISTRY.counter(
+    "seaweedfs_tpu_meta_shard_moved_entries_total",
+    "filer entries copied between shards by rebalance moves",
+)
+FLEET_FORWARDED = REGISTRY.counter(
+    "seaweedfs_tpu_fleet_forwarded_total",
+    "filer requests forwarded to the owning fleet member because the "
+    "fleet map routes the path elsewhere, by op",
+)
+FLEET_INGESTED = REGISTRY.counter(
+    "seaweedfs_tpu_fleet_ingested_entries_total",
+    "entries applied straight to the local store by FleetIngest "
+    "(range-move copy/delta pages and directory-spine broadcasts)",
+)
+FLEET_MOVES = REGISTRY.counter(
+    "seaweedfs_tpu_fleet_range_moves_total",
+    "fleet range moves by outcome (committed/failed)",
+)
+FOLLOWER_EVENTS = REGISTRY.counter(
+    "seaweedfs_tpu_meta_follower_events_total",
+    "meta-log events a read replica applied to its local store, by "
+    "type (upsert/delete/rename)",
+)
+FOLLOWER_REDIRECTS = REGISTRY.counter(
+    "seaweedfs_tpu_meta_follower_redirects_total",
+    "follower reads redirected to the primary because the caller's "
+    "read-your-writes watermark (min_ts_ns) was ahead of the tail "
+    "cursor",
+)
+
 
 def render() -> str:
     """Every family in the Prometheus text exposition format (the

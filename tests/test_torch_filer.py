@@ -662,9 +662,10 @@ def test_port_arena_generation_holds_filer_and_needle_runs(tmp_path):
 
 
 @pytest.mark.parametrize("flag", [
-    ["-shards", "2"], ["-peers", "a:1"], ["-fleetMap", "m"], ["-fleetSelf", "a:1"],
-    ["-followSource", "a:1"], ["-geoSource", "a:1"], ["-geoState", "s"],
-    ["-notifySink", "log"], ["-notifyUrl", "u"], ["-encryptVolumeData"],
+    ["-geoSource", "a:1"], ["-geoState", "s"], ["-notifySink", "log"],
+    ["-notifyUrl", "u"], ["-notifyBroker", "b:1"], ["-notifyTopic", "t"],
+    ["-notifyEndpoint", "e:1"], ["-notifyBucket", "k"], ["-notifyAccessKey", "a"],
+    ["-notifySecretKey", "s"], ["-encryptVolumeData"],
 ])
 def test_port_filer_refuses_flags_still_to_port(flag):
     from seaweedfs_tpu_torch.command import cli

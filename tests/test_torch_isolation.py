@@ -8,7 +8,10 @@ one gate flush through the arena of the port, a bucketed sharded lookup
 on a mesh of CPU devices, and the port's master
 (with topology, sequence and raft) and a volume server heartbeating to
 it on the CPU answering an assign, a POST and a GET, with the client and
-shell modules imported, building no kernel. The plain versions of the
+shell modules imported, and the filer's scale-out modules (the sharded
+store, the fleet, the follower, the aggregator and the fleet's load
+driver) imported and a sharded store and a fleet map used, building no
+kernel. The plain versions of the
 server's transport: a unary RPC round trip through pb/rpc.py, and
 util/mpack.py against msgpack on the RPC messages."""
 
@@ -217,6 +220,22 @@ _SCRIPT = textwrap.dedent(
             await vs.stop()
             await ms.stop()
     asyncio.run(asyncio.wait_for(serve(), 30))
+
+    # the filer's scale-out: a sharded store, a fleet map, the follower,
+    # the aggregator and the fleet's load driver
+    from seaweedfs_tpu_torch.filer import Entry, MemoryFilerStore
+    from seaweedfs_tpu_torch.filer import fleet, meta_aggregator, meta_follower
+    from seaweedfs_tpu_torch.filer import sharded_store
+    from seaweedfs_tpu_torch.ops import meta_fleet_driver
+    ss = sharded_store.ShardedFilerStore(os.path.join(d, "shards"),
+                                         lambda name: MemoryFilerStore(), 4)
+    ss.insert_entry(Entry(full_path="/q/x"))
+    assert ss.find_entry("/q/x").full_path == "/q/x"
+    fmap = os.path.join(d, "FLEETMAP")
+    fleet.write_fleet_map(fmap, fleet.FleetMap(["a:1", "b:2"]))
+    assert fleet.read_fleet_map(fmap).owner_for_dir("/zz") == "b:2"
+    assert meta_follower.MetaFollower and meta_aggregator.MetaAggregator
+    assert meta_fleet_driver.drive
     loaded = [m for m in sys.modules
               if any(m == f or m.startswith(f + ".")
                      for f in ("jax", "jaxlib", "msgpack", "seaweedfs_tpu",
