@@ -4,8 +4,8 @@
 Drives the port's paths through the entry points a volume server
 calls, at full width, then through the port's volume server, its cluster,
 its mesh plane, the volume tier under the filer, the filer and its
-scale-out, and holds each CUDA
-kernel against its plain PyTorch version: warm-storage erasure coding
+scale-out, and the self-healing plane (scrub and repair), and holds
+each CUDA kernel against its plain PyTorch version: warm-storage erasure coding
 (gf_matmul, and gf_verify for the mesh's parity check) and the
 needle-index lookup (index_search, ragged_lookup, and the mesh lookup's
 index_buckets and bucket_search):
@@ -42,6 +42,13 @@ index_buckets and bucket_search):
      find_dat_file_size, write_dat_file (10 large blocks of 1 GiB, then
      small ones), write_idx_file_from_ec_index; the .dat hashes as the
      original's prefix and the .idx equals the .ecx
+ 17a scrub at scale (here, after the last phase that reads the shards):
+     storage/scrub.py::scrub_ec_volume with CudaRSCodec over the 14
+     shards, one gf256_matmul launch a 1 MiB chunk at least: a clean pass
+     (bytes, wall, GB/s, launches, the encode round trips' share), then a
+     seeded byte flipped in a parity shard and one in a data shard in
+     another chunk: the second pass must name exactly those two shards
+     (unidentified false); the bytes are put back
   7  volume_lookup (`weed benchmark` scale): 1,048,576 needles of 1 KiB
      through Volume, 1 % deleted and 1 % overwritten, reloaded; bulk_lookup
      of every key plus 10 % absent in batches of 64 .. all, equal to the
@@ -247,6 +254,30 @@ index_buckets and bucket_search):
      `shell meta.fleet.status` of member 0. The lookup passes are seeded
      samples, and the line says why; the card's memory with the children
      up and each child's K2 launches are in the line.
+ 17b self-healing in a cluster (tests/test_scrub_repair.py's end-to-end
+     test at scale): `server` and three `volume -mserver`, all
+     `-storageBackend cuda -pulseSeconds 0.5`, on event-loop threads of
+     this script, the master's background loop off and its repair grace
+     2 s; two volumes of 1,091 MB of .dat each, written by `--prep heal`
+     while phase 16 runs: a replicated (001) one on two volume servers,
+     whose next needle a FaultPlan (util/faults.py) bitflips on one
+     holder's .dat only, and an EC one generated on the card, 12 shards
+     on the `server` and shards 12, 13 on a volume server holding no
+     replica. Driven by the shell's `volume.scrub` and
+     `ec.repair.status -run`: (1) the scrub finds the needle, the holder
+     quarantines the volume and the scheduler re-copies it
+     (VolumeRepairCopy); (2) a seeded data-shard byte flipped, the scrub
+     names the shard and moves it to .ecNN.bad, the scheduler rebuilds
+     it (VolumeEcShardsRebuildBatch, B1) and drops the survivors it
+     pulled; (3) the shard holder stops and its shards are rebuilt on the
+     `server`. Two read clients (children, c=32 each, at most 20,000
+     GETs in all, paced over 24 s) read both volumes across the repairs:
+     0 wrong bodies, failed reads counted, the rate and whether the pass
+     lasted through every repair reported. Then every dispatch
+     error-free, the queue at 0, a second `volume.scrub` clean, every
+     needle of both volumes byte-identical, every shard's sha1 as before
+     the damage; detection-to-repair walls, the rebuild rounds' walls and
+     launches, B1's launches in each window.
 
 Each phase prints one JSON line; any mismatch or exception exits non-zero
 without the final line. The line before last but one is the kernels
@@ -1548,17 +1579,28 @@ def client_main(argv: list) -> int:
     reqs = plan["requests"]  # (method, path, blob index | -1, status)
     # a GET that wants 200 may answer 404 (counted apart, not wrong)
     allow_404 = plan.get("allow_404", False)
+    # any other status than the wanted one is a failed read (counted), a
+    # 200 with another body a wrong one; `max_requests` caps the requests
+    # of all clients together
+    allow_fail = plan.get("allow_fail", False)
+    cap = plan.get("max_requests")
+    pace_s = plan.get("pace_s", 0.0)  # each connection's pause after a request
     lat = []
     bad = []
     live_404 = [0]
+    failed = [0]
+    sent = [0]
 
     def order(k: int):
         n = 0
         while True:
             for i in range(k, len(reqs), a.concurrency):
+                if cap is not None and sent[0] >= cap:
+                    return
+                sent[0] += 1
                 yield i
                 n += 1
-                if a.until and n % 32 == 0 and os.path.exists(a.until):
+                if a.until and (pace_s or n % 32 == 0) and os.path.exists(a.until):
                     return
             if not a.until or os.path.exists(a.until):
                 return
@@ -1581,6 +1623,8 @@ def client_main(argv: list) -> int:
                 lat.append(time.perf_counter() - t0)
                 if allow_404 and status == 404 and want_status == 200:
                     live_404[0] += 1
+                elif allow_fail and status != want_status:
+                    failed[0] += 1
                 elif status != want_status:
                     bad.append((i, path, status, want_status, got[:80].decode("latin1")))
                 elif method == "GET" and status == 200 and got != blobs[blob]:
@@ -1590,6 +1634,8 @@ def client_main(argv: list) -> int:
                     etag = plan["etags"][blob]
                     if reply.get("size") != len(blobs[blob]) or reply.get("eTag") != etag:
                         bad.append((i, path, "reply", got[:120].decode("latin1")))
+                if pace_s:
+                    await asyncio.sleep(pace_s)
         finally:
             w.close()
 
@@ -1609,6 +1655,7 @@ def client_main(argv: list) -> int:
             "wall_s": wall,
             "per_s": len(lat) / wall,
             "live_answered_404": live_404[0],
+            "failed": failed[0],
             "p50_ms": srt[len(srt) // 2] * 1e3,
             "p99_ms": srt[min(len(srt) - 1, int(len(srt) * 0.99))] * 1e3,
             "client_cpu_s": cpu,
@@ -1619,31 +1666,49 @@ def client_main(argv: list) -> int:
     return 0
 
 
-def _drive(work: str, name: str, port: int, plan: dict, concurrency: int,
-           timeout: float) -> dict:
-    """Run the load client as a child process over `plan`; fail on any
-    wrong answer."""
+def _start_client(work: str, name: str, port: int, plan: dict, concurrency: int,
+                  until: str = "") -> dict:
+    """Start the load client as a child process over `plan` (with
+    `until`, it cycles through the plan until that file exists)."""
     import pickle
 
     plan_path = os.path.join(work, f"{name}.plan")
     out_path = os.path.join(work, f"{name}.json")
     with open(plan_path, "wb") as f:
         pickle.dump(plan, f, protocol=pickle.HIGHEST_PROTOCOL)
-    proc = subprocess.run(
-        [sys.executable, os.path.abspath(__file__), "--client", plan_path,
-         "--port", str(port), "--concurrency", str(concurrency),
-         "--out", out_path],
-        capture_output=True, text=True, timeout=timeout,
-    )
-    if proc.returncode != 0:
-        fail(f"load client {name} exited {proc.returncode}: {proc.stderr[-2000:]}")
-    with open(out_path) as f:
+    args = [sys.executable, os.path.abspath(__file__), "--client", plan_path,
+            "--port", str(port), "--concurrency", str(concurrency), "--out", out_path]
+    if until:
+        args += ["--until", until]
+    proc = subprocess.Popen(args, stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+    return {"name": name, "proc": proc, "out": out_path, "plan": plan_path}
+
+
+def _client_result(held: dict, timeout: float) -> dict:
+    """Wait for a load client; fail on any wrong answer."""
+    try:
+        _out, err = held["proc"].communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        held["proc"].kill()
+        held["proc"].wait()
+        fail(f"load client {held['name']} ran over {timeout} s")
+    if held["proc"].returncode != 0:
+        fail(f"load client {held['name']} exited {held['proc'].returncode}: "
+             f"{err.decode(errors='replace')[-2000:]}")
+    with open(held["out"]) as f:
         res = json.load(f)
-    os.remove(plan_path)
-    os.remove(out_path)
+    os.remove(held["plan"])
+    os.remove(held["out"])
     if res["bad"]:
-        fail(f"{name}: {res['bad']} wrong answers, e.g. {res['bad_examples']}")
+        fail(f"{held['name']}: {res['bad']} wrong answers, e.g. {res['bad_examples']}")
     return res
+
+
+def _drive(work: str, name: str, port: int, plan: dict, concurrency: int,
+           timeout: float) -> dict:
+    """Run the load client as a child process over `plan`; fail on any
+    wrong answer."""
+    return _client_result(_start_client(work, name, port, plan, concurrency), timeout)
 
 
 def _http_json(port: int, path: str) -> dict:
@@ -1778,6 +1843,8 @@ def prep_main(argv: list) -> int:
 
     volume1 DIR SEED: write_benchmark_volume into DIR, the table drawn
         from SEED as phase 10 draws it
+    heal ROOT SEED: write_heal_volumes (17(b)'s EC volume and the two
+        holders' copies of its replicated volume) under ROOT
     deletes NPZ SRC COPY: on the volume in SRC (vid, ids, cookies and the
         doomed rows in NPZ) delete all but the last `by_rpc` doomed
         needles, copy the .dat and .idx into COPY (13b's volume), then
@@ -1796,6 +1863,9 @@ def prep_main(argv: list) -> int:
         os.makedirs(d)
         table = benchmark_volume_table(np.random.default_rng(seed + 10), crc_mod)
         print(json.dumps({"write_s": write_benchmark_volume(d, table, needle_mod)}))
+        return 0
+    if kind == "heal":
+        print(json.dumps(write_heal_volumes(rest[0], int(rest[1]), needle_mod)))
         return 0
     if kind == "deletes":
         from seaweedfs_tpu_torch.storage.volume import Volume
@@ -6115,6 +6185,566 @@ def phase_fleet(torch, work: str, seed: int, server: dict) -> dict:
     return res
 
 
+# --- phase 17 ----------------------------------------------------------------
+HEAL_VID = 7  # the EC volume of 17(b), written by `--prep heal`
+HEAL_REP_VID = 8  # the replicated (001) volume of 17(b), the same size
+HEAL_NEEDLE_BYTES = 64 * 1024
+HEAL_NEEDLES = 16_640  # 1,091 MB of .dat a volume: >= 1 GiB
+HEAL_READS = 20_000  # the read pass's cap across the repair rounds
+HEAL_READ_CONCURRENCY = 64  # split over the two read clients
+# the read pass spreads its cap over this span: from the clients' start to
+# the last repair's end took 20.6 s on an H100 with unpaced clients, which
+# spent the cap at 1,196 GETs/s 4 s before the node-loss repair ended,
+# and 16.8 s in the whole script with this pace (PERF.md §6)
+HEAL_READ_SPAN_S = 24.0
+HEAL_PULSE_S = 0.5  # the volume servers' -pulseSeconds
+HEAL_GRACE_S = 2.0  # the master's repair_grace_seconds (its default 20 s)
+HEAL_ROUND_S = 0.25  # between two `ec.repair.status -run` rounds
+HEAL_DEADLINE_S = 120.0  # per repair, detection to converged
+
+
+def write_heal_volumes(root: str, seed: int, needle_mod) -> dict:
+    """17(b)'s volumes under `root` before a server starts, each
+    HEAL_NEEDLES needles of HEAL_NEEDLE_BYTES from a seeded pool of 64
+    payloads (CRCs computed once), written in batches: the EC volume
+    (HEAL_VID) in d0, the replicated volume (HEAL_REP_VID, placement 001)
+    in d1 and a copy of its files in d2; each reader's table in
+    `<vid>.npz`."""
+    import numpy as np
+
+    from seaweedfs_tpu_torch.storage.super_block import ReplicaPlacement
+    from seaweedfs_tpu_torch.storage.volume import Volume
+
+    t0 = time.perf_counter()
+    out = {}
+    for vid, d, salt, placement in ((HEAL_VID, "d0", 170, None),
+                                    (HEAL_REP_VID, "d1", 172, "001")):
+        d = os.path.join(root, d)
+        os.makedirs(d)
+        rng = np.random.default_rng(seed + salt)
+        pool = rng.integers(0, 256, (64, HEAL_NEEDLE_BYTES), dtype=np.uint8)
+        blobs = [row.tobytes() for row in pool]
+        ids = rng.permutation(np.arange(1, HEAL_NEEDLES + 1, dtype=np.uint64) * 7919)
+        cookies = rng.integers(1, 1 << 32, size=HEAL_NEEDLES, dtype=np.uint64)
+        blob_of = rng.integers(0, 64, size=HEAL_NEEDLES)
+        crc_of = {b: needle_mod.masked_crc(b) for b in blobs}
+        real_crc = needle_mod.masked_crc
+        needle_mod.masked_crc = lambda data: crc_of.get(bytes(data)) or real_crc(data)
+        try:
+            v = Volume(d, "", vid, replica_placement=(
+                ReplicaPlacement.parse(placement) if placement else None))
+            for c0 in range(0, HEAL_NEEDLES, 256):
+                for r in v.write_needle_batch([
+                    needle_mod.Needle(cookie=int(c), id=int(k), data=blobs[int(b)])
+                    for k, c, b in zip(ids[c0:c0 + 256].tolist(),
+                                       cookies[c0:c0 + 256].tolist(),
+                                       blob_of[c0:c0 + 256].tolist())
+                ]):
+                    if isinstance(r, Exception):
+                        fail(f"heal volume {vid} write failed: {r!r}")
+            out[f"dat_bytes_{vid}"] = v.data_file_size()
+            v.close()
+        finally:
+            needle_mod.masked_crc = real_crc
+        np.savez(os.path.join(root, f"{vid}.npz"), pool=pool, ids=ids,
+                 cookies=cookies, blob_of=blob_of)
+    os.makedirs(os.path.join(root, "d2"))
+    for ext in (".dat", ".idx"):
+        shutil.copyfile(os.path.join(root, "d1", f"{HEAL_REP_VID}{ext}"),
+                        os.path.join(root, "d2", f"{HEAL_REP_VID}{ext}"))
+    out["write_s"] = time.perf_counter() - t0
+    return out
+
+
+class _TimedCodec:
+    """A codec whose encode calls are timed: staging, upload, kernel,
+    download and the stream's sync, the device side of a scrub pass."""
+
+    def __init__(self, codec):
+        self.codec = codec
+        self.encode_s = 0.0
+        self.encodes = 0
+
+    def __getattr__(self, name):
+        return getattr(self.codec, name)
+
+    def encode(self, data):
+        t0 = time.perf_counter()
+        out = self.codec.encode(data)
+        self.encode_s += time.perf_counter() - t0
+        self.encodes += 1
+        return out
+
+
+def _flip_byte(path: str, offset: int, mask: int = 0x5A) -> int:
+    with open(path, "r+b") as f:
+        f.seek(offset)
+        b = f.read(1)[0]
+        f.seek(offset)
+        f.write(bytes([b ^ mask]))
+    return b
+
+
+def phase_scrub_at_scale(torch, base: str, seed: int) -> dict:
+    """17(a): scrub_ec_volume with CudaRSCodec over phase 3's 11 GiB
+    RS(10,4) volume, all 14 shards local (after the last phase that
+    reads them): a clean pass, then one seeded byte flipped in a parity
+    shard and one in a data shard (in another chunk); the second pass
+    must name exactly those two shards. The flipped bytes are put back."""
+    import numpy as np
+
+    from seaweedfs_tpu_torch.ops import gf256 as G
+    from seaweedfs_tpu_torch.ops.rs_kernel import CudaRSCodec
+    from seaweedfs_tpu_torch.storage import scrub
+    from seaweedfs_tpu_torch.storage.erasure_coding import to_ext
+
+    chunk = scrub.EC_SCRUB_CHUNK
+    shard_bytes = os.path.getsize(base + to_ext(0))
+    chunks = -(-shard_bytes // chunk)
+    passes = {}
+
+    def one_pass(name: str) -> dict:
+        codec = _TimedCodec(CudaRSCodec())
+        G.KERNEL_LAUNCHES = 0
+        t0 = time.perf_counter()
+        r = scrub.scrub_ec_volume(base, codec)
+        wall = time.perf_counter() - t0
+        if r.get("skipped"):
+            fail(f"scrub ({name}) skipped the volume: {r['skipped']}")
+        passes[name] = {
+            "bytes": r["bytes"], "wall_s": wall, "GBps": r["bytes"] / wall / 1e9,
+            "gf_matmul_launches": G.KERNEL_LAUNCHES, "encodes": codec.encodes,
+            "encode_round_trip_s": codec.encode_s,
+            "read_and_compare_s": wall - codec.encode_s,
+            "corrupt_shards": r["corrupt_shards"], "unidentified": r["unidentified"],
+        }
+        if G.KERNEL_LAUNCHES < chunks:
+            fail(f"scrub ({name}) launched gf_matmul {G.KERNEL_LAUNCHES} times "
+                 f"for {chunks} chunks")
+        return passes[name]
+
+    clean = one_pass("clean")
+    if clean["corrupt_shards"] or clean["unidentified"]:
+        fail(f"the clean scrub found {clean['corrupt_shards']}")
+    rng = np.random.default_rng(seed + 17)
+    parity = 10 + int(rng.integers(0, 4))
+    data = int(rng.integers(0, 10))
+    c_par = int(rng.integers(0, chunks))
+    c_dat = (c_par + 1 + int(rng.integers(0, chunks - 1))) % chunks
+    flips = {}
+    for shard, c in ((parity, c_par), (data, c_dat)):
+        width = min(chunk, shard_bytes - c * chunk)
+        off = c * chunk + int(rng.integers(0, width))
+        flips[shard] = (off, _flip_byte(base + to_ext(shard), off))
+    try:
+        flipped = one_pass("flipped")
+    finally:
+        for shard, (off, _b) in flips.items():
+            _flip_byte(base + to_ext(shard), off)  # the same mask puts it back
+    if flipped["corrupt_shards"] != sorted(flips) or flipped["unidentified"]:
+        fail(f"the scrub after flips in shards {sorted(flips)} named "
+             f"{flipped['corrupt_shards']} (unidentified {flipped['unidentified']})")
+    res = {
+        "phase": "self_healing_scrub",
+        "volume": {"shard_bytes": shard_bytes, "shards": 14, "chunks": chunks,
+                   "chunk_bytes": chunk},
+        "flips": {str(s): {"offset": off, "chunk": off // chunk}
+                  for s, (off, _b) in flips.items()},
+        "passes": passes,
+        "named_exactly_the_flipped_shards": True,
+        "cuts": ["the master's 30,000 MB volume limit cut to phase 3's 11 GiB volume "
+                 "(the script's disk and time)"],
+    }
+    emit(res)
+    return res
+
+
+def _heal_plan(pool, fids, blob_of, cap: int, concurrency: int) -> dict:
+    """A read client's plan: GET every fid (its blob must come back), cycled
+    until the stop file exists or `cap` requests, paced to spread the cap
+    over HEAL_READ_SPAN_S; failures counted, wrong bodies fail."""
+    return {"blobs": pool, "requests": [("GET", f, int(b), 200) for f, b in zip(fids, blob_of)],
+            "allow_fail": True, "max_requests": cap,
+            "pace_s": concurrency * HEAL_READ_SPAN_S / cap}
+
+
+def phase_self_healing(torch, work: str, seed: int, prepared: dict,
+                       scrub_gbps) -> dict:
+    """17(b): the self-healing loop in a cluster (the JAX package's
+    tests/test_scrub_repair.py::test_cluster_self_healing_end_to_end at
+    this size): `server` and three `volume -mserver`, all `-storageBackend
+    cuda`, on event-loop threads of this script; the master's background
+    loop off. Both volumes are written by `--prep heal`, 1 GiB each: a
+    replicated (001) one whose needle is bitflipped on one holder by a
+    FaultPlan targeted at that holder's .dat (the plan is process-wide:
+    every in-process server consults it); an EC one, generated on the
+    card, 12 shards on the `server` (all data shards and two parity: the
+    scrub recomputes parity only where the data shards are local, and
+    names a data shard only with two parity rows) and shards 12, 13 on a
+    volume server that holds no replica. Driven by the shell's
+    `volume.scrub` and `ec.repair.status -run` (in this process): the
+    replica re-copied; a flipped data shard quarantined and rebuilt
+    through VolumeEcShardsRebuildBatch (B1 in the rebuilder), the
+    survivors pulled for it dropped again; then the shard holder stopped
+    and its shards rebuilt on a survivor. Two read clients (children)
+    run across the repair rounds. Then a second scrub, every needle read back and every
+    shard's checksum as before the damage."""
+    import asyncio
+
+    import numpy as np
+
+    from seaweedfs_tpu_torch.client.operation import assign, upload_data
+    from seaweedfs_tpu_torch.command import cli
+    from seaweedfs_tpu_torch.ops import gf256 as G
+    from seaweedfs_tpu_torch.pb import grpc_address
+    from seaweedfs_tpu_torch.pb.rpc import Stub
+    from seaweedfs_tpu_torch.shell import CommandEnv, run_command
+    from seaweedfs_tpu_torch.storage.erasure_coding import to_ext
+    from seaweedfs_tpu_torch.storage.file_id import FileId
+    from seaweedfs_tpu_torch.types import NEEDLE_HEADER_SIZE
+    from seaweedfs_tpu_torch.util import faults
+    from seaweedfs_tpu_torch.util.fasthttp import FastHTTPClient
+
+    t_phase = time.perf_counter()
+    prep = _await_prep(prepared)
+    root = os.path.join(work, "heal")
+    os.rename(os.path.join(work, PREP_DIR, "heal"), root)
+    dirs = [os.path.join(root, f"d{i}") for i in range(4)]
+    os.makedirs(dirs[3])
+
+    def table(vid: int):
+        z = np.load(os.path.join(root, f"{vid}.npz"))
+        return ([row.tobytes() for row in z["pool"]],
+                [str(FileId(vid, int(k), int(c)))
+                 for k, c in zip(z["ids"].tolist(), z["cookies"].tolist())],
+                z["blob_of"])
+
+    heal_pool, heal_fids, heal_blob = table(HEAL_VID)
+    heal_fids = ["/" + f for f in heal_fids]
+    taken: set = set()
+    mport = _port_pair(taken, start=24000)
+    maddr = f"127.0.0.1:{mport}"
+    vports = [_port_pair(taken, start=24000) for _ in dirs]
+    urls = [f"127.0.0.1:{p}" for p in vports]
+    pulse = ["-pulseSeconds", str(HEAL_PULSE_S)]
+    served = [_serve_in_thread(cli.cmd_server, [
+        "-ip", "127.0.0.1", "-port", str(mport), "-volumePort", str(vports[0]),
+        "-dir", dirs[0], "-storageBackend", "cuda", *pulse], "heal-server")]
+    served += [_serve_in_thread(cli.cmd_volume, [
+        "-ip", "127.0.0.1", "-port", str(vports[i]), "-dir", dirs[i], "-mserver", maddr,
+        "-storageBackend", "cuda", *pulse], f"heal-volume-{i}") for i in range(1, 4)]
+    clients = []
+    stop_file = os.path.join(work, "heal.stop")
+    out: dict = {"phase": "self_healing", "prep": prep,
+                 "scrub_GBps_17a": scrub_gbps}
+    try:
+        t0 = time.perf_counter()
+        for h in served:
+            if not h["ready"].wait(CLUSTER_START_S) or "error" in h:
+                fail(f"{h['thread'].name} did not start: {h.get('error')!r}")
+        master = served[0]["servers"][0]
+        while len(master.topo.data_nodes()) < len(dirs):
+            if time.perf_counter() - t0 > CLUSTER_START_S:
+                fail("the heal cluster's volume servers did not register")
+            time.sleep(0.05)
+        out["start_s"] = time.perf_counter() - t0
+        master.repair_grace_seconds = HEAL_GRACE_S
+        a_url = urls[0]
+        rng = np.random.default_rng(seed + 171)
+        env = CommandEnv(maddr)
+
+        # the path: every count at 0 now, read at the end
+        G.KERNEL_LAUNCHES = 0
+        windows = {}
+
+        def ec_locs():
+            locs = master.topo.lookup_ec_shards(HEAL_VID)
+            return [] if locs is None else [
+                sorted(dn.url for dn in locs.locations[s]) for s in range(14)]
+
+        def corrupt_flags(vid):
+            return [r["scrub_corrupt"] for r in master.topo.replica_states().get(vid, [])]
+
+        async def until(pred, what: str, deadline: float = HEAL_DEADLINE_S):
+            t = time.perf_counter()
+            while not pred():
+                if time.perf_counter() - t > deadline:
+                    fail(f"17(b): timed out waiting for {what}")
+                await asyncio.sleep(0.05)
+
+        async def heal(done, what: str) -> dict:
+            """`ec.repair.status -run` rounds until `done()` and an empty
+            queue; every round's output free of errors."""
+            t = time.perf_counter()
+            rounds = []
+            while True:
+                r0, g0 = time.perf_counter(), G.KERNEL_LAUNCHES
+                text = await run_command(env, "ec.repair.status -run")
+                if "ERROR" in text:
+                    fail(f"17(b) {what}: a repair failed: {text}")
+                m = re.search(r"dispatched (\d+)", text)
+                rounds.append({"wall_s": time.perf_counter() - r0,
+                               "dispatched": int(m.group(1)) if m else 0,
+                               "gf_matmul_launches": G.KERNEL_LAUNCHES - g0})
+                if done() and "queue depth: 0" in text.splitlines()[0]:
+                    return {"wall_s": time.perf_counter() - t, "rounds": rounds}
+                if time.perf_counter() - t > HEAL_DEADLINE_S:
+                    fail(f"17(b) {what}: no convergence in {HEAL_DEADLINE_S} s: {text}")
+                await asyncio.sleep(HEAL_ROUND_S)
+
+        async def drive():
+            http = FastHTTPClient(pool_per_host=16)
+            try:
+                # ---- the replicated volume: a needle bitflipped on one holder ----
+                vid = HEAL_REP_VID
+                rep_pool, rep_fids, rep_blob = table(vid)
+                await until(lambda: len(corrupt_flags(vid)) == 2, "2 replicas registered")
+                holders = [r["url"] for r in master.topo.replica_states()[vid]]
+                target = holders[0]
+                tv = next(h for h in served if
+                          h["servers"][-1].address == target)["servers"][-1].store.find_volume(vid)
+                at = tv.data_file_size() + NEEDLE_HEADER_SIZE + 16
+                faults.install_plan(faults.FaultPlan(seed=seed, rules=[faults.FaultRule(
+                    op="write_at", target=tv.file_name() + ".dat", nth=1,
+                    fault="bitflip", at_offset=at, bits=3)]))
+                victim = rng.integers(0, 256, HEAL_NEEDLE_BYTES, dtype=np.uint8).tobytes()
+                victim_fid = str(FileId(vid, 1 << 40, 0xC0FFEE))
+                try:
+                    await upload_data(http, target, victim_fid, victim)
+                    if faults.current_plan().fired() != 1:
+                        fail("17(b): the bitflip plan did not fire on the replica")
+                finally:
+                    faults.clear_plan()
+                rep_pool.append(victim)
+                rep_fids.append(victim_fid)
+                rep_blob = np.append(rep_blob, len(rep_pool) - 1)
+
+                # ---- the EC volume: generated on the card, 12 + 2 shards ----
+                a_stub = Stub(grpc_address(a_url), "volume")
+                await a_stub.call("VolumeMarkReadonly", {"volume_id": HEAL_VID})
+                g0, t = G.KERNEL_LAUNCHES, time.perf_counter()
+                r = await a_stub.call("VolumeEcShardsGenerate", {"volume_id": HEAL_VID},
+                                      timeout=600)
+                if r.get("error"):
+                    fail(f"17(b) EC generate: {r['error']}")
+                windows["generate"] = {"wall_s": time.perf_counter() - t,
+                                       "gf_matmul_launches": G.KERNEL_LAUNCHES - g0}
+                if windows["generate"]["gf_matmul_launches"] <= 0:
+                    fail("17(b): EC generate launched gf_matmul no time")
+                await a_stub.call("VolumeEcShardsMount", {"volume_id": HEAL_VID,
+                                                          "shard_ids": list(range(14))})
+                await a_stub.call("VolumeDelete", {"volume_id": HEAL_VID,
+                                                   "keep_ec_files": True})
+                outpost = next(u for u in urls[1:] if u not in holders)
+                o_stub = Stub(grpc_address(outpost), "volume")
+                t = time.perf_counter()
+                r = await o_stub.call("VolumeEcShardsCopy", {
+                    "volume_id": HEAL_VID, "shard_ids": [12, 13], "copy_ecx_file": True,
+                    "source_data_node": a_url}, timeout=600)
+                if r.get("error"):
+                    fail(f"17(b) shard copy: {r['error']}")
+                await o_stub.call("VolumeEcShardsMount", {"volume_id": HEAL_VID,
+                                                          "shard_ids": [12, 13]})
+                await a_stub.call("VolumeEcShardsUnmount", {"volume_id": HEAL_VID,
+                                                            "shard_ids": [12, 13]})
+                await a_stub.call("VolumeEcShardsDelete", {"volume_id": HEAL_VID,
+                                                           "shard_ids": [12, 13]})
+                out["shard_move_s"] = time.perf_counter() - t
+                layout = [[a_url]] * 12 + [[outpost]] * 2
+                await until(lambda: ec_locs() == layout, "the EC layout at the master")
+                a_base = os.path.join(dirs[0], str(HEAL_VID))
+                o_base = os.path.join(dirs[urls.index(outpost)], str(HEAL_VID))
+                before = sha1_files([a_base + to_ext(s) for s in range(12)]
+                                    + [o_base + to_ext(s) for s in (12, 13)])
+                before = {to_ext(i): h for i, h in enumerate(before.values())}
+                out["layout"] = {"server": a_url, "shards_on_server": 12,
+                                 "outpost": outpost, "shards_on_outpost": [12, 13],
+                                 "replica_holders": holders, "flipped_replica": target,
+                                 "shard_bytes": os.path.getsize(a_base + to_ext(0)),
+                                 "replica_dat_bytes": tv.data_file_size()}
+
+                # ---- the read pass across the repair rounds ----
+                # (the flipped needle first: its reads fail until the recopy)
+                c = HEAL_READ_CONCURRENCY // 2
+                t_reads = time.perf_counter()
+                clients.append(_start_client(
+                    work, "heal_ec_reads", vports[0],
+                    _heal_plan(heal_pool, heal_fids, heal_blob, HEAL_READS // 2, c),
+                    c, stop_file))
+                clients.append(_start_client(
+                    work, "heal_replica_reads", vports[urls.index(target)],
+                    _heal_plan(rep_pool, ["/" + f for f in rep_fids[::-1]], rep_blob[::-1],
+                               HEAL_READS // 2, c),
+                    c, stop_file))
+
+                # the clients read for a second before the first damage
+                # is found
+                await asyncio.sleep(1.0)
+
+                # ---- 1. recopy ----
+                t = time.perf_counter()
+                text = await run_command(env, f"volume.scrub -volumeId {vid}")
+                scrub_s = time.perf_counter() - t
+                if text.count("CORRUPT key") != 1 or "needle_crc" not in text or \
+                        f"{target}: QUARANTINED volume of volume {vid}" not in text:
+                    fail(f"17(b): volume.scrub did not find the flipped needle: {text}")
+                t_detect = time.perf_counter()
+                await until(lambda: any(corrupt_flags(vid)), "scrub_corrupt at the master")
+                g0 = G.KERNEL_LAUNCHES
+                h = await heal(lambda: not any(corrupt_flags(vid)), "recopy")
+                windows["recopy"] = {"scrub_s": scrub_s,
+                                     "detection_to_repair_s": time.perf_counter() - t_detect,
+                                     "rounds": h["rounds"],
+                                     "gf_matmul_launches": G.KERNEL_LAUNCHES - g0}
+
+                # ---- 2. a flipped data shard: quarantine and rebuild; the
+                # survivors pulled for it (12, 13) leave the rebuilder ----
+                shard = int(rng.integers(0, 10))
+                size = os.path.getsize(a_base + to_ext(shard))
+                off = int(rng.integers(0, size))
+                _flip_byte(a_base + to_ext(shard), off)
+                g0, t = G.KERNEL_LAUNCHES, time.perf_counter()
+                text = await run_command(env, f"volume.scrub -volumeId {HEAL_VID}")
+                scrub_s = time.perf_counter() - t
+                if f"{a_url} ec volume {HEAL_VID}:" not in text or \
+                        f"corrupt shards [{shard}]" not in text or \
+                        f"QUARANTINED shard {shard} of volume {HEAL_VID}" not in text:
+                    fail(f"17(b): volume.scrub did not name shard {shard}: {text}")
+                scrub_launches = G.KERNEL_LAUNCHES - g0
+                t_detect = time.perf_counter()
+                await until(lambda: ec_locs()[shard] == [], f"shard {shard} unregistered")
+                g0 = G.KERNEL_LAUNCHES
+                h = await heal(lambda: ec_locs() == layout, "shard rebuild")
+                windows["shard_rebuild"] = {
+                    "shard": shard, "offset": off, "scrub_s": scrub_s,
+                    "scrub_gf_matmul_launches": scrub_launches,
+                    "detection_to_repair_s": time.perf_counter() - t_detect,
+                    "rounds": h["rounds"], "gf_matmul_launches": G.KERNEL_LAUNCHES - g0}
+                if windows["shard_rebuild"]["gf_matmul_launches"] <= 0:
+                    fail("17(b): the shard rebuild launched gf_matmul no time")
+                left = [s for s in (12, 13) if os.path.exists(a_base + to_ext(s))]
+                if left:
+                    fail(f"17(b): the survivors pulled for the rebuild stayed: {left}")
+
+                # ---- 3. then a node loss ----
+                t_lost = time.perf_counter()
+                lost = next(h for h in served if h["servers"][-1].address == outpost)
+                out["outpost_stop_s"] = _stop_served(lost, 10)
+                served.remove(lost)
+                await until(lambda: ec_locs()[12] == [] and ec_locs()[13] == [],
+                            "the lost holder's shards unregistered")
+                t_unreg = time.perf_counter()
+                g0 = G.KERNEL_LAUNCHES
+                h = await heal(lambda: ec_locs() == [[a_url]] * 14, "node loss")
+                windows["node_loss"] = {
+                    "stop_to_unregistered_s": t_unreg - t_lost,
+                    "loss_to_repair_s": time.perf_counter() - t_lost,
+                    "rounds": h["rounds"], "gf_matmul_launches": G.KERNEL_LAUNCHES - g0}
+                if windows["node_loss"]["gf_matmul_launches"] <= 0:
+                    fail("17(b): the node-loss rebuild launched gf_matmul no time")
+
+                # ---- the read pass ends; then the checks ----
+                with open(stop_file, "w"):
+                    pass
+                repairs_s = time.perf_counter() - t_reads
+                out["reads_across_repairs"] = {c["name"]: _client_result(c, 300)
+                                               for c in clients}
+                clients.clear()
+                reads = out["reads_across_repairs"].values()
+                out["read_pass"] = {
+                    "clients_start_to_repairs_end_s": repairs_s,
+                    "clients_wall_s": max(r["wall_s"] for r in reads),
+                    "per_s": sum(r["requests"] for r in reads) / max(
+                        r["wall_s"] for r in reads),
+                    "cap_reached": sum(r["requests"] for r in reads) >= HEAL_READS,
+                    # a client under its cap read on until the stop file
+                    "covered_every_repair": all(r["requests"] < HEAL_READS // 2
+                                                for r in reads)}
+                if master.repair_queue.depth() != 0:
+                    fail(f"17(b): the repair queue holds {master.repair_queue.depth()}")
+                errs = [t for t in master.repair_log if t.get("error")]
+                if errs:
+                    fail(f"17(b): dispatches with errors: {errs}")
+                out["dispatches"] = [{k: t.get(k) for k in (
+                    "kind", "volume_id", "missing", "rebuilder", "rebuilt", "target", "source")}
+                    for t in master.repair_log]
+                text = await run_command(env, "volume.scrub")
+                if "CORRUPT" in text or "QUARANTINED" in text or \
+                        f"ec volume {HEAL_VID}: " not in text or "corrupt shards []" not in text:
+                    fail(f"17(b): the second scrub is not clean: {text}")
+                out["second_scrub_clean"] = True
+                return before, rep_pool, rep_fids, rep_blob, target
+            finally:
+                await http.close()
+
+        before, rep_pool, rep_fids, rep_blob, target = asyncio.run(drive())
+        after = sha1_files([os.path.join(dirs[0], str(HEAL_VID)) + to_ext(s)
+                            for s in range(14)])
+        after = {to_ext(i): h for i, h in enumerate(after.values())}
+        if after != before:
+            fail(f"17(b): shards differ from before the damage: "
+                 f"{[k for k in after if after[k] != before.get(k)]}")
+        out["shards_equal_to_before"] = True
+        # every needle of both volumes, byte for byte, no failure allowed
+        readback = {}
+        for name, port, pool, fids, blob in (
+                ("ec", vports[0], heal_pool, heal_fids, heal_blob),
+                ("replica", vports[urls.index(target)], rep_pool,
+                 ["/" + f for f in rep_fids], rep_blob)):
+            res = _drive(work, f"heal_readback_{name}", port,
+                         {"blobs": pool, "requests": [("GET", f, int(b), 200)
+                                                      for f, b in zip(fids, blob)]},
+                         HEAL_READ_CONCURRENCY, 600)
+            readback[name] = {"needles": len(fids), "wall_s": res["wall_s"],
+                              "per_s": res["per_s"]}
+        out["readback"] = readback
+        out["windows"] = windows
+        out["kernel_launches"] = {"gf_matmul": G.KERNEL_LAUNCHES}
+        for h in served:
+            _stop_served(h, 10)
+        served.clear()
+    finally:
+        for c in clients:
+            if c["proc"].poll() is None:
+                c["proc"].kill()
+                c["proc"].wait()
+        for h in served:
+            loop = h.get("loop")
+            if loop is not None and not loop.is_closed():
+                loop.call_soon_threadsafe(h["stop"].set)
+        for h in served:
+            h["thread"].join(10)
+    out["cuts"] = [
+        "EC volume: 1,091 MB of .dat (the master's 30,000 MB volume limit cut to "
+        ">= 1 GiB for the phase's time; written by `--prep heal`)",
+        "replicated volume: 1,091 MB of .dat a holder, cut as the EC volume is and "
+        "for the same reason; written by `--prep heal`",
+        f"read pass: capped at {HEAL_READS} GETs at c={HEAL_READ_CONCURRENCY}, "
+        f"paced over {HEAL_READ_SPAN_S} s",
+        f"repair grace {HEAL_GRACE_S} s and -pulseSeconds {HEAL_PULSE_S} "
+        "(the JAX master's >= 15 s grace at its 5 s pulse, cut for the phase's time)",
+    ]
+    w = out.get("windows", {})
+    out["summary"] = {
+        "scrub_GBps_17a": out["scrub_GBps_17a"],
+        "detection_to_repair_s": {
+            "recopy": w["recopy"]["detection_to_repair_s"],
+            "node_loss": w["node_loss"]["loss_to_repair_s"],
+            "shard_rebuild": w["shard_rebuild"]["detection_to_repair_s"]},
+        "rebuild_batch_rounds": {
+            k: [r for r in w[k]["rounds"] if r["dispatched"]]
+            for k in ("node_loss", "shard_rebuild")},
+        "recopied_dat_bytes": out["layout"]["replica_dat_bytes"],
+        "read_pass": out["read_pass"],
+        "failed_reads": sum(r["failed"] for r in out["reads_across_repairs"].values()),
+        "reads": sum(r["requests"] for r in out["reads_across_repairs"].values()),
+        "wrong_bodies": 0,
+    }
+    out["wall_s"] = time.perf_counter() - t_phase
+    emit(out)
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--volume-gib", type=float, default=11.0)
@@ -6129,6 +6759,12 @@ def main() -> int:
         help="measure the gate's arena cut instead: phases 0-1, then phase "
              "10's server and warm-up, then ROUNDS read passes alternating "
              "the cut between 128 and 64; no kernel line and no result line",
+    )
+    ap.add_argument(
+        "--self-healing-only", action="store_true",
+        help="phases 0-1, then phase 17(b) alone with its `--prep heal` "
+             "child (no 17(a): its scrub GB/s is null); no kernel line and "
+             "no result line",
     )
     args = ap.parse_args()
 
@@ -6227,6 +6863,18 @@ def main() -> int:
         try:
             phase_volume_server(torch, work, args.seed, needle_mod, crc_mod,
                                 cut_ab_rounds=args.gate_cut_ab)
+        finally:
+            shutil.rmtree(work, ignore_errors=True)
+        print(smi, flush=True)
+        return 0
+
+    if args.self_healing_only:
+        os.makedirs(args.workdir, exist_ok=True)
+        work = tempfile.mkdtemp(prefix="chip_smoke-", dir=args.workdir)
+        try:
+            prep = _start_prep(work, "heal", [os.path.join(work, PREP_DIR, "heal"),
+                                              args.seed])
+            phase_self_healing(torch, work, args.seed, prep, None)
         finally:
             shutil.rmtree(work, ignore_errors=True)
         print(smi, flush=True)
@@ -6457,6 +7105,12 @@ def main() -> int:
             r["gf_matmul_launches"] for r in dres["mesh_rebuild"].values())
         launches["decode"] = dres["decode"]["gf_matmul_launches"]
 
+        # --- phase 17(a), after the last phase that reads the shards ---
+        mark("self_healing_scrub")
+        hres_a = phase_scrub_at_scale(torch, base, args.seed)
+        launches["self_healing_scrub"] = sum(
+            p["gf_matmul_launches"] for p in hres_a["passes"].values())
+
         # --- phases 7-9 ---
         free_disk(work)  # the EC volume's
         # phase 10's volume 1, written by a child while phases 7-9 run
@@ -6531,7 +7185,17 @@ def main() -> int:
         # --- phase 16 ---
         # the fleet's filers take phase 15's `server` child as their master
         mark("fleet")
+        # 17(b)'s EC volume, written by a child while phase 16 runs
+        heal_prep = _start_prep(work, "heal", [os.path.join(work, PREP_DIR, "heal"),
+                                               args.seed])
+        preps.append(heal_prep)
         flres = phase_fleet(torch, work, args.seed, server=fserver)
+
+        # --- phase 17(b) ---
+        mark("self_healing")
+        hres = phase_self_healing(torch, work, args.seed, heal_prep,
+                                  hres_a["passes"]["clean"]["GBps"])
+        launches["self_healing"] = hres["kernel_launches"]["gf_matmul"]
         mark("end")
     finally:
         # a phase failed before phase 15 stopped its server, or before a
@@ -6561,7 +7225,10 @@ def main() -> int:
             "launches": sum(n for k, n in launches.items() if k != "cluster_rebuild_batch"),
             "launches_by_path": launches,
             "launches_note": "cluster_rebuild_batch is the part of cluster inside the "
-                             "one VolumeEcShardsRebuildBatch",
+                             "one VolumeEcShardsRebuildBatch; self_healing_scrub is "
+                             "17(a)'s two scrub passes (one launch a 1 MiB chunk, "
+                             "and the identification's), self_healing 17(b)'s generate, "
+                             "scrubs, rebuilds and degraded reads",
             "equal_to_plain": True,
             "max_abs_err": kres["max_abs_err"],
             "ms": kres["ms"],

@@ -13,7 +13,11 @@ group-commit worker, the BatchRead stream, chunked files, count=N assign
 leases and the replica read fan-out with per-peer circuit breakers),
 and the filer with its scale-out (the prefix-sharded store, a fleet of
 range-owning filer processes, read replicas that follow the meta-log,
-the peer aggregator), its path lookups on the card through the meta gate
+the peer aggregator), its path lookups on the card through the meta gate,
+and the fault plane with the self-healing loop (seeded fault injection at
+the disk, RPC and HTTP seams; the scrub, whose EC parity check runs on
+the GF(2^8) kernel; the master's repair scheduler: shard rebuilds,
+replica re-copies and tail syncs)
 (`python -m seaweedfs_tpu_torch master|server|volume|filer|shell|
 benchmark|upload|download|compact`).
 

@@ -32,7 +32,9 @@ pb/__init__.py) by an asyncio stream server:
 
 The wire is not gRPC: a port server and a JAX server cannot call each
 other. Left out with gRPC: mTLS, keepalive channels and the overload,
-tenancy, tracing and fault seams.
+tenancy and tracing seams. The fault plane's client seam (util/faults.py)
+is the JAX one: `Stub.call` and `Stub.server_stream` consult an installed
+plan as `rpc:<Method>` against the callee's address before the wire.
 """
 
 from __future__ import annotations
@@ -41,7 +43,7 @@ import asyncio
 import struct
 from typing import Any, AsyncIterator, Dict, Optional
 
-from ..util import mpack
+from ..util import faults, mpack
 from ..util.backoff import shared_retry_budget
 from ..util.fasthttp import _MAX_BODY, render_response
 from ..util.http_timeouts import client_timeout
@@ -561,6 +563,12 @@ class Stub:
             finally:
                 writer.close()
 
+        if faults._PLAN is not None:
+            # fault-injection seam: reset / latency / hang before the
+            # wire; an injected hang honors this call's timeout
+            await faults.async_fault(
+                faults._PLAN, f"rpc:{method}", self.address, timeout=timeout
+            )
         try:
             status, data = await asyncio.wait_for(once(), timeout)
         except (OSError, asyncio.TimeoutError, asyncio.IncompleteReadError,
@@ -580,6 +588,13 @@ class Stub:
         """The callee's messages for one request; raises RpcError as
         `call` does, and when the stream breaks before its end. Leaving
         the loop early cancels the callee's handler."""
+        plan = faults._PLAN
+        if plan is not None:
+            # the injection seam fires before the first item: a reset
+            # here looks like a peer that dropped the stream
+            await faults.async_fault(
+                plan, f"rpc:{method}", self.address, timeout=timeout
+            )
         call = StreamCall(self.address, self.service, method, timeout)
         try:
             await call.write(request)

@@ -8,7 +8,7 @@ RPC "master" service (pb/rpc.py; ref: weed/server/master_grpc_server*.go):
   KeepConnected (vid-location push to clients), Assign, Statistics,
   LookupVolume, LookupEcVolume, CollectionList/Delete, VolumeList,
   LeaseAdminToken/ReleaseAdminToken, GetMasterConfiguration,
-  VacuumStatus and the two Raft RPCs.
+  VacuumStatus, RepairStatus, PlacementStatus and the two Raft RPCs.
 
 Multi-master: RaftLite (server/raft.py) elects one leader; followers
 proxy Assign/lookups to it, redirect heartbeat + KeepConnected streams,
@@ -23,10 +23,22 @@ The vacuum plane is the JAX master's: heartbeat garbage ratios feed a
 highest-garbage-first queue (topology/vacuum_plan.py) that dispatches
 check, compact, commit or cleanup to every replica under a concurrency
 cap, from `/vol/vacuum`, the VacuumStatus RPC and the opt-in background
-loop (`auto_vacuum`, SEAWEEDFS_TPU_AUTO_VACUUM). Not ported, each
-answering an explicit error: the anti-entropy repair, placement,
-lifecycle and tier-sweep planes (their RPCs RepairStatus,
-PlacementStatus, LifecycleStatus and TierOrphanSweep answer the RPC
+loop (`auto_vacuum`, SEAWEEDFS_TPU_AUTO_VACUUM). The anti-entropy plane
+is the JAX master's too: heartbeats carry each replica's content digest,
+append frontier and scrub quarantine, and EC shard inventories; a scan
+(`run_anti_entropy_once`, from RepairStatus `run`, PlacementStatus `run`
+or the opt-in loop `auto_repair`, SEAWEEDFS_TPU_AUTO_REPAIR) plans EC
+rebuilds of shards missing on live nodes (a node silent past
+`repair_grace_seconds` no longer counts), re-copies of quarantined
+replicas, tail syncs of stale ones and placement moves, and dispatches
+them fewest-survivors-first under `repair_concurrency`: one
+VolumeEcShardsRebuildBatch per rebuilder node (B1 on its card),
+VolumeRepairCopy, VolumeTailSync, VolumeCopy + VolumeDelete. Unlike
+the JAX master, it deletes the survivor shards a rebuild pulled to the
+rebuilder once the rebuild is done: left there unmounted, they would
+stop a later rebuild of those ids after their holder is lost. Not
+ported, each answering an explicit error: the lifecycle and tier-sweep
+planes (their RPCs LifecycleStatus and TierOrphanSweep answer the RPC
 tier's 501 `not ported`), the maintenance scripts, and the `/ui` page
 (HTTP 501).
 """
@@ -34,6 +46,7 @@ tier's 501 `not ported`), the maintenance scripts, and the `/ui` page
 from __future__ import annotations
 
 import asyncio
+import logging
 import os
 import random
 import time
@@ -43,11 +56,18 @@ from urllib.parse import parse_qsl
 from ..pb import grpc_address
 from ..pb.rpc import Service, Stub, serve
 from ..sequence import MemorySequencer
+from ..storage.erasure_coding import DATA_SHARDS_COUNT, TOTAL_SHARDS_COUNT
 from ..storage.erasure_coding.ec_volume import ShardBits
 from ..storage.super_block import ReplicaPlacement
 from ..storage.ttl import TTL
 from ..topology import GrowOption, Topology, VolumeGrowth
-from ..topology.repair import RepairQueue
+from ..topology.placement import plan_ec_domain_spread, plan_replica_spread
+from ..topology.repair import (
+    RepairQueue,
+    find_unresolved_divergence,
+    plan_ec_repairs,
+    plan_replica_repairs,
+)
 from ..topology.vacuum_plan import plan_vacuums
 from ..topology.volume_growth import NoFreeSpaceError, grow_count_for_copy_level
 from ..util.fasthttp import (
@@ -56,14 +76,24 @@ from ..util.fasthttp import (
     render_http_exception,
     render_response,
 )
-from ..util.metrics import REPAIR_SECONDS, VACUUM_QUEUE_DEPTH
+from ..util.metrics import (
+    ANTIENTROPY_DIVERGED,
+    PLACEMENT_VIOLATIONS,
+    REPAIR_SECONDS,
+    VACUUM_QUEUE_DEPTH,
+)
 from .serving_core import ServingCore, json_body, not_ported
+
+_LOG = logging.getLogger(__name__)
 
 # the vacuum scheduler's scan interval and the silence after which a node
 # stops counting as a replica holder: the JAX master's at its default
 # 5 s pulse (max(4 pulses, 2 s) and max(15 s, 4 pulses))
 VACUUM_SCAN_SECONDS = 20.0
 LIVE_GRACE_SECONDS = 20.0
+# the anti-entropy scan interval: the JAX master's max(2 pulses, 1 s) at
+# its default 5 s pulse; its repair grace defaults to LIVE_GRACE_SECONDS
+REPAIR_SCAN_SECONDS = 10.0
 
 # /dir/assign parameters the JAX master's fast tier serves itself
 _FAST_ASSIGN_PARAMS = frozenset(
@@ -97,6 +127,20 @@ def _params(req) -> dict:
     return out
 
 
+
+async def _drop_pulled(rstub, task, shard_ids: list[int]) -> None:
+    """Delete the survivor shards an EC rebuild pulled to its rebuilder
+    (unmounted copies of shards their holders still serve)."""
+    await rstub.call(
+        "VolumeEcShardsDelete",
+        {
+            "volume_id": task.vid,
+            "collection": task.collection,
+            "shard_ids": sorted(shard_ids),
+        },
+        timeout=600,
+    )
+
 class MasterServer:
     def __init__(
         self,
@@ -113,6 +157,9 @@ class MasterServer:
         raft_state_file: str = "",
         auto_vacuum: Optional[bool] = None,
         vacuum_concurrency: int = 2,
+        auto_repair: Optional[bool] = None,
+        repair_grace_seconds: Optional[float] = None,
+        repair_concurrency: int = 2,
     ):
         self.jwt_signing_key = jwt_signing_key
         self.jwt_expires_seconds = jwt_expires_seconds
@@ -142,6 +189,29 @@ class MasterServer:
             adjust_max_volume_id=self.topo.adjust_max_volume_id,
             state_file=raft_state_file,
         )
+        # anti-entropy repair plane: heartbeat-driven failure detection ->
+        # prioritized queue -> batched-rebuild dispatch. The background
+        # loop is opt-in (SEAWEEDFS_TPU_AUTO_REPAIR / auto_repair=True);
+        # run_anti_entropy_once() is always callable (shell, tests).
+        if auto_repair is None:
+            auto_repair = os.environ.get(
+                "SEAWEEDFS_TPU_AUTO_REPAIR", ""
+            ).lower() in ("1", "true", "on", "yes")
+        self.auto_repair = auto_repair
+        self.repair_grace_seconds = (
+            repair_grace_seconds
+            if repair_grace_seconds is not None
+            else LIVE_GRACE_SECONDS
+        )
+        self.repair_concurrency = repair_concurrency
+        self.repair_queue = RepairQueue(rng=random.Random())
+        self.repair_log: list[dict] = []  # last dispatch outcomes
+        # latest anti-entropy scan's placement-policy findings (served
+        # by PlacementStatus)
+        self.placement_violations: list[dict] = []
+        # vid -> k+m from a holder's .vif (VolumeEcShardsInfo)
+        self._ec_geom_cache: dict[int, int] = {}
+        self._repair_task: Optional[asyncio.Task] = None
         # vacuum plane: garbage ratios ride heartbeats; findings feed a
         # highest-garbage-first queue dispatched under a concurrency cap
         # with full-jitter backoff. Background loop opt-in
@@ -201,19 +271,25 @@ class MasterServer:
         svc.unary("ReleaseAdminToken")(self._grpc_release_admin_token)
         svc.unary("GetMasterConfiguration")(self._grpc_get_configuration)
         svc.unary("VacuumStatus")(self._grpc_vacuum_status)
+        svc.unary("RepairStatus")(self._grpc_repair_status)
+        svc.unary("PlacementStatus")(self._grpc_placement_status)
         svc.unary("RaftRequestVote")(self._grpc_raft_request_vote)
         svc.unary("RaftAppendEntries")(self._grpc_raft_append_entries)
         self._grpc_server = await serve(grpc_address(self.address), svc)
         self.raft.start()
         if self.auto_vacuum:
             self._vacuum_task = asyncio.ensure_future(self._auto_vacuum_loop())
+        if self.auto_repair:
+            self._repair_task = asyncio.ensure_future(self._anti_entropy_loop())
 
     async def stop(self) -> None:
         self._shutdown = True
-        if self._vacuum_task is not None:
-            self._vacuum_task.cancel()
+        for task in (self._vacuum_task, self._repair_task):
+            if task is None:
+                continue
+            task.cancel()
             try:
-                await self._vacuum_task
+                await task
             except (asyncio.CancelledError, Exception):
                 pass
         await self.raft.stop()
@@ -586,14 +662,21 @@ class MasterServer:
             self.topo.forget_ec_volume_if_empty(int(m["id"]))
             if not dn.ec_shards.get(int(m["id"])):
                 deleted_vids.append(int(m["id"]))
-        # the slim refresh: update the garbage and quarantine fields in
-        # place — layouts don't change, but the vacuum planner
-        # must see current values
+        # anti-entropy tick: refresh digest/frontier/quarantine/garbage
+        # fields in place — layouts don't change, but replica comparison
+        # and the vacuum planner must see current values
         for m in hb.get("volume_digests") or []:
             info = dn.volumes.get(int(m["id"]))
             if info is None:
                 continue
-            for k in ("read_only", "scrub_corrupt", "garbage_ratio"):
+            for k in (
+                "content_digest",
+                "append_at_ns",
+                "read_only",
+                "scrub_corrupt",
+                "garbage_ratio",
+                "size",
+            ):
                 if k in m:
                     info[k] = m[k]
         return new_vids, deleted_vids
@@ -774,6 +857,463 @@ class MasterServer:
         return {
             "metrics_address": "",
             "metrics_interval_seconds": 15,
+        }
+
+    # ---------------- anti-entropy repair scheduler ----------------
+    async def _anti_entropy_loop(self) -> None:
+        """Leader-only background repair: scan heartbeat state every few
+        pulses, queue findings, dispatch under the concurrency cap."""
+        while not self._shutdown:
+            try:
+                await asyncio.sleep(REPAIR_SCAN_SECONDS)
+                if not self.is_leader or self._shutdown:
+                    continue
+                await self.run_anti_entropy_once()
+            except asyncio.CancelledError:
+                return
+            except Exception:
+                continue  # scheduler errors must never kill the master
+
+    async def run_anti_entropy_once(self, max_dispatch: Optional[int] = None) -> dict:
+        """One scan+dispatch round: detect (silent nodes, missing EC
+        shards, quarantined/diverged replicas), merge findings into the
+        prioritized queue (fewest-survivors-first), dispatch up to the
+        concurrency cap, full-jitter backoff on failures. Returns a
+        status dict; also the engine behind `ec.repair.status -run`."""
+        if not self.is_leader:
+            return {"error": "not leader"}
+        live = {
+            dn.url
+            for dn in self.topo.live_data_nodes(self.repair_grace_seconds)
+        }
+        ec_states = self.topo.ec_states(live)
+        for st in ec_states:
+            # expected_total is heartbeat-history and resets with the
+            # master: a shard whose EVERY holder died before this leader's
+            # first scan would stay invisible. The .vif geometry (cached
+            # per vid once a holder answers) is the source of truth.
+            total = await self._ec_expected_total(st)
+            if total:
+                st["total_shards"] = max(int(st["total_shards"]), total)
+        replica_states = self.topo.replica_states(live)
+        tasks = plan_ec_repairs(ec_states)
+        tasks += plan_replica_repairs(replica_states)
+        # placement policy: existing volumes/EC shards are
+        # re-checked against the spread the growth solver promises; the
+        # proposed moves queue BEHIND data-loss repairs (PLACEMENT_PRIORITY)
+        candidates = self.topo.placement_candidates(live)
+        spread_violations, spread_tasks = plan_replica_spread(
+            self.topo.placement_states(live), candidates
+        )
+        ec_violations, ec_spread_tasks = plan_ec_domain_spread(
+            ec_states, candidates
+        )
+        PLACEMENT_VIOLATIONS.set(
+            len(spread_violations), kind="replica_spread"
+        )
+        PLACEMENT_VIOLATIONS.set(len(ec_violations), kind="ec_domain")
+        self.placement_violations = spread_violations + ec_violations
+        if self.placement_violations:
+            _LOG.info(
+                "anti-entropy: %d placement-policy violation(s), "
+                "%d repair move(s) planned",
+                len(self.placement_violations),
+                len(spread_tasks) + len(ec_spread_tasks),
+            )
+        tasks += spread_tasks + ec_spread_tasks
+        diverged = find_unresolved_divergence(replica_states)
+        ANTIENTROPY_DIVERGED.set(len(diverged))
+        if diverged:
+            _LOG.warning(
+                "anti-entropy: volumes %s have healthy replicas that "
+                "disagree at EQUAL append frontiers — not auto-repairable "
+                "(run volume.fsck / re-replicate)", diverged,
+            )
+        valid_keys = set()
+        for t in tasks:
+            valid_keys.add(t.key)
+            self.repair_queue.offer(t)
+        self.repair_queue.prune(valid_keys)
+        now = time.monotonic()
+        ready = self.repair_queue.pop_ready(
+            now, max_dispatch or self.repair_concurrency
+        )
+        results: list[dict] = []
+        ec_ready = [t for t in ready if t.kind == "ec_rebuild"]
+        placement = [
+            t for t in ready if t.kind in ("placement_move", "ec_placement")
+        ]
+        other = [
+            t
+            for t in ready
+            if t.kind not in ("ec_rebuild", "placement_move", "ec_placement")
+        ]
+
+        # EC: survivor pulls run CONCURRENTLY per task (the cap is how
+        # many we popped), then ONE batched rebuild RPC per rebuilder
+        # node (VolumeEcShardsRebuildBatch — same-loss-pattern volumes
+        # share wide dispatches of B1 on the rebuilder's card)
+        t0s = {t.key: time.perf_counter() for t in ec_ready}
+        prep = await asyncio.gather(
+            *(self._prepare_ec_rebuild(t, live) for t in ec_ready),
+            return_exceptions=True,
+        )
+        prepared: dict[tuple, list] = {}
+        for t, outcome in zip(ec_ready, prep):
+            if isinstance(outcome, BaseException):
+                REPAIR_SECONDS.observe(
+                    time.perf_counter() - t0s[t.key],
+                    kind="ec_rebuild", result="error",
+                )
+                self.repair_queue.reschedule_failure(t, time.monotonic())
+                results.append({**t.to_info(), "error": str(outcome)})
+            else:
+                rebuilder, pulled = outcome
+                prepared.setdefault((rebuilder, t.collection), []).append(
+                    (t, t0s[t.key], pulled)
+                )
+        # group rebuilds and replica repairs all dispatch concurrently —
+        # one slow rebuild must not stall an unrelated critical repair
+        await asyncio.gather(
+            *(
+                self._dispatch_ec_group(
+                    rebuilder, collection, group, results
+                )
+                for (rebuilder, collection), group in prepared.items()
+            ),
+            *(self._dispatch_replica_task(t, results) for t in other),
+            *(self._dispatch_placement_task(t, results) for t in placement),
+        )
+
+        self.repair_log = (self.repair_log + results)[-50:]
+        return {
+            "dispatched": results,
+            "queue_depth": self.repair_queue.depth(),
+            "live_nodes": sorted(live),
+            "diverged_volumes": diverged,
+            "placement_violations": self.placement_violations,
+        }
+
+    async def _ec_expected_total(self, st: dict) -> int:
+        """Authoritative shard count (k+m) for one EC volume from a
+        holder's .vif, cached per vid; 0 when no holder answers."""
+        vid = int(st["vid"])
+        cache = self._ec_geom_cache
+        if vid in cache:
+            return cache[vid]
+        holders = sorted({u for urls in st["holders"].values() for u in urls})
+        for url in holders:
+            try:
+                r = await Stub(grpc_address(url), "volume").call(
+                    "VolumeEcShardsInfo",
+                    {"volume_id": vid, "collection": st.get("collection", "")},
+                    timeout=10,
+                )
+            except Exception:
+                continue
+            if not r.get("error") and r.get("data_shards"):
+                total = int(r["data_shards"]) + int(r.get("parity_shards", 0))
+                if len(cache) > 65536:  # runaway-vid backstop
+                    cache.clear()
+                cache[vid] = total
+                return total
+        return 0
+
+    async def _dispatch_ec_group(
+        self, rebuilder: str, collection: str, group: list, results: list
+    ) -> None:
+        rstub = Stub(grpc_address(rebuilder), "volume")
+        vids = [t.vid for t, _t0, _pulled in group]
+        try:
+            r = await rstub.call(
+                "VolumeEcShardsRebuildBatch",
+                {"volume_ids": vids, "collection": collection},
+                timeout=3600,
+            )
+        except Exception as e:
+            r = {"error": str(e)}
+        for t, t0, pulled in group:
+            err = r.get("error") or r.get("errors", {}).get(str(t.vid))
+            res = r.get("results", {}).get(str(t.vid)) or {}
+            rebuilt = res.get("rebuilt_shard_ids", [])
+            if not err:
+                try:
+                    await rstub.call(
+                        "VolumeEcShardsMount",
+                        {
+                            "volume_id": t.vid,
+                            "collection": t.collection,
+                            "shard_ids": rebuilt,
+                        },
+                    )
+                except Exception as e:
+                    err = f"mount rebuilt shards: {e}"
+            # the survivors pulled for the rebuild are copies of shards
+            # their holders still serve: left on disk unmounted, they
+            # would make a later rebuild of those ids find the files,
+            # rebuild nothing and never converge after their holder is
+            # lost
+            if pulled:
+                try:
+                    await _drop_pulled(rstub, t, pulled)
+                except Exception as e:
+                    err = err or f"drop pulled survivors: {e}"
+            dt = time.perf_counter() - t0
+            if err:
+                REPAIR_SECONDS.observe(dt, kind="ec_rebuild", result="error")
+                self.repair_queue.reschedule_failure(t, time.monotonic())
+                results.append({**t.to_info(), "error": err})
+            else:
+                REPAIR_SECONDS.observe(dt, kind="ec_rebuild", result="ok")
+                results.append(
+                    {**t.to_info(), "rebuilder": rebuilder, "rebuilt": rebuilt}
+                )
+
+    async def _dispatch_replica_task(self, t, results: list) -> None:
+        t0 = time.perf_counter()
+        method = (
+            "VolumeRepairCopy"
+            if t.kind == "replica_recopy"
+            else "VolumeTailSync"
+        )
+        try:
+            r = await Stub(grpc_address(t.target), "volume").call(
+                method,
+                {
+                    "volume_id": t.vid,
+                    "collection": t.collection,
+                    "source_data_node": t.source,
+                },
+                timeout=3600,
+            )
+            err = r.get("error")
+        except Exception as e:
+            err = str(e)
+        dt = time.perf_counter() - t0
+        if err:
+            REPAIR_SECONDS.observe(dt, kind=t.kind, result="error")
+            self.repair_queue.reschedule_failure(t, time.monotonic())
+            results.append({**t.to_info(), "error": err})
+        else:
+            REPAIR_SECONDS.observe(dt, kind=t.kind, result="ok")
+            results.append({**t.to_info(), "repaired": True})
+
+    async def _dispatch_placement_task(self, t, results: list) -> None:
+        """Execute one placement-policy move: replica volumes ride the
+        volume.move RPC pair (copy to the better-placed node, then drop
+        the source copy — full copy count at every intermediate state);
+        EC shards ride the ec.balance move sequence (copy+mount on the
+        target, unmount+delete on the source)."""
+        t0 = time.perf_counter()
+        try:
+            if t.kind == "placement_move":
+                r = await Stub(grpc_address(t.target), "volume").call(
+                    "VolumeCopy",
+                    {
+                        "volume_id": t.vid,
+                        "collection": t.collection,
+                        "source_data_node": t.source,
+                    },
+                    timeout=3600,
+                )
+                err = r.get("error")
+                if not err:
+                    r2 = await Stub(grpc_address(t.source), "volume").call(
+                        "VolumeDelete", {"volume_id": t.vid}, timeout=600
+                    )
+                    err = r2.get("error")
+            else:  # ec_placement: move one shard out of the hot domain
+                sid = int(t.missing[0])
+                tstub = Stub(grpc_address(t.target), "volume")
+                r = await tstub.call(
+                    "VolumeEcShardsCopy",
+                    {
+                        "volume_id": t.vid,
+                        "collection": t.collection,
+                        "shard_ids": [sid],
+                        "copy_ecx_file": True,
+                        "source_data_node": t.source,
+                    },
+                    timeout=3600,
+                )
+                err = r.get("error")
+                if not err:
+                    r = await tstub.call(
+                        "VolumeEcShardsMount",
+                        {
+                            "volume_id": t.vid,
+                            "collection": t.collection,
+                            "shard_ids": [sid],
+                        },
+                        timeout=600,
+                    )
+                    err = r.get("error")
+                if not err:
+                    sstub = Stub(grpc_address(t.source), "volume")
+                    await sstub.call(
+                        "VolumeEcShardsUnmount",
+                        {"volume_id": t.vid, "shard_ids": [sid]},
+                        timeout=600,
+                    )
+                    await sstub.call(
+                        "VolumeEcShardsDelete",
+                        {
+                            "volume_id": t.vid,
+                            "collection": t.collection,
+                            "shard_ids": [sid],
+                        },
+                        timeout=600,
+                    )
+        except Exception as e:
+            err = str(e)
+        dt = time.perf_counter() - t0
+        if err:
+            REPAIR_SECONDS.observe(dt, kind=t.kind, result="error")
+            self.repair_queue.reschedule_failure(t, time.monotonic())
+            results.append({**t.to_info(), "error": err})
+        else:
+            REPAIR_SECONDS.observe(dt, kind=t.kind, result="ok")
+            results.append({**t.to_info(), "repaired": True})
+
+    async def _master_ec_geometry(
+        self, vid: int, collection: str, holders: list[str]
+    ) -> tuple[int, int]:
+        """(data_shards, parity_shards) from a shard holder's .vif;
+        standard 10.4 when nobody answers."""
+        for url in holders:
+            try:
+                r = await Stub(grpc_address(url), "volume").call(
+                    "VolumeEcShardsInfo",
+                    {"volume_id": vid, "collection": collection},
+                )
+                if not r.get("error"):
+                    return (
+                        int(r.get("data_shards") or DATA_SHARDS_COUNT),
+                        int(
+                            r.get("parity_shards")
+                            or TOTAL_SHARDS_COUNT - DATA_SHARDS_COUNT
+                        ),
+                    )
+            except Exception:
+                continue
+        return DATA_SHARDS_COUNT, TOTAL_SHARDS_COUNT - DATA_SHARDS_COUNT
+
+    async def _prepare_ec_rebuild(
+        self, task, live: set
+    ) -> tuple[str, list[int]]:
+        """Stage one EC rebuild: verify repairability, choose the live
+        rebuilder holding the most shards (fewest pulls), and copy it the
+        survivors it lacks. Returns the rebuilder url and the shard ids it
+        pulled (dropped again after the rebuild); raises on any blocker
+        (the caller reschedules with backoff)."""
+        locs = self.topo.lookup_ec_shards(task.vid)
+        if locs is None:
+            raise LookupError(f"ec volume {task.vid} no longer registered")
+        holders: dict[int, list[str]] = {}
+        for sid in range(locs.expected_total):
+            urls = [dn.url for dn in locs.locations[sid] if dn.url in live]
+            if urls:
+                holders[sid] = urls
+        all_urls = sorted({u for urls in holders.values() for u in urls})
+        if not all_urls:
+            raise LookupError(f"ec volume {task.vid}: no live holders")
+        k, _m = await self._master_ec_geometry(
+            task.vid, task.collection, all_urls
+        )
+        if len(holders) < k:
+            raise RuntimeError(
+                f"ec volume {task.vid} unrepairable: "
+                f"{len(holders)} survivors < {k} data shards"
+            )
+        by_url: dict[str, set[int]] = {u: set() for u in all_urls}
+        for sid, urls in holders.items():
+            for u in urls:
+                by_url[u].add(sid)
+        rebuilder = max(all_urls, key=lambda u: len(by_url[u]))
+        rstub = Stub(grpc_address(rebuilder), "volume")
+        local = set(by_url[rebuilder])
+        pulled: list[int] = []
+        for url in all_urls:
+            if url == rebuilder:
+                continue
+            pull = sorted(by_url[url] - local)
+            if not pull:
+                continue
+            try:
+                r = await rstub.call(
+                    "VolumeEcShardsCopy",
+                    {
+                        "volume_id": task.vid,
+                        "collection": task.collection,
+                        "shard_ids": pull,
+                        "copy_ecx_file": True,
+                        "source_data_node": url,
+                    },
+                    timeout=3600,
+                )
+                if r.get("error"):
+                    raise IOError(
+                        f"pull shards {pull} from {url}: {r['error']}"
+                    )
+            except BaseException:
+                try:
+                    await _drop_pulled(rstub, task, pulled + pull)
+                except Exception:
+                    pass  # the pull's own error is the one to report
+                raise
+            local.update(pull)
+            pulled += pull
+        return rebuilder, sorted(pulled)
+
+    async def _grpc_repair_status(self, req, context) -> dict:
+        """Repair-plane introspection for `ec.repair.status` (+ `-run` to
+        force a scan/dispatch round)."""
+        proxied = await self._proxy_to_leader("RepairStatus", req)
+        if proxied is not None:
+            return proxied
+        ran = None
+        if req.get("run"):
+            ran = await self.run_anti_entropy_once(
+                max_dispatch=int(req.get("max_dispatch", 0) or 0) or None
+            )
+        live = {
+            dn.url
+            for dn in self.topo.live_data_nodes(self.repair_grace_seconds)
+        }
+        all_nodes = {dn.url for dn in self.topo.data_nodes()}
+        return {
+            "auto_repair": self.auto_repair,
+            "grace_seconds": self.repair_grace_seconds,
+            "queue_depth": self.repair_queue.depth(),
+            "queue": self.repair_queue.snapshot(),
+            "live_nodes": sorted(live),
+            "silent_nodes": sorted(all_nodes - live),
+            "recent": self.repair_log[-10:],
+            **({"ran": ran} if ran is not None else {}),
+        }
+
+    async def _grpc_placement_status(self, req, context) -> dict:
+        """Placement-policy introspection (+ `run` to
+        force a fresh anti-entropy scan, which re-plans placement)."""
+        proxied = await self._proxy_to_leader("PlacementStatus", req)
+        if proxied is not None:
+            return proxied
+        if req.get("run"):
+            await self.run_anti_entropy_once(
+                max_dispatch=int(req.get("max_dispatch", 0) or 0) or None
+            )
+        live = {
+            dn.url
+            for dn in self.topo.live_data_nodes(self.repair_grace_seconds)
+        }
+        return {
+            "violations": self.placement_violations,
+            "nodes": self.topo.placement_candidates(live),
+            "queued_moves": [
+                t
+                for t in self.repair_queue.snapshot()
+                if t["kind"] in ("placement_move", "ec_placement")
+            ],
         }
 
     # ---------------- vacuum scheduler (ref topology_vacuum.go, rebuilt in

@@ -9,8 +9,10 @@ majority votes — but no replicated log: the single piece of state
 (max volume id) is monotonic, so it rides leader heartbeats and vote
 replies instead of log entries.
 
-Copied from the JAX package's server/raft.py without its fault-injection
-seam; the RPCs ride the port's transport (pb/rpc.py).
+Copied from the JAX package's server/raft.py, with its fault-injection
+seam (a peer's outbound calls are tagged `faults.calling_from(address)`,
+so pairwise partition rules match both ends); the RPCs ride the port's
+transport (pb/rpc.py).
 
 RPCs (registered on the master's gRPC service):
   RaftRequestVote {term, candidate, max_volume_id}
@@ -28,6 +30,7 @@ from typing import Callable, List, Optional
 
 from ..pb import grpc_address
 from ..pb.rpc import Stub
+from ..util import faults
 
 HEARTBEAT_INTERVAL = 0.15
 ELECTION_TIMEOUT_RANGE = (0.45, 0.9)
@@ -179,9 +182,12 @@ class RaftLite:
 
         async def one(peer: str) -> Optional[dict]:
             try:
-                return await Stub(grpc_address(peer), "master").call(
-                    method, req, timeout=1.0
-                )
+                # tagged with our own address so pairwise `partition`
+                # fault rules can match both endpoints of this hop
+                with faults.calling_from(self.address):
+                    return await Stub(grpc_address(peer), "master").call(
+                        method, req, timeout=1.0
+                    )
             except Exception:
                 return None
 

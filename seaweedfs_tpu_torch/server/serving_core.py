@@ -8,8 +8,11 @@ port. The port has one tier: `ServingCore` owns the listening socket
 (util/fasthttp.py), counts requests per method (the counters the JAX core
 keeps, `seaweedfs_tpu_request_total{server, operation}`), serves
 `/metrics` and the server's own `/debug/...` handlers, and hands every
-other request to the server's dispatch. The other shared debug surfaces
-(`/debug/traces`, `/debug/overload`, `/debug/pprof/...`) and the fault,
+other request to the server's dispatch. The server-side HTTP fault seam
+(util/faults.py) fires here, at request arrival, as in the JAX core:
+`http:<METHOD>` against the server's address; with no plan it costs one
+module-attribute load and an `is None` check. The other shared debug
+surfaces (`/debug/traces`, `/debug/overload`, `/debug/pprof/...`) and the
 overload, tenancy and tracing seams are not ported: those paths answer
 501.
 """
@@ -19,7 +22,7 @@ from __future__ import annotations
 import json
 from typing import Awaitable, Callable, Optional
 
-from ..util import metrics
+from ..util import faults, metrics
 from ..util.fasthttp import DETACHED, FastHTTPServer, render_response
 
 
@@ -50,6 +53,7 @@ class ServingCore:
         self.host = host
         self.port = port
         self.debug_handlers = dict(debug_handlers or {})
+        self.address = f"{host}:{port}"
         self.fast_server: Optional[FastHTTPServer] = None
 
     async def start(self) -> None:
@@ -64,6 +68,11 @@ class ServingCore:
         metrics.REQUEST_COUNTER.inc(server=self.name, operation=method)
 
     async def _dispatch(self, req):
+        plan = faults._PLAN
+        if plan is not None:
+            out = await self._apply_fault(plan, req)
+            if out is not None:
+                return out
         path = req.path
         if path == "/metrics":
             self.count(req.method)
@@ -81,3 +90,40 @@ class ServingCore:
         if out is not DETACHED:
             self.count(req.method)
         return out
+
+    async def _apply_fault(self, plan, req):
+        """Server-side HTTP seam: consult the plan at request arrival.
+        Returns response bytes / DETACHED to short-circuit, or None to
+        proceed to the handler (latency rules have already slept)."""
+        try:
+            ev = await faults.async_fault(
+                plan, f"http:{req.method}", self.address
+            )
+        except faults.SimulatedCrash:
+            # the 'process' is dead: connections just drop, mid-request
+            if req.transport is not None:
+                req.transport.close()
+            return DETACHED
+        except ConnectionError:
+            # injected reset or partition: the peer sees a dropped
+            # connection, like the client-seam variant
+            if req.transport is not None:
+                req.transport.close()
+            return DETACHED
+        except TimeoutError:
+            # an injected hang already slept through its window; surface
+            # the way a gateway's upstream timeout would
+            return render_response(
+                500, b'{"error":"injected hang"}', keep_alive=False
+            )
+        if ev is not None and ev.kind == "http_error":
+            # shed-shaped statuses carry Retry-After like a real 503
+            extra = (
+                b"Retry-After: 1\r\n"
+                if ev.rule.status in (503, 429)
+                else b""
+            )
+            return render_response(
+                ev.rule.status, b'{"error":"injected fault"}', extra=extra
+            )
+        return None

@@ -15,8 +15,18 @@ RPC "volume" service (pb/rpc.py; ref: weed/server/volume_grpc_*.go):
 AllocateVolume, VolumeMount, VolumeUnmount, VolumeDelete,
 VolumeMarkReadonly, VolumeMarkWritable, DeleteCollection, the four
 Vacuum calls (VacuumVolumeCheck, Compact, Commit, Cleanup), BatchDelete,
-BulkLookup, VolumeServerStatus, the CopyFile and BatchRead streams and
-the EC calls of volume_ec.py.
+BulkLookup, VolumeServerStatus, the CopyFile and BatchRead streams, the
+EC calls of volume_ec.py, and the anti-entropy plane's VolumeScrub,
+VolumeTailSync, VolumeRepairCopy, VolumeCopy, VolumeSyncStatus and the
+VolumeIncrementalCopy stream.
+
+Anti-entropy (storage/scrub.py): a forced VolumeScrub, or the
+background pass every SEAWEEDFS_TPU_SCRUB_INTERVAL seconds when
+SEAWEEDFS_TPU_SCRUB_MBPS is set, verifies needle CRCs and index extents
+and recomputes EC parity with the server's codec (on the card, one
+gf256_matmul launch a 1 MiB chunk); findings quarantine the volume
+(read-only, `scrub_corrupt`) or move the shard aside to `.ecNN.bad`,
+and ride the next heartbeat to the master's repair scheduler.
 
 Heartbeat loop (ref: weed/server/volume_grpc_client_to_master.go): with
 a master (`master`, the `-mserver` flag) the server keeps a bidi
@@ -44,10 +54,11 @@ Content-Range. A chunked file's GET is assembled whole (the port's HTTP
 tier writes each response as one piece) from the chunks its range
 covers, local ones through the lookup gate when the server has one.
 `/ui` answers 501 `{"error": "not ported: ..."}`. Not ported either:
-tiering, scrub and the lifecycle RPCs, the Query,
-VolumeIncrementalCopy and tier-move streams, and the overload admission
-gate, tenancy and fault seams: `/!batch/put` reads a tenant-tagged frame
-but charges no quota.
+tiering and the lifecycle RPCs, the Query and tier-move streams, and the
+overload admission gate and tenancy: `/!batch/put` reads a tenant-tagged
+frame but charges no quota. The fault plane's seams (util/faults.py) are
+the JAX package's: the disk (storage/backend.py), the RPC and HTTP
+clients and the HTTP server (server/serving_core.py).
 """
 
 from __future__ import annotations
@@ -394,6 +405,17 @@ class VolumeServer(EcHandlers):
         self._shutdown = False
         self._replica_loc_cache: dict[int, tuple[float, list]] = {}
         self._codec = None
+        # anti-entropy plane: background scrubber (rate-shaped by
+        # SEAWEEDFS_TPU_SCRUB_MBPS; 0 = no background pass, scrubs run
+        # only when forced via VolumeScrub / the volume.scrub command)
+        self.scrub_mbps = float(
+            os.environ.get("SEAWEEDFS_TPU_SCRUB_MBPS", "0") or 0
+        )
+        self.scrub_interval_seconds = float(
+            os.environ.get("SEAWEEDFS_TPU_SCRUB_INTERVAL", "300") or 300
+        )
+        self._scrubber = None
+        self._scrub_task: Optional[asyncio.Task] = None
         # DETACHED reads finished through the full path (the loop keeps
         # tasks only weakly)
         self._tasks: set = set()
@@ -521,6 +543,12 @@ class VolumeServer(EcHandlers):
         svc.unary("VolumeServerStatus")(self._grpc_status)
         svc.server_stream("CopyFile")(self._grpc_copy_file)
         svc.server_stream("BatchRead")(self._grpc_batch_read)
+        svc.unary("VolumeCopy")(self._grpc_volume_copy)
+        svc.server_stream("VolumeIncrementalCopy")(self._grpc_incremental_copy)
+        svc.unary("VolumeSyncStatus")(self._grpc_sync_status)
+        svc.unary("VolumeScrub")(self._grpc_volume_scrub)
+        svc.unary("VolumeTailSync")(self._grpc_volume_tail_sync)
+        svc.unary("VolumeRepairCopy")(self._grpc_volume_repair_copy)
         self.register_ec_rpcs(svc)
         self._rpc_server = await serve(grpc_address(self.address), svc)
         self._http_client = FastHTTPClient()
@@ -528,16 +556,20 @@ class VolumeServer(EcHandlers):
             self._heartbeat_task = asyncio.ensure_future(
                 self._heartbeat_loop()
             )
+        if self.scrub_mbps > 0:
+            self._scrub_task = asyncio.ensure_future(self._scrub_loop())
 
     async def stop(self) -> None:
-        """End the heartbeat (the master unregisters this server), close
-        the gate (its waiters get an error), the RPC and HTTP sockets with
+        """End the scrub loop and the heartbeat (the master unregisters
+        this server), close the gate (its waiters get an error), the RPC and HTTP sockets with
         their connections, the executor, the arena and the store."""
         self._shutdown = True
-        if self._heartbeat_task is not None:
-            self._heartbeat_task.cancel()
+        for task in (self._scrub_task, self._heartbeat_task):
+            if task is None:
+                continue
+            task.cancel()
             try:
-                await self._heartbeat_task
+                await task
             except (asyncio.CancelledError, Exception):
                 pass
         if self.lookup_gate is not None:
@@ -624,9 +656,10 @@ class VolumeServer(EcHandlers):
                     # periodic full EC state (ref :121, EC tick = 17 pulses)
                     hb.update(self.store.collect_ec_heartbeat())
                 if tick % 5 == 0:
-                    # slim refresh of the garbage ratio and the quarantine
-                    # flag, so the master's vacuum planner ranks CURRENT
-                    # values, not the ones frozen at stream connect
+                    # slim refresh of the digest, frontier, garbage ratio
+                    # and quarantine flag, so the master's repair and
+                    # vacuum planners compare CURRENT values, not the ones
+                    # frozen at stream connect
                     hb["volume_digests"] = self.store.collect_volume_digests()
                 await call.write(hb)
         finally:
@@ -1854,6 +1887,281 @@ class VolumeServer(EcHandlers):
                             return
                         yield {"file_content": chunk}
         yield {"error": f"{vid}{ext} not found"}
+
+    async def _grpc_incremental_copy(self, req, context):
+        """Stream records appended after since_ns
+        (ref volume_grpc_copy_incremental.go + volume_backup.go). The
+        resume offset's search scans the .dat on the executor."""
+        from ..storage.volume_backup import binary_search_append_at_ns
+
+        vid = int(req["volume_id"])
+        since_ns = int(req.get("since_ns", 0))
+        v = self.store.find_volume(vid)
+        if v is None:
+            yield {"error": f"volume {vid} not found"}
+            return
+        offset = await self.run_blocking(binary_search_append_at_ns, v, since_ns)
+        end = v.data_file_size()
+        while offset < end:
+            data = v.data_backend.read_at(min(1 << 20, end - offset), offset)
+            if not data:
+                return
+            yield {"file_content": data}
+            offset += len(data)
+
+    async def _grpc_sync_status(self, req, context) -> dict:
+        vid = int(req["volume_id"])
+        v = self.store.find_volume(vid)
+        if v is None:
+            return {"error": f"volume {vid} not found"}
+        return {
+            "volume_id": vid,
+            "tail_offset": v.data_file_size(),
+            "compact_revision": v.super_block.compaction_revision,
+            "idx_file_size": v.index_file_size(),
+            "last_append_at_ns": v.last_append_at_ns,
+        }
+
+    async def _charge_maintenance(self, n: int, plane: str = "repair") -> None:
+        """Charge n bytes to the shared maintenance budget (no-op when
+        SEAWEEDFS_TPU_MAINT_MBPS is unset). The blocking token wait runs in
+        the executor so a throttled repair pull never stalls serving."""
+        from ..storage.maintenance import plane_bucket
+
+        bucket = plane_bucket(plane)
+        if bucket is not None and n:
+            await asyncio.get_running_loop().run_in_executor(
+                None, bucket.consume, n
+            )
+
+    async def _pull_volume_files(
+        self, vid: int, collection: str, source: str, base: str
+    ) -> None:
+        """Stream .dat/.idx/.vif from a source server into base.* (atomic
+        per-file via .tmp+rename); shared by VolumeCopy and the repair
+        re-copy path. Pull traffic is charged to the shared maintenance
+        budget: a repair storm and a scrub pass together stay under the
+        one configured background-I/O cap."""
+        from ..storage.needle_map.lsm_map import invalidate_snapshot
+
+        stub = Stub(grpc_address(source), "volume")
+        for ext in (".dat", ".idx", ".vif"):
+            tmp = base + ext + ".tmp"
+            got_any = False
+            with open(tmp, "wb") as f:
+                async for msg in stub.server_stream(
+                    "CopyFile",
+                    {"volume_id": vid, "collection": collection, "ext": ext},
+                    timeout=3600,
+                ):
+                    if msg.get("error"):
+                        if ext == ".vif":
+                            break
+                        raise IOError(msg["error"])
+                    chunk = msg.get("file_content", b"")
+                    await self._charge_maintenance(len(chunk))
+                    f.write(chunk)
+                    got_any = True
+            if got_any or ext != ".vif":
+                os.replace(tmp, base + ext)
+            else:
+                os.remove(tmp)
+        # the pulled .idx is a different log: a stale lsm needle-map
+        # snapshot at this base (repair recopy over a previously mounted
+        # volume) must not be consulted by the remount
+        invalidate_snapshot(base)
+
+    async def _grpc_volume_copy(self, req, context) -> dict:
+        """Pull a whole volume (.dat/.idx/.vif) from a source server and
+        mount it (ref volume_grpc_copy.go:23-116)."""
+        from ..storage.volume import volume_base_name
+
+        vid = int(req["volume_id"])
+        collection = req.get("collection", "")
+        source = req["source_data_node"]
+        if self.store.has_volume(vid):
+            return {"error": f"volume {vid} already exists"}
+        loc = max(
+            self.store.locations,
+            key=lambda l: l.max_volume_count - len(l.volumes),
+        )
+        base = volume_base_name(loc.directory, collection, vid)
+        try:
+            await self._pull_volume_files(vid, collection, source, base)
+            await self.run_blocking(self.store.mount_volume, vid)
+            return {}
+        except Exception as e:
+            return {"error": str(e)}
+
+    # ---------------- anti-entropy plane ----------------
+    @property
+    def scrubber(self):
+        if self._scrubber is None:
+            from ..storage.scrub import Scrubber
+
+            self._scrubber = Scrubber(
+                self.store,
+                rate_mbps=self.scrub_mbps,
+                codec_for=self.codec_for,
+            )
+        return self._scrubber
+
+    async def _scrub_loop(self) -> None:
+        """Background scrub: one rate-shaped pass per interval. The token
+        bucket bounds the I/O so verification coexists with serving load;
+        the per-volume cursor makes restarts resume, not restart."""
+        while not self._shutdown:
+            try:
+                await asyncio.sleep(self.scrub_interval_seconds)
+                if self._shutdown:
+                    return
+                await self.run_blocking(self.scrubber.run_pass)
+            except asyncio.CancelledError:
+                return
+            except Exception as e:
+                # a broken volume must not kill the loop; findings (and
+                # quarantines) from the partial pass already counted
+                _LOG.warning("volume server %s: scrub pass failed: %s",
+                             self.address, e)
+                continue
+
+    async def _grpc_volume_scrub(self, req, context) -> dict:
+        """Forced scrub pass (shell `volume.scrub` / tests): walk the
+        requested volume (or everything local), verify CRCs, extents and
+        EC parity (the server's codec: on the card, gf256_matmul), apply
+        the quarantine policy, return the full report."""
+        volume_id = int(req.get("volume_id", 0) or 0)
+        include_ec = bool(req.get("include_ec", True))
+        scrubber = self.scrubber
+        rate = req.get("rate_mbps")
+        if rate:
+            from ..storage.scrub import Scrubber
+
+            scrubber = Scrubber(
+                self.store, rate_mbps=float(rate), codec_for=self.codec_for
+            )
+        try:
+            return await self.run_blocking(
+                lambda: scrubber.run_pass(
+                    volume_id=volume_id or None, include_ec=include_ec
+                )
+            )
+        except Exception as e:
+            return {"error": str(e)}
+
+    async def _grpc_volume_tail_sync(self, req, context) -> dict:
+        """Catch-up resync of a stale replica: pull every record appended
+        on the source after our local frontier through the incremental
+        tail path (volume_backup.py) and replay it into the local volume.
+        Dispatched by the master when replica digests diverge and our
+        append frontier trails."""
+        from ..storage.volume_backup import apply_incremental
+
+        vid = int(req["volume_id"])
+        source = req["source_data_node"]
+        v = self.store.find_volume(vid)
+        if v is None:
+            return {"error": f"volume {vid} not found"}
+        since_ns = v.last_append_at_ns
+        stub = Stub(grpc_address(source), "volume")
+        chunks = []
+        async for msg in stub.server_stream(
+            "VolumeIncrementalCopy",
+            {"volume_id": vid, "since_ns": since_ns},
+            timeout=3600,
+        ):
+            if msg.get("error"):
+                return {"error": msg["error"]}
+            chunks.append(msg.get("file_content", b""))
+        data = b"".join(chunks)
+        if not data:
+            return {"applied_records": 0, "applied_bytes": 0}
+        old_msg = self.store._volume_message(v)
+        try:
+            applied = await self.run_blocking(apply_incremental, v, data)
+        except Exception as e:
+            return {"error": f"apply incremental: {e}"}
+        # replayed records may overwrite cached keys
+        self.read_cache.invalidate_volume(vid)
+        metrics.ANTIENTROPY_RESYNCS.inc(kind="tail_sync")
+        # the digest changed: let the master see the converged state on
+        # the next pulse instead of the next full reconnect
+        self.store.note_volume_changed(old_msg, self.store._volume_message(v))
+        return {"applied_records": applied, "applied_bytes": len(data)}
+
+    async def _grpc_volume_repair_copy(self, req, context) -> dict:
+        """Replace a scrub-quarantined replica with a fresh copy from a
+        healthy peer: quarantine the damaged files aside as `.bad` (never
+        deleted), pull .dat/.idx/.vif from the source, remount. The
+        master dispatches this when a volume heartbeats `scrub_corrupt`
+        while a clean replica exists. Reads of the volume wait for the
+        swap, as they wait for a vacuum commit's."""
+        vid = int(req["volume_id"])
+        collection = req.get("collection", "")
+        source = req["source_data_node"]
+        v = self.store.find_volume(vid)
+        if v is None:
+            return {"error": f"volume {vid} not found"}
+        if not v.scrub_corrupt and not req.get("force"):
+            # idempotent skip: the master may re-dispatch while the healed
+            # state is still riding a heartbeat back to it
+            return {"repaired": False, "skipped": "not quarantined"}
+        base = v.file_name()
+        target_loc = None
+        for loc in self.store.locations:
+            if loc.find_volume(vid) is not None:
+                target_loc = loc
+                break
+        old_msg = self.store._volume_message(v)
+        swapped = self._commits[vid] = asyncio.Event()
+        try:
+            # a group committer pinned to the old volume object would
+            # fsync a closed fd after the swap — retire it first
+            await self._retire_group_committer(vid)
+            # unmount WITHOUT a deleted-delta: repair is an in-place swap,
+            # the note_volume_changed below reports the healthy state
+            with target_loc._lock:
+                target_loc.volumes.pop(vid, None)
+            v.close()
+            for ext in (".dat", ".idx", ".vif"):
+                try:
+                    os.replace(base + ext, base + ext + ".bad")
+                except FileNotFoundError:
+                    pass
+            try:
+                await self._pull_volume_files(vid, collection, source, base)
+            except Exception as e:
+                # rollback: a transient copy failure must not convert a
+                # corrupt-but-present replica into a missing one — put the
+                # quarantined files back, remount, re-flag, retry later
+                for ext in (".dat", ".idx", ".vif"):
+                    for leftover in (base + ext + ".tmp", base + ext):
+                        try:
+                            os.remove(leftover)  # partial pull artifacts
+                        except FileNotFoundError:
+                            pass
+                    try:
+                        os.replace(base + ext + ".bad", base + ext)
+                    except FileNotFoundError:
+                        pass
+                await self.run_blocking(target_loc.load_existing_volumes)
+                restored = self.store.find_volume(vid)
+                if restored is not None:
+                    restored.quarantine("restored after failed repair pull")
+                return {"error": f"pull from {source}: {e}"}
+            await self.run_blocking(target_loc.load_existing_volumes)
+            new_v = self.store.find_volume(vid)
+            if new_v is None:
+                return {"error": f"volume {vid} did not remount after repair"}
+            self.read_cache.invalidate_volume(vid)
+            metrics.ANTIENTROPY_RESYNCS.inc(kind="recopy")
+            self.store.note_volume_changed(
+                old_msg, self.store._volume_message(new_v)
+            )
+            return {"repaired": True}
+        finally:
+            self._commits.pop(vid, None)
+            swapped.set()
 
     async def _grpc_status(self, req, context) -> dict:
         return {

@@ -6,12 +6,15 @@ volume.mark.readonly, volume.delete, volume.mount, volume.unmount,
 ec.encode (with VolumeEcShardsGenerateBatch for co-located volumes),
 ec.rebuild (one VolumeEcShardsRebuildBatch per rebuilder node, with a
 per-volume fallback), ec.decode (back to a normal volume through
-VolumeEcShardsToVolume), ec.balance (dedupe and rack-aware moves) and
+VolumeEcShardsToVolume), ec.balance (dedupe and rack-aware moves),
 volume.vacuum (the master's /vol/vacuum sweep, its VacuumStatus queue and
-a forced scheduler round) and meta.fleet.status (a filer's FleetStatus,
-in the JAX formatter's text). Every other command of the JAX shell
-(volume.move/copy, volume.tier.*, the fs.* and operator commands) answers
-"not ported".
+a forced scheduler round), meta.fleet.status (a filer's FleetStatus, in
+the JAX formatter's text), and the anti-entropy plane's volume.scrub (a
+forced VolumeScrub on every targeted server), ec.repair.status (the
+master's RepairStatus, `-run` for one scheduler round),
+volume.fix.replication, volume.copy and volume.move. Every other command
+of the JAX shell (volume.configure.replication, volume.tier.*, the fs.*
+and operator commands) answers "not ported".
 """
 
 from __future__ import annotations
@@ -23,6 +26,7 @@ from ..pb import grpc_address
 from ..pb.rpc import Stub
 from ..storage.erasure_coding import DATA_SHARDS_COUNT, TOTAL_SHARDS_COUNT
 from ..storage.erasure_coding.ec_volume import ShardBits
+from ..storage.super_block import ReplicaPlacement
 from .command_env import CommandEnv
 from .ec_common import (
     EcNode,
@@ -37,11 +41,11 @@ COMMANDS: dict[str, callable] = {}
 
 # commands of the JAX shell a later slice ports
 NOT_PORTED = (
-    "collection.list", "collection.delete", "volume.move", "volume.copy",
+    "collection.list", "collection.delete",
     "volume.configure.replication", "volume.tier.upload",
     "volume.tier.download", "volume.lifecycle",
-    "volume.tier.sweep", "volume.fix.replication", "volume.balance",
-    "volume.fsck", "volume.scrub", "ec.repair.status", "geo.status",
+    "volume.tier.sweep", "volume.balance",
+    "volume.fsck", "geo.status",
     "geo.resync", "trace.status", "trace.dump",
     "overload.status",
 )
@@ -71,6 +75,30 @@ def _parse_flags(argv: list[str]) -> dict[str, str]:
                 flags[key] = "true"
         i += 1
     return flags
+
+
+def _positional_args(argv: list[str], value_flags=()) -> tuple[dict, list]:
+    """Flags and positional arguments: only `value_flags` consume a value
+    (the JAX shell's operator_commands._fs_args)."""
+    flags: dict[str, str] = {}
+    positional: list[str] = []
+    i = 0
+    while i < len(argv):
+        a = argv[i]
+        if a.startswith("-"):
+            key = a.lstrip("-")
+            if "=" in key:
+                key, _, val = key.partition("=")
+                flags[key] = val
+            elif key in value_flags and i + 1 < len(argv):
+                flags[key] = argv[i + 1]
+                i += 1
+            else:
+                flags[key] = "true"
+        else:
+            positional.append(a)
+        i += 1
+    return flags, positional
 
 
 async def run_command(env: CommandEnv, line: str) -> str:
@@ -173,6 +201,116 @@ async def cmd_volume_mount(env, argv) -> str:
     node = flags["node"]
     await env.volume_stub(node).call("VolumeMount", {"volume_id": vid})
     return f"volume {vid} mounted on {node}"
+
+
+async def move_volume(
+    env, vid: int, collection: str, source: str, target: str, timeout: float = 600
+) -> str:
+    """Copy a volume to the target node, then delete the source copy;
+    returns '' on success (ref command_volume_move.go)."""
+    r = await env.volume_stub(target).call(
+        "VolumeCopy",
+        {"volume_id": vid, "collection": collection, "source_data_node": source},
+        timeout=timeout,
+    )
+    if r.get("error"):
+        return r["error"]
+    await env.volume_stub(source).call("VolumeDelete", {"volume_id": vid})
+    return ""
+
+
+@command("volume.move")
+async def cmd_volume_move(env, argv) -> str:
+    """Copy a volume to a target node, then delete the source copy
+    (ref command_volume_move.go)."""
+    env.confirm_is_locked()
+    flags = _parse_flags(argv)
+    vid = int(flags["volumeId"])
+    source, target = flags["source"], flags["target"]
+    err = await move_volume(env, vid, flags.get("collection", ""), source, target)
+    if err:
+        return f"move failed: {err}"
+    return f"volume {vid} moved {source} -> {target}"
+
+
+@command("volume.copy")
+async def cmd_volume_copy(env, argv) -> str:
+    """volume.copy <source host:port> <target host:port> <volume id> —
+    copy a volume between volume servers (ref command_volume_copy.go;
+    usually unmount it first)."""
+    env.confirm_is_locked()
+    flags, args = _positional_args(argv, value_flags=("collection",))
+    if len(args) != 3:
+        return (
+            "usage: volume.copy <source host:port> <target host:port> "
+            "<volume id>"
+        )
+    source, target, vid_s = args
+    try:
+        vid = int(vid_s)
+    except ValueError:
+        return f"wrong volume id format {vid_s!r}"
+    if source == target:
+        return "source and target volume servers are the same!"
+    r = await env.volume_stub(target).call(
+        "VolumeCopy",
+        {
+            "volume_id": vid,
+            "collection": flags.get("collection", ""),
+            "source_data_node": source,
+        },
+        timeout=3600,
+    )
+    if r.get("error"):
+        return f"copy failed: {r['error']}"
+    return f"volume {vid} copied {source} -> {target}"
+
+
+@command("volume.fix.replication")
+async def cmd_volume_fix_replication(env, argv) -> str:
+    """Re-replicate under-replicated volumes (ref
+    command_volume_fix_replication.go)."""
+    env.confirm_is_locked()
+    nodes = await env.collect_data_nodes()
+    fixes = plan_replication_fixes(nodes)
+    done = []
+    for vid, source, target, collection in fixes:
+        r = await env.volume_stub(target).call(
+            "VolumeCopy",
+            {"volume_id": vid, "collection": collection,
+             "source_data_node": source},
+            timeout=600,
+        )
+        if not r.get("error"):
+            done.append(f"volume {vid}: copied {source} -> {target}")
+    return "\n".join(done) or "no under-replicated volumes"
+
+
+def plan_replication_fixes(
+    nodes: list[dict],
+) -> list[tuple[int, str, str, str]]:
+    """Pure planner: -> [(vid, source_url, target_url, collection)]."""
+    locations = defaultdict(list)
+    info_by_vid = {}
+    for dn in nodes:
+        for v in dn.get("volumes", []):
+            locations[int(v["id"])].append(dn["url"])
+            info_by_vid[int(v["id"])] = v
+    fixes = []
+    for vid, urls in locations.items():
+        info = info_by_vid[vid]
+        rp = ReplicaPlacement.from_byte(int(info.get("replica_placement", 0)))
+        want = rp.copy_count()
+        if len(urls) >= want:
+            continue
+        candidates = [
+            dn["url"]
+            for dn in nodes
+            if dn["url"] not in urls and int(dn.get("free_space", 0)) > 0
+        ]
+        for target in candidates[: want - len(urls)]:
+            fixes.append((vid, urls[0], target, info.get("collection", "")))
+    return fixes
 
 
 # ---------------- EC suite ----------------
@@ -644,6 +782,106 @@ async def cmd_ec_rebuild(env, argv) -> str:
                 f"volume {vid}: rebuilt shards {rebuilt} on {rebuilder.url}"
             )
     return "\n".join(results) or "no damaged ec volumes"
+
+
+@command("volume.scrub")
+async def cmd_volume_scrub(env, argv) -> str:
+    """Force a scrub pass: volume.scrub [-volumeId N] [-node host:port].
+    Every targeted server re-verifies needle CRCs, index extents and EC
+    parity (rate-shaped by its SEAWEEDFS_TPU_SCRUB_MBPS), applies the
+    quarantine policy, and reports findings (an extension of the
+    reference's shell)."""
+    flags = _parse_flags(argv)
+    vid = int(flags.get("volumeId", 0) or 0)
+    node = flags.get("node", "")
+    lines = []
+    for dn in await env.collect_data_nodes():
+        if node and dn["url"] != node:
+            continue
+        if vid and not (
+            any(int(v["id"]) == vid for v in dn.get("volumes", []))
+            or any(int(m["id"]) == vid for m in dn.get("ec_shards", []))
+        ):
+            continue
+        try:
+            r = await env.volume_stub(dn["url"]).call(
+                "VolumeScrub",
+                {"volume_id": vid, "include_ec": True},
+                timeout=3600,
+            )
+        except Exception as e:
+            lines.append(f"{dn['url']}: scrub failed: {e}")
+            continue
+        if r.get("error"):
+            lines.append(f"{dn['url']}: scrub failed: {r['error']}")
+            continue
+        for vr in r.get("volumes", []):
+            lines.append(
+                f"{dn['url']} volume {vr['volume_id']}: "
+                f"{vr['scanned']} records / {vr['bytes']} bytes verified, "
+                f"{len(vr['corruptions'])} corruption(s)"
+                + ("" if vr.get("completed", True) else " (partial pass)")
+            )
+            for key, kind, detail in vr["corruptions"]:
+                lines.append(f"  CORRUPT key {int(key):#x}: {kind} ({detail})")
+        for er in r.get("ec_volumes", []):
+            if er.get("skipped"):
+                lines.append(
+                    f"{dn['url']} ec volume {er['volume_id']}: "
+                    f"skipped ({er['skipped']})"
+                )
+                continue
+            lines.append(
+                f"{dn['url']} ec volume {er['volume_id']}: "
+                f"{er['bytes']} bytes parity-verified, "
+                f"corrupt shards {er['corrupt_shards']}"
+            )
+        for q in r.get("quarantined", []):
+            what = (
+                f"shard {q['shard_id']}" if "shard_id" in q else "volume"
+            )
+            lines.append(
+                f"{dn['url']}: QUARANTINED {what} of volume "
+                f"{q['volume_id']} (repair scheduler will pick it up)"
+            )
+    return "\n".join(lines) or "nothing to scrub"
+
+
+@command("ec.repair.status")
+async def cmd_ec_repair_status(env, argv) -> str:
+    """Repair-plane status: ec.repair.status [-run]. Shows the master's
+    prioritized repair queue (fewest-survivors-first), silent nodes, and
+    recent dispatch outcomes; -run forces one scan+dispatch round."""
+    flags = _parse_flags(argv)
+    req = {"run": True} if "run" in flags else {}
+    r = await env.master_stub.call("RepairStatus", req, timeout=3600)
+    if r.get("error"):
+        return f"repair status failed: {r['error']}"
+    lines = [
+        f"auto_repair: {'on' if r.get('auto_repair') else 'off'} "
+        f"(grace {r.get('grace_seconds')}s) · "
+        f"queue depth: {r.get('queue_depth', 0)} · "
+        f"live nodes: {len(r.get('live_nodes', []))}"
+    ]
+    if r.get("silent_nodes"):
+        lines.append("silent nodes: " + ", ".join(r["silent_nodes"]))
+    for t in r.get("queue", []):
+        lines.append(
+            f"  queued {t['kind']} volume {t['volume_id']} "
+            f"(survivors {t['survivors']}, attempts {t['attempts']})"
+        )
+    for t in r.get("recent", []):
+        outcome = (
+            f"ERROR: {t['error']}" if t.get("error") else "repaired"
+        )
+        lines.append(f"  recent {t['kind']} volume {t['volume_id']}: {outcome}")
+    if "ran" in r:
+        ran = r["ran"]
+        lines.append(
+            f"ran one round: dispatched {len(ran.get('dispatched', []))}, "
+            f"queue depth now {ran.get('queue_depth', 0)}"
+        )
+    return "\n".join(lines)
 
 
 @command("meta.fleet.status")

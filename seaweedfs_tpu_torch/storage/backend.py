@@ -5,9 +5,11 @@ truncate/sync/size; ref: weed/storage/backend/backend.go:15-23) with a
 positional-IO disk implementation (os.pread/os.pwrite, safe for concurrent
 readers) and an in-memory implementation for tests.
 
-The JAX package's DiskFile also consults a fault-injection plan
-(util/faults: torn writes, bit flips, EIO) on every call; the port has no
-fault plane yet, so its DiskFile is the plain positional-IO file.
+DiskFile is the disk seam of the fault plane (util/faults.py): under an
+installed plan, read_at, write_at, truncate and sync consult it (read-side
+bit flips, persistent write-side bit flips, torn and crash writes, EIO);
+with none, each call pays one module-attribute load and an `is None`
+check.
 """
 
 from __future__ import annotations
@@ -15,6 +17,8 @@ from __future__ import annotations
 import os
 import threading
 from typing import Protocol
+
+from ..util import faults
 
 
 class BackendStorageFile(Protocol):
@@ -52,6 +56,11 @@ class DiskFile:
         return self._path
 
     def read_at(self, size: int, offset: int) -> bytes:
+        flip = None
+        if faults._PLAN is not None:
+            flip = faults.sync_fault(
+                faults._PLAN, "read_at", self._path, corruptable=True
+            )
         chunks = []
         remaining, pos = size, offset
         while remaining > 0:
@@ -61,9 +70,16 @@ class DiskFile:
             chunks.append(b)
             remaining -= len(b)
             pos += len(b)
-        return b"".join(chunks)
+        out = b"".join(chunks)
+        if flip is not None and flip.kind == "bitflip":
+            # transient read-side corruption (bad cable / lying controller):
+            # the bytes on disk stay intact, this read sees flipped bits
+            out = faults.apply_bitflip(flip, out, offset)
+        return out
 
     def write_at(self, data: bytes, offset: int) -> int:
+        if faults._PLAN is not None:
+            data = self._faulted_write(faults._PLAN, data, offset)
         view = memoryview(data)
         pos = offset
         while view:
@@ -74,6 +90,46 @@ class DiskFile:
             self._size = pos
         return pos - offset
 
+    def _faulted_write(self, plan, data: bytes, offset: int) -> bytes:
+        """Consult the fault plan for this write. Latency/EIO are applied
+        by sync_fault; torn/crash writes are applied here: the kept prefix
+        is persisted and the fault raised, leaving a short record on disk
+        exactly as an interrupted pwrite chain would."""
+        ev = faults.sync_fault(
+            plan, "write_at", self._path, allow_partial=True, corruptable=True
+        )
+        if ev is None:
+            return data
+        if ev.kind == "bitflip":
+            # silent write-path corruption: the flipped bytes are what
+            # lands on disk (and what any verify-after-write would see) —
+            # the canonical seed for scrub-detection tests
+            return faults.apply_bitflip(ev, data, offset)
+        if ev.kind in ("torn", "crash"):
+            rule = ev.rule
+            if rule.at_offset is not None:
+                keep = max(0, min(len(data), rule.at_offset - offset))
+            elif rule.keep is not None:
+                keep = min(rule.keep, len(data))
+            else:
+                keep = ev.rng.randrange(len(data) + 1)
+            view = memoryview(data)[:keep]
+            pos = offset
+            while view:
+                n = os.pwrite(self._fd, view, pos)
+                view = view[n:]
+                pos += n
+            if pos > self._size:
+                self._size = pos
+            if ev.kind == "crash":
+                plan.mark_dead()
+                raise faults.SimulatedCrash(
+                    f"crash after {keep}/{len(data)} bytes at "
+                    f"{self._path}:{offset}"
+                )
+            raise faults.injected_eio(self._path)
+        return data
+
     def append(self, data: bytes) -> int:
         """Append at current end; returns the offset written at."""
         end = self.size()
@@ -81,10 +137,14 @@ class DiskFile:
         return end
 
     def truncate(self, size: int) -> None:
+        if faults._PLAN is not None:
+            faults.sync_fault(faults._PLAN, "truncate", self._path)
         os.ftruncate(self._fd, size)
         self._size = size
 
     def sync(self) -> None:
+        if faults._PLAN is not None:
+            faults.sync_fault(faults._PLAN, "sync", self._path)
         os.fsync(self._fd)
 
     def size(self) -> int:

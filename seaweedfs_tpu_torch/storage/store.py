@@ -3,9 +3,10 @@
 
 Ported from the JAX package's storage/store.py with its heartbeat
 collectors and delta queues (`collect_heartbeat`, `collect_ec_heartbeat`,
-`collect_volume_digests` with the vacuum plane's fields, `drain_deltas`,
-`note_ec_shards_changed`, `note_volume_changed`); the anti-entropy digest,
-lifecycle and cold-tier collectors wait with their master planes. One `device` is
+`collect_volume_digests` with the anti-entropy plane's content digest and
+append frontier and the vacuum plane's garbage ratio, `drain_deltas`,
+`note_ec_shards_changed`, `note_volume_changed`); the lifecycle plane's
+heat and the cold-tier collectors wait with their master planes. One `device` is
 passed down to every location, volume and EC volume: the card unless the
 caller asks for the CPU.
 """
@@ -177,8 +178,11 @@ class Store:
             "ttl": v.super_block.ttl.to_u32(),
             "compact_revision": v.super_block.compaction_revision,
             "modified_at_second": int(v.last_modified_ts_seconds),
+            # anti-entropy fields: order-independent live-content digest +
+            # append frontier let the master spot diverged/stale replicas
+            # from heartbeats alone; scrub_corrupt marks a quarantined copy
+            "content_digest": v.content_digest(),
             "append_at_ns": v.last_append_at_ns,
-            # scrub_corrupt marks a quarantined copy
             "scrub_corrupt": v.scrub_corrupt,
             # vacuum plane: the garbage ratio rides every heartbeat so the
             # master's vacuum scheduler can rank candidates without an RPC
@@ -188,21 +192,25 @@ class Store:
         }
 
     def collect_volume_digests(self) -> list[dict]:
-        """Lightweight per-pulse refresh: full volume messages only travel
-        at stream connect and on add/remove deltas, so steady-state writes
-        and deletes would leave the master ranking vacuum candidates off
-        stale garbage ratios. This slim message rides every few heartbeat
-        ticks instead (the JAX package's also carries the content digest,
-        append frontier, size and heat its other planners read)."""
+        """Lightweight per-pulse digest refresh: full volume messages only
+        travel at stream connect and on add/remove deltas, so steady-state
+        writes would leave the master comparing stale digests and ranking
+        vacuum candidates off stale garbage ratios. This slim message (id
+        + digest + frontier + corrupt flag + garbage ratio + size) rides
+        every few heartbeat ticks instead (the JAX package's also carries
+        the heat its lifecycle planner reads)."""
         out = []
         for loc in self.locations:
             for v in list(loc.volumes.values()):
                 out.append(
                     {
                         "id": v.id,
+                        "content_digest": v.content_digest(),
+                        "append_at_ns": v.last_append_at_ns,
                         "read_only": v.is_read_only(),
                         "scrub_corrupt": v.scrub_corrupt,
                         "garbage_ratio": round(v.garbage_level(), 4),
+                        "size": v.data_file_size(),
                     }
                 )
         return out

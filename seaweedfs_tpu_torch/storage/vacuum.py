@@ -35,8 +35,10 @@ host in both packages, and for one volume both write byte-identical
 `.ldb` and `.sdx` derived from the old .idx — the sqlite map trusts a
 `.ldb` newer than its `.idx`, and the renamed `.cpx` is older than the
 `.ldb` the close just touched, so the JAX package's reload keeps the old
-offsets. The fault-injection seams (util/faults.py) are not ported: the
-copy reads spans with plain preads.
+offsets. Under an installed fault plan (util/faults.py) the copy takes
+the pread route extent by extent through the DiskFile seam, as the JAX
+package's does, so injected bit flips, EIO and crashes fire on every byte
+it reads and writes.
 """
 
 from __future__ import annotations
@@ -56,6 +58,7 @@ from ..types import (
     to_actual_offset,
     to_offset_units,
 )
+from ..util import faults
 from ..util.metrics import SCRUB_BYTES, VACUUM_STAGE_SECONDS
 from .backend import DiskFile
 from .idx import entries_to_bytes, entry_to_bytes, parse_entry, parse_index_bytes
@@ -605,7 +608,9 @@ def _copy_extents_pread(
     (consecutive extents plus bounded dead gaps — one syscall per
     multi-MB span instead of one per record) while the main thread
     verifies (optionally), gathers the live bytes in one vectorized pass
-    and writes them IN ORDER."""
+    and writes them IN ORDER. With an active fault plan the reader goes
+    through the DiskFile read seam extent by extent instead, so injected
+    bitflips/EIO/crashes fire exactly as on any other read."""
     import queue as _queue
 
     if stages is None:
@@ -613,7 +618,14 @@ def _copy_extents_pread(
     done = object()
     ring: _queue.Queue = _queue.Queue(maxsize=RING_DEPTH)
     stop = threading.Event()
-    spans = _span_batches(extents)
+    seam = faults._PLAN is not None
+    if seam:
+        spans = [
+            (extents[i][0], extents[i][1], i, i + 1)
+            for i in range(len(extents))
+        ]
+    else:
+        spans = _span_batches(extents)
 
     def put(item) -> None:
         while not stop.is_set():
@@ -625,27 +637,41 @@ def _copy_extents_pread(
 
     def reader() -> None:
         fd = None
+        src = None
         try:
-            fd = os.open(src_path, os.O_RDONLY)
+            if seam:
+                src = DiskFile(src_path, create=False, read_only=True)
+            else:
+                fd = os.open(src_path, os.O_RDONLY)
             for si, (span_start, width, i_lo, i_hi) in enumerate(spans):
                 if stop.is_set():
                     return
                 t0 = time.perf_counter()
-                buf = bytearray(width)
-                mv = memoryview(buf)
-                pos = 0
-                while pos < width:
-                    n = os.preadv(fd, [mv[pos:width]], span_start + pos)
-                    if n == 0:
-                        raise IOError(f"short read at {span_start}")
-                    pos += n
-                mv.release()
+                if seam:
+                    buf = src.read_at(width, span_start)
+                    if len(buf) < width:
+                        raise IOError(
+                            f"short read at {span_start}: "
+                            f"{len(buf)} < {width}"
+                        )
+                else:
+                    buf = bytearray(width)
+                    mv = memoryview(buf)
+                    pos = 0
+                    while pos < width:
+                        n = os.preadv(fd, [mv[pos:width]], span_start + pos)
+                        if n == 0:
+                            raise IOError(f"short read at {span_start}")
+                        pos += n
+                    mv.release()
                 _stage_add(stages, "read_s", time.perf_counter() - t0)
                 put((si, buf))
             put(done)
-        except BaseException as e:
+        except BaseException as e:  # incl. SimulatedCrash (BaseException)
             put(e)
         finally:
+            if src is not None:
+                src.close()
             if fd is not None:
                 os.close(fd)
 
@@ -814,7 +840,13 @@ def _copy_data_based_on_index_file(
     _stage_add(stages, "plan_s", time.perf_counter() - t0)
 
     if route is None:
-        route = _calibrate_vacuum_route()
+        # an active fault plan must see every byte cross the read/write
+        # seams — mmap views would bypass the read seam entirely
+        route = (
+            "pread"
+            if faults._PLAN is not None
+            else _calibrate_vacuum_route()
+        )
     route_info = {
         "route": route, "extents": len(extents), "records": len(keys),
     }

@@ -17,8 +17,9 @@ Ported from the JAX package's storage/volume.py: every needle map kind
 (`memory`, `lsm`, the sqlite-backed `leveldb` and the read-only
 `sorted`), the vacuum's compaction state and its shadow sweep at load,
 torn-tail recovery, writes, deletes, reads, scans, the scrub quarantine
-flag, the garbage level and bulk lookups. Not ported yet: tiered
-(remote) .dat files and content digests.
+flag, the garbage level, the replicas' content digest (`digest_fold`,
+`Volume.content_digest`) and bulk lookups. Not ported yet: tiered
+(remote) .dat files.
 """
 
 from __future__ import annotations
@@ -274,6 +275,27 @@ def recover_torn_tail(
     return stats
 
 
+def digest_fold(keys, sizes) -> int:
+    """XOR-fold of splitmix64-mixed (key, size) terms over live index
+    columns — the commutative content digest replicas compare. Pure
+    integer arithmetic (never Python hash(): that is salted per process,
+    and replicas live in different processes). numpy, not torch: torch
+    on the CPU has no uint64 shifts."""
+    import numpy as np
+
+    if len(keys) == 0:
+        return 0
+    x = np.asarray(keys, dtype=np.uint64) ^ (
+        np.asarray(sizes, dtype=np.uint64) * np.uint64(0x9E3779B97F4A7C15)
+    )
+    x ^= x >> np.uint64(30)
+    x *= np.uint64(0xBF58476D1CE4E5B9)
+    x ^= x >> np.uint64(27)
+    x *= np.uint64(0x94D049BB133111EB)
+    x ^= x >> np.uint64(31)
+    return int(np.bitwise_xor.reduce(x))
+
+
 class Volume:
     def __init__(
         self,
@@ -305,6 +327,8 @@ class Volume:
         self._lock = threading.RLock()
         # the scrub quarantine flag heartbeats carry
         self.scrub_corrupt = False
+        # (needle-map snapshot token, digest): content_digest's memo
+        self._digest_cache: Optional[tuple] = None
         # lifecycle plane: decayed read/write heat, restored from the
         # sidecar so a clean restart keeps the volume's temperature
         from .heat import HeatTracker
@@ -503,6 +527,31 @@ class Volume:
 
     def is_read_only(self) -> bool:
         return self.no_write_or_delete
+
+    def content_digest(self) -> int:
+        """Order-independent 64-bit digest of the LIVE content set — the
+        XOR-fold of a mixed (key, size) term per non-deleted needle. Two
+        replicas holding the same needles report the same digest no matter
+        how their appends interleaved on disk, so the master can compare
+        digests straight off heartbeats to catch diverged/stale replicas
+        (the anti-entropy plane's cheap invariant). Memoized on the needle
+        map's mutation token: steady state costs a token compare."""
+        with self._lock:
+            try:
+                token = self.nm.snapshot_token()
+            except Exception:
+                token = None
+            cached = self._digest_cache
+            if token is not None and cached is not None and cached[0] == token:
+                return cached[1]
+            try:
+                keys, _offsets, sizes = self.nm.snapshot()
+            except Exception:
+                return 0
+            d = digest_fold(keys, sizes)
+            if token is not None:
+                self._digest_cache = (token, d)
+            return d
 
     def quarantine(self, reason: str) -> None:
         """Scrub (or a verified vacuum) found latent damage: freeze writes

@@ -2,14 +2,19 @@
 plane (planning is pure and unit-testable; dispatch lives in
 `server/master.py`).
 
-Each finding becomes a `RepairTask` in a prioritized queue, dispatched
-under a concurrency cap with full-jitter backoff on repeated failures so
-a broken target cannot hot-loop the scheduler.
+Heartbeats are the sensor: a node silent past the grace period no longer
+counts as a holder, so its EC shards show up as missing; a scrub
+quarantine arrives as `scrub_corrupt` on a volume message; a stale
+replica shows a digest that disagrees while its append frontier trails.
+Each finding becomes a `RepairTask` in a prioritized queue — EC volumes
+closest to unrecoverable first (fewest surviving shards), then replica
+repairs — dispatched under a concurrency cap with full-jitter backoff on
+repeated failures so a broken target cannot hot-loop the scheduler.
 
-Ported from the JAX package's topology/repair.py: `RepairTask` and
-`RepairQueue`, which the master's vacuum scheduler drives
-(topology/vacuum_plan.py). The repair planners (EC rebuilds, replica
-recopies, tail syncs) come with the anti-entropy plane, not ported yet.
+Ported from the JAX package's topology/repair.py: `RepairTask`,
+`RepairQueue` (which the master's vacuum scheduler drives too,
+topology/vacuum_plan.py) and the planners `plan_ec_repairs`,
+`find_unresolved_divergence` and `plan_replica_repairs`.
 """
 
 from __future__ import annotations
@@ -137,3 +142,115 @@ class RepairQueue:
                 self._tasks.values(), key=lambda t: (t.priority, t.vid)
             )
         ]
+
+
+# ---------------------------------------------------------------- planners --
+
+
+def plan_ec_repairs(ec_states: list[dict]) -> list[RepairTask]:
+    """EC repair planning over heartbeat-derived state.
+
+    ec_states: [{vid, collection, total_shards, data_shards?, holders:
+    {shard_id: [live urls]}}] where `holders` already excludes nodes
+    silent past the grace period. A volume missing shards becomes one
+    task whose priority is its surviving-shard count — the queue then
+    repairs the volumes closest to data loss first."""
+    tasks = []
+    for st in ec_states:
+        total = int(st["total_shards"])
+        holders = st["holders"]
+        present = [s for s in range(total) if holders.get(s)]
+        missing = [s for s in range(total) if not holders.get(s)]
+        if not missing:
+            continue
+        tasks.append(
+            RepairTask(
+                kind="ec_rebuild",
+                vid=int(st["vid"]),
+                collection=st.get("collection", ""),
+                priority=len(present),
+                missing=missing,
+                survivors=len(present),
+            )
+        )
+    tasks.sort(key=lambda t: (t.priority, t.vid))
+    return tasks
+
+
+def find_unresolved_divergence(volume_states: dict) -> list[int]:
+    """Volumes whose healthy replicas disagree on digest while their
+    append frontiers are EQUAL — content diverged in the middle (e.g. a
+    torn-tail truncation later papered over by new appends), which the
+    tail path cannot fix and no automatic repair can arbitrate. These
+    must be VISIBLE (gauge + log) rather than silently skipped."""
+    out = []
+    for vid, replicas in volume_states.items():
+        healthy = [r for r in replicas if not r.get("scrub_corrupt")]
+        if len(healthy) < 2:
+            continue
+        top = max(int(r.get("append_at_ns", 0)) for r in healthy)
+        at_top = [
+            int(r.get("content_digest", 0))
+            for r in healthy
+            if int(r.get("append_at_ns", 0)) == top
+        ]
+        if len(at_top) > 1 and len(set(at_top)) > 1:
+            out.append(vid)
+    return sorted(out)
+
+
+def plan_replica_repairs(volume_states: dict) -> list[RepairTask]:
+    """Replica anti-entropy planning.
+
+    volume_states: {vid: [{url, collection, content_digest, append_at_ns,
+    scrub_corrupt, read_only}, ...]} — one entry per live replica holder.
+
+    Two findings, in repair order:
+    - a scrub-quarantined replica with at least one healthy peer is
+      re-copied whole from that peer (`replica_recopy`): bit rot cannot be
+      fixed by appending;
+    - replicas whose digests disagree while their append frontier trails
+      the freshest copy are caught up through the incremental tail path
+      (`tail_sync`) — the cheap fix for a replica that missed writes.
+    """
+    tasks = []
+    for vid, replicas in volume_states.items():
+        if len(replicas) < 2:
+            continue
+        healthy = [r for r in replicas if not r.get("scrub_corrupt")]
+        if not healthy:
+            continue  # nothing trustworthy to copy from
+        freshest = max(healthy, key=lambda r: int(r.get("append_at_ns", 0)))
+        for r in replicas:
+            if r.get("scrub_corrupt"):
+                tasks.append(
+                    RepairTask(
+                        kind="replica_recopy",
+                        vid=vid,
+                        collection=r.get("collection", ""),
+                        priority=len(healthy),
+                        survivors=len(healthy),
+                        target=r["url"],
+                        source=freshest["url"],
+                    )
+                )
+                continue
+            if (
+                int(r.get("content_digest", 0))
+                != int(freshest.get("content_digest", 0))
+                and int(r.get("append_at_ns", 0))
+                < int(freshest.get("append_at_ns", 0))
+            ):
+                tasks.append(
+                    RepairTask(
+                        kind="tail_sync",
+                        vid=vid,
+                        collection=r.get("collection", ""),
+                        priority=len(healthy),
+                        survivors=len(healthy),
+                        target=r["url"],
+                        source=freshest["url"],
+                    )
+                )
+    tasks.sort(key=lambda t: (t.priority, t.vid))
+    return tasks

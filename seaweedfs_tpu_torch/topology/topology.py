@@ -233,11 +233,12 @@ class Topology(Node):
             ],
         }
 
-    # --- state snapshots (consumed by topology/vacuum_plan.py) ---
+    # --- anti-entropy state snapshots (topology/repair.py, placement.py,
+    # vacuum_plan.py) ---
     def live_data_nodes(self, grace_seconds: float) -> list[DataNode]:
         """Nodes whose heartbeats are fresh. A node silent past the grace
         period stops counting as a holder — the heartbeat-driven failure
-        detector feeding the vacuum scheduler (a broken stream already
+        detector feeding the repair scheduler (a broken stream already
         unregisters the node; this also catches a hung one that keeps the
         stream open without pulsing)."""
         now = time.time()
@@ -247,12 +248,39 @@ class Topology(Node):
             if now - dn.last_seen <= grace_seconds
         ]
 
+    def ec_states(self, live_urls: Optional[set] = None) -> list[dict]:
+        """Per-EC-volume holder map restricted to live nodes, in the shape
+        `repair.plan_ec_repairs` consumes."""
+        out = []
+        with self._ec_lock:
+            for (collection, vid), locs in self.ec_shard_map.items():
+                if locs.expected_total == 0:
+                    continue
+                holders: Dict[int, list[str]] = {}
+                for sid in range(locs.expected_total):
+                    urls = [
+                        dn.url
+                        for dn in locs.locations[sid]
+                        if live_urls is None or dn.url in live_urls
+                    ]
+                    if urls:
+                        holders[sid] = urls
+                out.append(
+                    {
+                        "vid": vid,
+                        "collection": collection,
+                        "total_shards": locs.expected_total,
+                        "holders": holders,
+                    }
+                )
+        return out
+
     def replica_states(self, live_urls: Optional[set] = None) -> dict:
-        """{vid: [per-live-replica garbage/corrupt records]} for
+        """{vid: [per-live-replica digest/frontier/corrupt/garbage
+        records]} for `repair.plan_replica_repairs` and
         `vacuum_plan.plan_vacuums`, read straight off the volume infos
         heartbeats delivered (the JAX package's records also carry the
-        digest, frontier, size and heat its repair and lifecycle planners
-        read)."""
+        heat its lifecycle planner reads)."""
         states: Dict[int, list[dict]] = {}
         for dn in self.data_nodes():
             if live_urls is not None and dn.url not in live_urls:
@@ -262,9 +290,64 @@ class Topology(Node):
                     {
                         "url": dn.url,
                         "collection": info.get("collection", ""),
+                        "content_digest": int(info.get("content_digest", 0)),
+                        "append_at_ns": int(info.get("append_at_ns", 0)),
                         "scrub_corrupt": bool(info.get("scrub_corrupt")),
                         "read_only": bool(info.get("read_only")),
                         "garbage_ratio": float(info.get("garbage_ratio", 0.0)),
+                        "size": int(info.get("size", 0)),
                     }
                 )
         return states
+
+    def placement_states(self, live_urls: Optional[set] = None) -> list[dict]:
+        """Per-volume replica placement snapshot — each volume's layout
+        `ReplicaPlacement` plus its live holders' (dc, rack) domains, in
+        the shape `placement.plan_replica_spread` consumes."""
+        out = []
+        with self._lock:
+            collections = list(self.collections.items())
+        for cname, col in collections:
+            for layout in col.layouts():
+                rp_byte = layout.replica_placement.to_byte()
+                with layout._lock:
+                    vid_locs = {
+                        vid: list(locs)
+                        for vid, locs in layout.vid_to_locations.items()
+                    }
+                for vid, locs in vid_locs.items():
+                    holders = [
+                        {
+                            "url": dn.url,
+                            "dc": dn.data_center.id if dn.data_center else "",
+                            "rack": dn.rack.id if dn.rack else "",
+                        }
+                        for dn in locs
+                        if live_urls is None or dn.url in live_urls
+                    ]
+                    if holders:
+                        out.append(
+                            {
+                                "vid": int(vid),
+                                "collection": cname,
+                                "replica_placement": rp_byte,
+                                "holders": holders,
+                            }
+                        )
+        return out
+
+    def placement_candidates(
+        self, live_urls: Optional[set] = None
+    ) -> list[dict]:
+        """Every live node with its failure domains and free slots — the
+        move-target pool for placement repair planning."""
+        return [
+            {
+                "url": dn.url,
+                "dc": dn.data_center.id if dn.data_center else "",
+                "rack": dn.rack.id if dn.rack else "",
+                "free": dn.free_space(),
+            }
+            for dn in self.data_nodes()
+            if live_urls is None or dn.url in live_urls
+        ]

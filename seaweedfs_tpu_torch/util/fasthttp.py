@@ -10,8 +10,9 @@ protocol (`FastHTTPProtocol`), keep-alive and pipelining, chunked request
 bodies, `render_response`, `parse_multipart` and the `DETACHED` /
 `finish_detached` continuation a batch flush writes its responses from.
 Left out with the fallback: the proxy to the second app; the overload
-admission, tenancy and fault seams. The outbound keep-alive client
-(`FastHTTPClient`) is the JAX one with its per-peer circuit breakers
+admission and tenancy seams (the fault plane's server seam lives in
+server/serving_core.py). The outbound keep-alive client
+(`FastHTTPClient`) is the JAX one with its fault seam, per-peer circuit breakers
 (util/overload.py), Retry-After bookkeeping (`parse_retry_after`,
 `retry_after_remaining`) and retry budget deposits, without its trace
 and tenant headers: the replication fan-out, the not-local redirect's
@@ -32,7 +33,7 @@ import time
 from collections import deque
 from typing import Awaitable, Callable, Optional
 
-from . import overload
+from . import faults, overload
 from .backoff import shared_retry_budget
 
 DETACHED = object()  # sentinel: "the handler will write the response itself
@@ -882,6 +883,36 @@ class FastHTTPClient:
                 f"circuit open to {hostport} (peer failing/shedding)"
             )
         left = timeout
+        plan = faults._PLAN
+        if plan is not None:
+            # fault-injection seam: latency sleeps, resets raise, and
+            # http_error rules synthesize a 5xx as if the peer degraded
+            try:
+                ev = await faults.async_fault(
+                    plan, f"http:{method}", hostport, timeout=timeout
+                )
+            except asyncio.CancelledError:
+                # abandoned mid-sleep: no verdict on the peer, but a held
+                # half-open probe slot must be returned
+                if br is not None:
+                    br.record_cancelled()
+                raise
+            except Exception:
+                if br is not None:
+                    br.record_failure()
+                raise
+            if ev is not None and ev.kind == "http_error":
+                if br is not None:
+                    if ev.rule.status in (503, 429):
+                        br.record_shed()
+                    else:
+                        # any other synthesized status still proves the
+                        # peer answered; a half-open probe needs an outcome
+                        br.record_success()
+                return ev.rule.status, b'{"error":"injected fault"}', b""
+            if timeout is not None:
+                # one deadline across the injected wait, connect and response
+                left = max(0.001, timeout - (time.monotonic() - t0))
         try:
             conn = await self._get(hostport, left)
         except asyncio.CancelledError:

@@ -262,6 +262,15 @@ SCRUB_BYTES = REGISTRY.counter(
     "seaweedfs_tpu_scrub_bytes_total",
     "bytes read and verified by the scrubber, by kind (dat/idx/ec)",
 )
+SCRUB_CORRUPTIONS = REGISTRY.counter(
+    "seaweedfs_tpu_scrub_corruptions_found_total",
+    "latent damage found by scrub, by kind (needle_crc/needle_id/"
+    "idx_extent/ec_data/ec_parity/ec_shard_size/ec_unidentified)",
+)
+SCRUB_PASSES = REGISTRY.counter(
+    "seaweedfs_tpu_scrub_passes_total",
+    "completed scrub passes, by plane (volume/ec)",
+)
 MAINTENANCE_BYTES = REGISTRY.counter(
     "seaweedfs_tpu_maintenance_bytes_total",
     "bytes charged to the shared maintenance I/O budget, by plane "
@@ -272,14 +281,39 @@ MAINTENANCE_YIELDS = REGISTRY.counter(
     "maintenance budget consumes that yielded extra time to foreground "
     "pressure (admission gates shedding/queueing), by plane",
 )
+ANTIENTROPY_RESYNCS = REGISTRY.counter(
+    "seaweedfs_tpu_antientropy_resyncs_total",
+    "replica repairs dispatched by digest/scrub anti-entropy, by kind "
+    "(tail_sync = catch-up append replay, recopy = full re-pull of a "
+    "quarantined replica)",
+)
 REPAIR_QUEUE_DEPTH = REGISTRY.gauge(
     "seaweedfs_tpu_repair_queue_depth",
     "repair tasks currently queued on the master (fewest-survivors-first)",
+)
+ANTIENTROPY_DIVERGED = REGISTRY.gauge(
+    "seaweedfs_tpu_antientropy_diverged_volumes",
+    "volumes whose healthy replicas disagree on content digest with EQUAL "
+    "append frontiers — divergence the tail path cannot fix (operator "
+    "action: volume.fsck / re-replicate); refreshed every scheduler scan",
 )
 REPAIR_SECONDS = REGISTRY.histogram(
     "seaweedfs_tpu_repair_seconds",
     "wall seconds per dispatched repair, by kind (ec_rebuild/replica_"
     "recopy/tail_sync/vacuum) and result (ok/error/skipped)",
+)
+PLACEMENT_VIOLATIONS = REGISTRY.gauge(
+    "seaweedfs_tpu_placement_violations",
+    "volumes/EC volumes whose current holders violate placement policy, "
+    "by kind (replica_spread = replicas packed below the ReplicaPlacement "
+    "rack/DC spread, ec_domain = one failure domain holds more EC shards "
+    "than the volume can lose); refreshed every anti-entropy scan",
+)
+
+# the fault plane (util/faults.py)
+FAULTS_INJECTED = REGISTRY.counter(
+    "seaweedfs_tpu_faults_injected_total",
+    "faults fired by the active injection plan, by op/kind",
 )
 
 

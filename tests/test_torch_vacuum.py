@@ -8,6 +8,11 @@
 - the three states of the shadow sweep, each at volume load; verify on
   bit rot (CorruptLiveRecord, the quarantine, no shadow left); a second
   compaction and a quarantined volume refused;
+- under a fault plan (util/faults.py) the copy goes through each
+  package's DiskFile seams: a simulated crash mid-.cpd write leaves the
+  same torn shadow, which the reload sweeps; bit rot planted by the write
+  seam is caught by the verified vacuum reading extent by extent
+  (tests/test_vacuum_plane.py);
 - `plan_vacuums`, `RepairQueue` and the maintenance budget on seeded
   inputs;
 - `bulk_lookup` (K1's plain version) before and after a commit on the
@@ -36,10 +41,12 @@ from seaweedfs_tpu.storage import vacuum as jax_vacuum
 from seaweedfs_tpu.storage.needle import Needle as JaxNeedle
 from seaweedfs_tpu.storage.ttl import TTL as JaxTTL
 from seaweedfs_tpu.storage.volume import Volume as JaxVolume
+from seaweedfs_tpu.util import faults as jax_faults
 from seaweedfs_tpu_torch.storage import vacuum
 from seaweedfs_tpu_torch.storage.needle import Needle
 from seaweedfs_tpu_torch.storage.volume import Volume
 from seaweedfs_tpu_torch.types import to_actual_offset
+from seaweedfs_tpu_torch.util import faults
 
 
 def _port_volume(*a, **kw):
@@ -221,6 +228,75 @@ def test_verify_catches_bitrot_and_quarantines_as_jax(tmp_path):
         v.close()
     assert out["port"] == out["jax"]
     assert out["port"][1:4] == (True, True, False)
+
+
+PLANES = (("jax", JaxVolume, JaxNeedle, jax_vacuum, jax_faults),
+          ("port", _port_volume, Needle, vacuum, faults))
+
+
+def _seam_events(fm) -> list:
+    return [(op, os.path.basename(t), k) for op, t, k in fm.current_plan().events]
+
+
+def test_kill_point_mid_cpd_write_recovers_as_jax(tmp_path):
+    """A simulated crash mid-.cpd write (the write seam's `crash`, keep
+    100 bytes) leaves the same torn shadow in both packages; the reload
+    sweeps it and serves the full pre-vacuum content."""
+    src, live = _jax_volume_dir(tmp_path, seed=6)
+    out = {}
+    for name, vol, _needle, vac, fm in PLANES:
+        d = _clone(src, tmp_path / name)
+        v = vol(str(d), "", 1, create=False)
+        fm.install_plan(fm.FaultPlan(seed=5, rules=[fm.FaultRule(
+            op="write_at", target="*.cpd", nth=2, fault="crash", keep=100)]))
+        try:
+            with pytest.raises(fm.SimulatedCrash):
+                vac.compact2(v)
+            torn = (_seam_events(fm), (d / "1.cpd").read_bytes())
+        finally:
+            fm.clear_plan()
+        v.close()
+        v2 = vol(str(d), "", 1, create=False)
+        reads = {k: bytes(v2.read_needle_by_key(k).data) for k in live}
+        out[name] = (torn, sorted(os.listdir(d)), v2.is_read_only(), reads)
+        v2.close()
+    assert out["port"] == out["jax"]
+    (events, cpd), names, read_only, reads = out["port"]
+    assert events[-1] == ("write_at", "1.cpd", "crash") and len(cpd) > 8
+    assert "1.cpd" not in names and "1.cpx" not in names and not read_only
+    assert reads == live
+
+
+def test_verified_vacuum_under_a_plan_catches_seam_bitrot_as_jax(tmp_path):
+    """Bit rot planted by the write seam's `bitflip` in a live record; the
+    verified vacuum then runs under a plan whose read rule fires on every
+    .dat read (a zero-delay latency), so the copy reads extent by extent
+    through the seam, and both packages abort with the same finding."""
+    out = {}
+    for name, vol, needle, vac, fm in PLANES:
+        d = tmp_path / name
+        d.mkdir()
+        v = vol(str(d), "", 1)
+        _history(v, needle, 8, n=40)
+        at = v.data_file_size() + 16 + 20  # inside the next record's data
+        fm.install_plan(fm.FaultPlan(seed=3, rules=[fm.FaultRule(
+            op="write_at", target="*.dat", nth=1, fault="bitflip",
+            at_offset=at, bits=2)]))
+        v.write_needle(needle(id=500, cookie=1500, data=b"rot" * 100))
+        fm.install_plan(fm.FaultPlan(seed=3, rules=[fm.FaultRule(
+            op="read_at", target="*.dat", fault="latency", probability=1.0)]))
+        try:
+            with pytest.raises(vac.CorruptLiveRecord) as e:
+                vac.compact2(v, verify=True)
+            reads = len(_seam_events(fm))
+        finally:
+            fm.clear_plan()
+        out[name] = (str(e.value), reads, v.scrub_corrupt, v.is_read_only(),
+                     sorted(os.listdir(d)))
+        v.close()
+    assert out["port"] == out["jax"]
+    assert out["port"][1] > 1 and out["port"][2:4] == (True, True)
+    assert "1.cpd" not in out["port"][4]
 
 
 def test_second_compaction_and_quarantine_refused_as_jax(tmp_path):

@@ -467,7 +467,7 @@ def test_not_ported_shapes_answer_501(tmp_path):
                 st, _, got = await _http(pvs.port, method, path + q, data)
                 out.append((st, got.startswith(b'{"error": "not ported')))
             with pytest.raises(RpcError) as e:
-                await stub.call("VolumeCopy", {"volume_id": 9})
+                await stub.call("VolumeConfigure", {"volume_id": 9})
             assert e.value.status == 501
             st, _, got = await _http(pvs.port, "GET", "/metrics")
             assert st == 200 and b"seaweedfs_tpu_request_total" in got
